@@ -242,8 +242,6 @@ class StitchCompiler:
         hw: HardwareModel = H100,
         mode: str = "stitch",
         gen_cfg: GenConfig | None = None,
-        execution_based_eval: bool = False,
-        use_triton: bool = True,
         plan_budget: float | None = None,
         verify: str = "plans",
     ):
@@ -256,8 +254,7 @@ class StitchCompiler:
         # degrades to the greedy heuristic (None = solve to optimality)
         self.plan_budget = plan_budget
         self.cost = CostModel(hw, reg_budget=self.gen_cfg.reg_budget)
-        self.tuner = TemplateTuner(hw, execution_based=execution_based_eval)
-        self.use_triton = use_triton
+        self.tuner = TemplateTuner(hw)
         # Static verification level (repro_torch.analysis): "plans" runs the
         # plan verifier post-ILP/pre-tune and refuses ERROR plans; "full"
         # also runs the IR verifier on the graph; "off" skips both.
@@ -384,7 +381,7 @@ class StitchCompiler:
                     stats.packs += 1
                     stats.packed_subgraphs += len(pack)
                 tuned = None
-                if self.mode == "stitch" and self.use_triton:
+                if self.mode == "stitch":
                     tuned = self.tuner.tune(p)
                 if tuned is not None:
                     groups.append(_Group(p.members, "triton", tuned, pack))

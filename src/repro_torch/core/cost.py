@@ -346,7 +346,7 @@ class CostModel:
         return PatternScore(p, score, True, "model", total_req, saved,
                             n_kernels - 1, reg)
 
-    def score_execution_based(self, p: FusionPattern, measured_fused: float | None = None) -> PatternScore:
+    def score_execution_based(self, p: FusionPattern) -> PatternScore:
         n_kernels = len(p.compute_members)
         if n_kernels < 2:
             return PatternScore(p, -1.0, False, "singleton", 0, 0, 0)
@@ -362,7 +362,7 @@ class CostModel:
                 total_req, 0, 0, reg,
             )
         unfused = sum(self.kernel_time(p.graph, n.name) for n in p.compute_members)
-        fused = measured_fused if measured_fused is not None else self.fused_time(p)
+        fused = self.fused_time(p)
         score = unfused + (n_kernels - 1) * self.hw.launch_latency - fused
         feasible = score >= 0
         return PatternScore(

@@ -5,14 +5,12 @@ parallelization / scratch / launch trade-offs), run RegisterPlanning and
 SharedPlanning (volume + layout constraints; Alg. 4 reuse), generate the
 kernel per schedule kind, evaluate, keep the best.
 
-Evaluation is model-based by default (fast, the paper's JIT story) and
-execution-based on request (times the generated kernel on sample inputs —
-the "optimize once, run many times" offline path).
+Evaluation is model-based (the paper's JIT story); timing candidates on
+sample inputs comes with the plan-cache slice.
 """
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -42,8 +40,6 @@ class TunedKernel:
     template: Template
     scratch_plan: ScratchPlan
     modeled_time: float
-    measured_time: float | None = None
-    backend: str = "triton"     # "triton" | "torch" (fallback)
     callable: Callable | None = field(default=None, repr=False)
 
 
@@ -79,7 +75,7 @@ def _diagnostic(p: FusionPattern, stage: str, err: Exception) -> dict:
     being silently swallowed into a fused-torch fallback."""
     members = sorted(n.name for n in p.compute_members)
     return {
-        "stage": stage,                  # "analyze" | "build" | "measure"
+        "stage": stage,                  # "analyze" | "build"
         "pattern_class": p.pattern_class,
         "members": members[:8],
         "n_members": len(members),
@@ -112,12 +108,10 @@ def generate_templates(
     KernelEvalUpdate can pick.  An infeasible pattern yields no templates;
     when ``diagnostics`` is given the reason is appended to it.
     """
-    from repro_torch.kernels.stitched import (StitchInfeasible, analyze_pattern,
-                                              check_emittable)
+    from repro_torch.kernels.stitched import StitchInfeasible, emission_plan
 
     try:
-        ana = analyze_pattern(p)
-        check_emittable(p, ana)
+        _, ana = emission_plan(p)
     except StitchInfeasible as err:
         _note_diagnostic(diagnostics, p, "analyze", err)
         return []
@@ -150,10 +144,9 @@ class TemplateTuner:
     # many graphs and only the recent tail is useful for debugging
     MAX_DIAGNOSTICS = 256
 
-    def __init__(self, hw: HardwareModel = TPU_V5E, execution_based: bool = False):
+    def __init__(self, hw: HardwareModel = TPU_V5E):
         self.hw = hw
         self.cost = CostModel(hw)
-        self.execution_based = execution_based
         # structured StitchInfeasible records (see _diagnostic); the compiler
         # snapshots the slice produced by each graph's tuning run into
         # FusionStats.diagnostics
@@ -205,24 +198,7 @@ class TemplateTuner:
         return [(tuple(s), str(d)) for s, d in zip(shapes, dtypes)] == want
 
     # -- KernelEvalUpdate -----------------------------------------------------
-    def _measure(self, fn: Callable, args: list, repeats: int = 3) -> float:
-        import torch
-
-        def sync():
-            if any(getattr(a, "is_cuda", False) for a in args):
-                torch.cuda.synchronize()
-
-        fn(*args)  # warmup (kernel build)
-        sync()
-        best = float("inf")
-        for _ in range(repeats):
-            t0 = time.perf_counter()
-            fn(*args)
-            sync()
-            best = min(best, time.perf_counter() - t0)
-        return best
-
-    def tune(self, p: FusionPattern, sample_inputs: list | None = None) -> TunedKernel | None:
+    def tune(self, p: FusionPattern) -> TunedKernel | None:
         from repro_torch.kernels.stitched import StitchInfeasible, build_stitched_callable
 
         templates = generate_templates(p, self.cost,
@@ -234,9 +210,7 @@ class TemplateTuner:
                 continue  # infeasible template (paper: skip)
             rb = grid_row_block(template)
             try:
-                fn = build_stitched_callable(
-                    p, row_block=rb, scratch_ops=template.scratch_ops
-                )
+                fn = build_stitched_callable(p, row_block=rb)
             except StitchInfeasible as err:
                 self._note_infeasible(p, "build", err)
                 continue
@@ -244,71 +218,11 @@ class TemplateTuner:
             # tiny grid-utilization nudge: prefer sublane-aligned row blocks
             if rb and rb % 8:
                 modeled *= 1.05
-            measured = None
-            if self.execution_based and sample_inputs is not None:
-                try:
-                    measured = self._measure(fn, sample_inputs)
-                except Exception as err:
-                    self._note_infeasible(p, "measure", err)
-                    continue
-            cand = TunedKernel(p, template, plan, modeled, measured, "triton", fn)
-            key = measured if measured is not None else modeled
-            candidates.append((key, i, cand))
+            candidates.append((modeled, i, TunedKernel(p, template, plan,
+                                                       modeled, fn)))
         # best candidate first; abstract validation runs once per pattern in
         # the common case and only walks down on analysis soundness gaps
         for _key, _i, cand in sorted(candidates, key=lambda t: (t[0], t[1])):
             if self.validate(p, cand.callable):
                 return cand
         return None
-
-    # -- plan replay (cache hits) --------------------------------------------
-    def instantiate(
-        self,
-        p: FusionPattern,
-        row_block: int | None = None,
-        scratch_names=(),
-    ) -> TunedKernel | None:
-        """Build ONE kernel from a previously tuned ``(row_block, scratch)``
-        choice, skipping template enumeration and candidate evaluation.
-
-        This is the warm path of a plan cache: the stored choice is
-        re-validated against this pattern's concrete shapes (row blocks are
-        clamped to the feasible set; scratch must fit the on-chip budget),
-        so a plan recorded at a nearby bucketed shape still instantiates
-        soundly or falls back to fused-torch (return None).
-        """
-        from repro_torch.kernels.stitched import (
-            StitchInfeasible, analyze_pattern, build_stitched_callable)
-
-        try:
-            ana = analyze_pattern(p)
-        except StitchInfeasible as err:
-            self._note_infeasible(p, "analyze", err)
-            return None
-        rb = row_block or ana.feasible_blocks[0]
-        if rb not in ana.feasible_blocks:
-            rb = max((b for b in ana.feasible_blocks if b <= rb),
-                     default=ana.feasible_blocks[0])
-        member_names = {n.name for n in p.compute_members}
-        scratch = {n for n in scratch_names if n in member_names}
-        template = Template(tuple(
-            Schedule(
-                node.name,
-                _attrs_for_node(node, rb, seq_small_reduce=False),
-                scratch=node.name in scratch,
-            )
-            for node in p.compute_members
-        ))
-        plan = self.shared_planning(p, template)
-        if plan is None:
-            return None
-        try:
-            fn = build_stitched_callable(
-                p, row_block=rb, scratch_ops=template.scratch_ops)
-        except StitchInfeasible as err:
-            self._note_infeasible(p, "build", err)
-            return None
-        if not self.validate(p, fn):
-            return None
-        return TunedKernel(p, template, plan, self.cost.fused_time(p), None,
-                           "triton", fn)

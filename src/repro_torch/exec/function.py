@@ -9,9 +9,12 @@ Single-device.  Two modes:
 * ``"jit"`` — no stitching: every call runs ``fn`` eagerly.
 
 Tracing is pytree-aware: positional args, kwargs and nested containers
-flatten at the boundary and unflatten on return.  A trace failure or a
-per-call shape drift serves that call through the eager function, counted
-in :meth:`StitchedFunction.report`.
+flatten at the boundary and unflatten on return.  A failure to trace or
+compile raises to the caller: the only route from a chosen pattern to a
+fused-torch group is the emitter's static ``StitchInfeasible``, decided at
+tune time and recorded in the plan's diagnostics.  A per-call shape drift
+(without ``respecialize``) serves that call through the eager function,
+counted in :meth:`StitchedFunction.report`.
 """
 
 from __future__ import annotations
@@ -43,8 +46,7 @@ class _Specialization:
     """One traced-and-compiled (graph, artifact) pair at fixed avals."""
 
     __slots__ = ("status", "graph", "names", "out_names", "out_spec",
-                 "compiled", "in_sig", "placement", "error",
-                 "trace_seconds")
+                 "compiled", "in_sig", "placement", "trace_seconds")
 
     def __init__(self):
         self.status: str | None = None
@@ -55,7 +57,6 @@ class _Specialization:
         self.compiled = None
         self.in_sig = None
         self.placement = ""
-        self.error: str | None = None
         self.trace_seconds = 0.0
 
     @property
@@ -92,7 +93,7 @@ class StitchedFunction:
         self._specs: dict[Any, _Specialization] = {}
         self._active: _Specialization | None = None
         self.stitched_calls = 0          # served through the compiled artifact
-        self.fallback_calls = 0          # drift / trace failure -> eager
+        self.fallback_calls = 0          # shape drift -> eager
         self.jit_calls = 0               # by-design eager ("jit" mode)
 
     # -- argument plumbing -----------------------------------------------------
@@ -123,17 +124,11 @@ class StitchedFunction:
 
         t0 = time.perf_counter()
         with obs.span("exec.trace", cat="exec", fn=self.name, mode=self.mode) as tsp:
-            try:
-                sp.graph, sp.names, sp.out_names, sp.out_spec = trace_to_graph(
-                    run_fn, (args, kwargs), name=self.name, return_outputs=True)
-                sp.trace_seconds = time.perf_counter() - t0
-                sp.compiled = self.compiler.compile(sp.graph)
-                sp.status = "compiled"
-            except Exception as e:          # noqa: BLE001 — degrade to eager
-                sp.status = "error"
-                sp.error = f"{type(e).__name__}: {e}"
-                sp.graph = None
-                sp.compiled = None
+            sp.graph, sp.names, sp.out_names, sp.out_spec = trace_to_graph(
+                run_fn, (args, kwargs), name=self.name, return_outputs=True)
+            sp.trace_seconds = time.perf_counter() - t0
+            sp.compiled = self.compiler.compile(sp.graph)
+            sp.status = "compiled"
             tsp.set(status=sp.status, placement=sp.placement)
         return sp
 
@@ -214,8 +209,9 @@ class StitchedFunction:
                 "verify": s.verify}
 
     def report(self) -> dict:
-        """Call routing, plan + kernel stats and the trace error, if any —
-        one dict with the reference's report keys where they apply."""
+        """Call routing and plan + kernel stats — one dict with the
+        reference's report keys where they apply (a trace or compile
+        failure raises, so ``error``/``errors`` stay empty)."""
         sp = self._active
         return {
             "schema": obs.EXEC_REPORT_SCHEMA,
@@ -235,9 +231,8 @@ class StitchedFunction:
             "plans": {s.placement or self.name: {"status": s.status,
                                                  "plan": self._plan_stats(s)}
                       for s in self._specs.values()},
-            "error": sp.error if sp is not None else None,
-            "errors": {s.placement or self.name: s.error
-                       for s in self._specs.values() if s.error},
+            "error": None,
+            "errors": {},
             # structured StitchInfeasible records from tuning: why chosen
             # patterns run as fused-torch groups
             "diagnostics": (list(sp.compiled.stats.diagnostics)

@@ -23,7 +23,10 @@ the design keeps every intermediate out of device memory.
 
 Emitted in this stage: ELEMENTWISE (the whole ``EW_OPS`` vocabulary),
 BROADCAST, RESHAPE of trailing power-of-two dims and REDUCTION over
-trailing axes, with every input ROW or INV.  Everything else raises
+trailing axes, with every input ROW or INV.  A pattern the reference's
+analysis rejects, or whose rows are too wide for one block, is retried with
+its leading (B, S) dims folded into one row axis (:func:`fold_rows`): one
+row per token, as a prefill's norms and activations need.  Everything else raises
 :class:`StitchInfeasible` from the static check, naming the ROADMAP stage
 that will emit it; the compiler then runs the group as a ``"torch"`` group.
 
@@ -41,18 +44,17 @@ import os
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Sequence
 
 import torch
 
 from repro_torch.core.codegen import canonical_dtype, eval_node
-from repro_torch.core.ir import OpKind, OpNode
-from repro_torch.core.pattern import FusionPattern
-from repro_torch.core.templates import Template
+from repro_torch.core.ir import Graph, OpKind, OpNode
+from repro_torch.core.pattern import FusionPattern, PackPattern
 
 __all__ = ["StitchAnalysis", "analyze_pattern", "build_stitched_callable",
            "StitchInfeasible", "StitchedKernel", "check_emittable",
-           "reset_launch_counts", "launch_counts", "MAX_BLOCK_ELEMS"]
+           "emission_plan", "fold_rows", "reset_launch_counts",
+           "launch_counts", "MAX_BLOCK_ELEMS"]
 
 
 class StitchInfeasible(Exception):
@@ -440,6 +442,155 @@ def _check_dtype(node: OpNode) -> None:
         raise StitchInfeasible(f"{node.name}: dtype {node.dtype} not emitted")
 
 
+# ---------------------------------------------------------------------------
+# row folding: (B, S, ...) values as (B*S, ...) rows
+# ---------------------------------------------------------------------------
+
+def _fold_prefix(shape: tuple[int, ...], rows: int) -> int | None:
+    """The longest k with prod(shape[:k]) == rows (None if there is none):
+    those leading dims become the folded row axis."""
+    prod, best = 1, None
+    for k, d in enumerate(shape, 1):
+        prod *= d
+        if prod == rows:
+            best = k
+        elif prod > rows:
+            break
+    return best
+
+
+def _folded_shape(shape, rows: int, k: int | None) -> tuple[int, ...]:
+    return ((rows,) + tuple(shape[k:])) if k else tuple(shape)
+
+
+def _prefix_extents(shape, k: int) -> list[int]:
+    return [d for d in shape[:k] if d != 1]
+
+
+def _fold_node(node: OpNode, g, rows: int, pre: dict) -> OpNode:
+    """``node`` with its row prefix folded (``pre``: name -> k or None) and
+    its axis attributes remapped; raises StitchInfeasible when a member
+    moves, slices or reduces the folded axes."""
+    k = pre[node.name]
+    shape = _folded_shape(node.shape, rows, k)
+    attrs = dict(node.attrs)
+    kind = node.kind
+    if node.is_source() or kind is OpKind.ELEMENTWISE:
+        return OpNode(node.name, kind, shape, node.dtype, node.operands, attrs)
+    src = g[node.operands[0]]
+    ks = pre[src.name]
+    fold_err = StitchInfeasible(f"{node.name}: {kind.value} crosses the folded rows")
+    if kind is OpKind.BROADCAST:
+        dims = tuple(attrs["bcast_dims"])
+        if not k:
+            if ks:
+                raise fold_err
+        elif ks:
+            # the row prefix maps onto the row prefix; extent-1 axes carry
+            # no data and may land anywhere
+            moved = [j for j in range(len(dims)) if src.shape[j] != 1
+                     and (j < ks) != (dims[j] < k)]
+            if moved or (_prefix_extents(src.shape, ks)
+                         != _prefix_extents(node.shape, k)):
+                raise fold_err
+            attrs["bcast_dims"] = (0,) + tuple(max(d - k + 1, 0)
+                                               for d in dims[ks:])
+        else:
+            # an invariant replicated over the rows: only its extent-1 axes
+            # may land on the row prefix
+            if any(dims[j] < k and src.shape[j] != 1 for j in range(len(dims))):
+                raise fold_err
+            attrs["bcast_dims"] = tuple(max(d - k + 1, 0) for d in dims)
+    elif kind is OpKind.RESHAPE:
+        if bool(k) != bool(ks):
+            raise fold_err
+    elif kind is OpKind.REDUCTION:
+        axes = tuple(attrs["axes"])
+        if bool(k) != bool(ks):
+            raise fold_err
+        if ks:
+            if any(a < ks and src.shape[a] != 1 for a in axes):
+                raise fold_err
+            attrs["axes"] = tuple(a - ks + 1 for a in axes if a >= ks)
+            attrs["in_rank"] = 1 + len(src.shape) - ks
+    elif kind is OpKind.TRANSPOSE:
+        perm = tuple(attrs["perm"])
+        if bool(k) != bool(ks):
+            raise fold_err
+        if ks:
+            new = (0,) + tuple(a - ks + 1 for a in perm[k:])
+            kept = [a for a in perm[:k] if src.shape[a] != 1]
+            if (any(a >= ks for a in perm[:k]) or kept != sorted(kept)
+                    or sorted(new) != list(range(1 + len(src.shape) - ks))
+                    or _prefix_extents(src.shape, ks) != _prefix_extents(node.shape, k)):
+                raise fold_err
+            attrs["perm"] = new
+    else:
+        raise StitchInfeasible(f"{node.name}: {kind.value} is not folded")
+    return OpNode(node.name, kind, shape, node.dtype, node.operands, attrs)
+
+
+def fold_rows(p: FusionPattern) -> tuple[FusionPattern, StitchAnalysis]:
+    """Wide-row fold.  The reference's analysis takes a value's leading dim
+    as its rows, so a prefill value (B, S, D) is B rows of S*D elements —
+    wider than one block — and a GEMM output (B*S, D) reshaped to (B, S, D)
+    looks like a different row space.  Here every value whose leading dims
+    multiply to R is re-read as (R, rest): one row per token.  The folded
+    pattern is a graph of the pattern's own nodes with remapped shapes and
+    axes, analysed under the reference's role rules at rows R and checked
+    for emission; the data layout is unchanged (contiguous leading dims),
+    so the kernel runs on the original tensors viewed as folded.  A pack
+    folds when all its subgraphs share the folded row space."""
+    g = p.graph
+    names = list(p.external_inputs) + [n.name for n in p.nodes]
+    cands: list[int] = []
+    for n in list(p.external_outputs) + list(p.external_inputs):
+        shp = g[n].shape
+        prod = shp[0] if shp else 1
+        for d in shp[1:-1]:
+            prod *= d
+            if d != 1 and prod not in cands:
+                cands.append(prod)
+    last: StitchInfeasible | None = None
+    for rows in cands:
+        try:
+            pre = {n: _fold_prefix(g[n].shape, rows) for n in names}
+            fg = Graph(f"{g.name}/rows{rows}")
+            for n in p.external_inputs:
+                node = g[n]
+                fg.add(OpNode(n, node.kind if node.is_source() else OpKind.PARAMETER,
+                              _folded_shape(node.shape, rows, pre[n]),
+                              node.dtype, (), dict(node.attrs)))
+            for node in p.nodes:
+                if node.name not in fg:
+                    fg.add(_fold_node(node, g, rows, pre))
+            fg.mark_output(*p.external_outputs)
+            groups = getattr(p, "member_groups", None)
+            fp = (PackPattern(fg, p.members, p.origin, member_groups=groups)
+                  if groups else FusionPattern(fg, p.members, p.origin))
+            ana = _analyze_with_rows(fp, rows)
+            check_emittable(fp, ana)
+            return fp, ana
+        except StitchInfeasible as err:
+            last = err
+    raise last if last is not None else StitchInfeasible("no rows to fold")
+
+
+def emission_plan(p: FusionPattern) -> tuple[FusionPattern, StitchAnalysis]:
+    """The pattern the emitter renders and its analysis: ``p`` itself when
+    the reference's analysis admits it, else its row-folded form.  When
+    neither is emitted, the StitchInfeasible names both reasons."""
+    try:
+        ana = analyze_pattern(p)
+        check_emittable(p, ana)
+        return p, ana
+    except StitchInfeasible as err:
+        try:
+            return fold_rows(p)
+        except StitchInfeasible as fold_err:
+            raise StitchInfeasible(f"{err}; folded rows: {fold_err}") from None
+
+
 @dataclass
 class _Emitted:
     source: str
@@ -447,9 +598,8 @@ class _Emitted:
     block_r: int
     grid: int
     num_warps: int
-    in_order: list[int]        # kernel arg i <- external input in_order[i]
-    out_order: list[int]       # kernel out j -> external output out_order[j]
-    out_shapes: list[tuple[int, ...]]
+    in_names: list[str]        # kernel arg i <- this external input
+    out_names: list[str]       # kernel out j -> this external output
     out_dtypes: list[str]
 
 
@@ -590,9 +740,7 @@ class _Emitter:
         return _Emitted(
             source=_HEADER + header + src, digest=digest,
             block_r=self.block_r, grid=self.grid, num_warps=self.num_warps,
-            in_order=[ext_in.index(n) for n in order],
-            out_order=[ext_out.index(n) for n in outs],
-            out_shapes=[tuple(g[n].shape) for n in outs],
+            in_names=order, out_names=outs,
             out_dtypes=[str(g[n].dtype) for n in outs])
 
     def load(self, name: str, ptr: str) -> None:
@@ -800,11 +948,8 @@ def launch_counts() -> dict[str, int]:
 
 
 def build_dir() -> Path:
-    """Where generated kernels are written (``REPRO_TORCH_BUILD_DIR`` or
-    ``build/stitched`` at the repository root)."""
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
+    """Where generated kernels are written: ``build/stitched`` at the
+    repository root."""
     return Path(__file__).resolve().parents[3] / "build" / "stitched"
 
 
@@ -839,6 +984,11 @@ class StitchedKernel:
         self.build_seconds: float | None = None   # first launch, JIT included
         self.out_shapes = [tuple(p.graph[n].shape) for n in p.external_outputs]
         self.out_dtypes = [str(p.graph[n].dtype) for n in p.external_outputs]
+        # kernel argument i <- external input _in_idx[i]; kernel output j ->
+        # external output _out_idx[j] (a folded kernel indexes the same
+        # contiguous tensors under its own shapes)
+        self._in_idx = [p.external_inputs.index(n) for n in em.in_names]
+        self._out_idx = [p.external_outputs.index(n) for n in em.out_names]
         _LAUNCHES.setdefault(em.digest, 0)
 
     @property
@@ -883,44 +1033,31 @@ class StitchedKernel:
                 x = x.view(torch.uint8)
             prepared.append(x)
         outs = []
-        for shape, dt in zip(em.out_shapes, em.out_dtypes):
+        for k, dt in zip(self._out_idx, em.out_dtypes):
             tdt = torch.int8 if dt == "bool" else canonical_dtype(dt)
-            outs.append(torch.empty(shape, dtype=tdt, device=device))
+            outs.append(torch.empty(self.out_shapes[k], dtype=tdt, device=device))
         t0 = time.perf_counter() if self.build_seconds is None else None
         mod = _load_module(em)
-        args = [prepared[i] for i in em.in_order] + outs
+        args = [prepared[i] for i in self._in_idx] + outs
         mod.stitched_kernel[(em.grid,)](*args, num_warps=em.num_warps)
         if t0 is not None:
             self.build_seconds = time.perf_counter() - t0
         self.launches += 1
         _LAUNCHES[em.digest] = _LAUNCHES.get(em.digest, 0) + 1
-        result: list = [None] * len(em.out_order)
-        for j, k in enumerate(em.out_order):
-            o = outs[j]
-            result[k] = o.view(torch.bool) if em.out_dtypes[j] == "bool" else o
+        result: list = [None] * len(outs)
+        for o, k, dt in zip(outs, self._out_idx, em.out_dtypes):
+            result[k] = o.view(torch.bool) if dt == "bool" else o
         return tuple(result)
 
 
-def build_stitched_callable(
-    p: FusionPattern,
-    template: Template | None = None,
-    *,
-    row_block: int | None = None,
-    scratch_ops: Sequence[str] = (),
-) -> StitchedKernel:
+def build_stitched_callable(p: FusionPattern, *,
+                            row_block: int | None = None) -> StitchedKernel:
     """Emit the fused kernel.  Returns ``f(*external_inputs) -> tuple(outputs)``
     (input/output order = ``p.external_inputs`` / ``p.external_outputs``).
 
-    ``scratch_ops`` (the template's S-marked intermediates) need no code of
-    their own: every intermediate already stays in registers."""
-    ana = analyze_pattern(p)
-    check_emittable(p, ana)
-    if template is not None:
-        for s in template:
-            for a in s.attrs:
-                for lvl in a.levels:
-                    if lvl.kind == "GRID" and lvl.factor:
-                        row_block = lvl.factor
+    A template's scratch-marked intermediates need no code of their own:
+    every intermediate already stays in registers."""
+    emit_p, ana = emission_plan(p)
     rb = row_block or ana.feasible_blocks[0]
-    em = _Emitter(p, ana, rb).run()
+    em = _Emitter(emit_p, ana, rb).run()
     return StitchedKernel(p, ana, em)

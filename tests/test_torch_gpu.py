@@ -48,6 +48,27 @@ def pack_pattern():
                        member_groups=groups)
 
 
+def prefill_norm_graph(builder=GraphBuilder, B=4, S=64, D=2048,
+                       dtype="bfloat16"):
+    """A prefill's residual add + RMSNorm: the o-projection's (B*S, D)
+    output reshaped to (B, S, D), added to the residual, normalized, and
+    reshaped back to (B*S, D) for the next GEMM.  Rows of S*D elements are
+    too wide for one block until (B, S) folds into B*S rows."""
+    b = builder("prefill_norm")
+    dot = b.param("dot", (B * S, D), dtype)
+    res = b.param("res", (B, S, D), dtype)
+    gam = b.param("gamma", (D,), "float32")
+    eps = b.const("eps", (), "float32")
+    h = b.ew("add", res, b.reshape(dot, (B, S, D)))
+    hf = b.ew("convert", h, dtype="float32")
+    var = b.reduce("mean", b.ew("mul", hf, hf), axes=(2,), keepdims=True)
+    r = b.ew("rsqrt", b.ew("add", var, b.bcast(eps, (B, S, 1), ())))
+    y = b.ew("mul", b.ew("mul", hf, b.bcast(r, (B, S, D), (0, 1, 2))),
+             b.bcast(gam, (B, S, D), (2,)))
+    out = b.reshape(b.ew("convert", y, dtype=dtype), (B * S, D))
+    return b.build(outputs=[h, out])
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: Triton kernels have no CPU mode")
@@ -78,6 +99,24 @@ def test_pack_kernel_on_card():
     k = build_stitched_callable(pack_pattern(), row_block=8)
     ins = [torch.randn(64, 100, device="cuda") for _ in range(3)]
     for o, r in zip(k(*ins), k.plain(*ins)):
+        torch.testing.assert_close(o.float(), r.float(), rtol=1.6e-2,
+                                   atol=1.6e-2)
+
+
+@pytest.mark.gpu
+def test_folded_kernel_on_card():
+    """A prefill norm with rows folded to one per token, on the card."""
+    _need_card()
+    g = prefill_norm_graph()
+    p = FusionPattern(g, frozenset(n.name for n in g.compute_nodes()))
+    k = build_stitched_callable(p)
+    assert k.analysis.rows == 4 * 64
+    gen = torch.Generator().manual_seed(0)
+    args = [torch.randn(tuple(g[i].shape), generator=gen)
+            .to(getattr(torch, str(g[i].dtype))).cuda()
+            if g[i].shape else torch.tensor(1e-6, device="cuda")
+            for i in p.external_inputs]
+    for o, r in zip(k(*args), k.plain(*args)):
         torch.testing.assert_close(o.float(), r.float(), rtol=1.6e-2,
                                    atol=1.6e-2)
 

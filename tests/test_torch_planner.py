@@ -54,7 +54,7 @@ def to_port(rg) -> Graph:
 def plans(name: str, mode: str):
     rg = ref_graph(name)
     ref = RefCompiler(REF_V100, mode=mode, use_pallas=False).compile(rg)
-    port = StitchCompiler(V100, mode=mode, use_triton=False).compile(to_port(rg))
+    port = StitchCompiler(V100, mode=mode).compile(to_port(rg))
     return ref, port
 
 

@@ -8,6 +8,8 @@ reference's (``repro.kernels.stitched``).
 * The Triton source renders for every emittable pattern and compiles as
   Python without importing triton.
 * Horizontal packs render one program range per subgraph.
+* Patterns too wide for one block fold their (B, S) rows into B*S rows;
+  the folded pattern's plain version equals the reference's graph function.
 
 The card-only checks of the same kernels are in ``test_torch_gpu.py``.
 """
@@ -22,14 +24,17 @@ import pytest
 import torch
 
 from repro.core import FusionPattern as RefPattern
+from repro.core import GraphBuilder as RefBuilder
+from repro.core import build_reference_fn as ref_graph_fn
 from repro.kernels.stitched import StitchInfeasible as RefInfeasible
 from repro.kernels.stitched import analyze_pattern as ref_analyze
 from repro.kernels.stitched import build_stitched_callable as ref_build
-from repro_torch.core import FusionPattern
-from repro_torch.kernels.stitched import (StitchInfeasible, analyze_pattern,
+from repro_torch.core import FusionPattern, GraphBuilder, PackPattern
+from repro_torch.kernels.stitched import (MAX_BLOCK_ELEMS, StitchInfeasible,
+                                          analyze_pattern,
                                           build_stitched_callable,
-                                          check_emittable)
-from test_torch_gpu import chain_graph, pack_pattern
+                                          check_emittable, fold_rows)
+from test_torch_gpu import chain_graph, pack_pattern, prefill_norm_graph
 from test_torch_planner import GRAPHS, plans, ref_graph, to_port
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -154,4 +159,81 @@ def test_pack_subgraphs_take_program_ranges():
         torch.testing.assert_close(y, torch.exp(x.bfloat16().float()).bfloat16())
 
 
+def _whole(g):
+    return FusionPattern(g, frozenset(n.name for n in g.compute_nodes()))
 
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_rows_fold_to_tokens(dtype):
+    """The reference's analysis gives rows of S*D elements (too wide for a
+    block); the emitter folds (B, S) into B*S rows of D, and the plain
+    version equals the reference's graph function on the same inputs."""
+    B, S, D = 2, 32, 1024
+    g = prefill_norm_graph(GraphBuilder, B, S, D, dtype)
+    p = _whole(g)
+    with pytest.raises(StitchInfeasible):
+        check_emittable(p, analyze_pattern(p))
+    k = build_stitched_callable(p)
+    assert k.analysis.rows == B * S
+    assert k.emitted.block_r * D <= MAX_BLOCK_ELEMS
+    assert f"rows[:, None] * {D}" in k.source
+    compile(k.source, "<folded>", "exec")
+
+    rg = prefill_norm_graph(RefBuilder, B, S, D, dtype)
+    rng = np.random.default_rng(0)
+    feeds = {}
+    for name in p.external_inputs:
+        node = g[name]
+        x = rng.standard_normal(node.shape).astype(np.float32)
+        feeds[name] = x if node.shape else np.float32(1e-6)
+    jfeeds = {n: jnp.asarray(v, dtype=str(g[n].dtype)) for n, v in feeds.items()}
+    tfeeds = [torch.as_tensor(np.array(jfeeds[n], np.float32))
+              .to(getattr(torch, str(g[n].dtype))) for n in p.external_inputs]
+    want = ref_graph_fn(rg)(jfeeds)
+    got = k(*tfeeds)
+    tol = TOL if dtype == "float32" else dict(rtol=1.6e-2, atol=1.6e-2)
+    for name, val in zip(p.external_outputs, got):
+        np.testing.assert_allclose(val.float().numpy(),
+                                   np.asarray(want[name], np.float32), **tol)
+
+
+def test_fold_refuses_row_varying_invariants():
+    """A (S, D) table broadcast over the batch varies along the folded rows
+    (a rotary table): the fold refuses it rather than read it as one row."""
+    b = GraphBuilder("rope_like")
+    x = b.param("x", (4, 64, 128))
+    tab = b.param("table", (64, 128))
+    y = b.ew("mul", x, b.bcast(tab, (4, 64, 128), (1, 2)))
+    g = b.build(outputs=[b.reduce("sum", y, axes=(2,))])
+    with pytest.raises(StitchInfeasible, match="crosses the folded rows"):
+        fold_rows(_whole(g))
+
+
+def test_fold_refuses_moved_rows():
+    b = GraphBuilder("attn_like")
+    x = b.param("x", (4, 64, 8, 16))
+    t = b.transpose(x, (0, 2, 1, 3))
+    g = b.build(outputs=[b.ew("exp", t)])
+    with pytest.raises(StitchInfeasible):
+        fold_rows(_whole(g))
+
+
+def test_pack_folds_per_subgraph():
+    """A pack of per-layer activations over (B, S, F) folds to B*S rows;
+    each subgraph keeps its own range of programs."""
+    b = GraphBuilder("pack_fold")
+    groups = []
+    for i in range(2):
+        x = b.param(f"x{i}", (4, 64, 6144), "bfloat16")
+        c = b.ew("convert", x, dtype="float32")
+        groups.append(frozenset((c, b.ew("exp", c))))
+    g = b.build(outputs=[max(grp, key=lambda n: n.startswith("exp"))
+                         for grp in groups])
+    p = PackPattern(g, frozenset().union(*groups), "pack",
+                    member_groups=tuple(groups))
+    k = build_stitched_callable(p)
+    assert k.analysis.rows == 256
+    blocks = 256 // k.emitted.block_r
+    assert k.emitted.grid == 2 * blocks
+    assert f"if prog // {blocks} == 1:" in k.source
+    compile(k.source, "<pack_fold>", "exec")
