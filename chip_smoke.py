@@ -5,25 +5,40 @@
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
 
+0. Build: the CUDA C++ library (``src/repro_torch/csrc``) from an empty
+   ``build/kernels``, with its build seconds and ptxas report.
 1. Sample kernels: generated Triton stitched kernels for a softmax, an
-   RMSNorm chain and a SwiGLU chain, each held against its plain PyTorch
-   version on the card.
-2. Serve: full-width qwen3-1.7b (random weights from a seed) answers 4
-   requests through ``Engine(stitch_execute=True)``: the stitched prefill
-   and the stitched decode on every step.  Launch counts are zeroed just
-   before this run and read just after.
-3. Path kernels: every generated kernel of the decode and prefill plans is
-   called on the inputs the main path gives it and held against its plain
-   version; its time, its bound and its launches go into the ``kernels``
-   line.
-   A generated kernel that computes an RMSNorm chain is also timed
-   against ``F.rms_norm`` on its own inputs.  Per plan, the bytes moved by
-   generated kernels, fused-torch groups and single ops.
-4. Reference: the first decode step's logits against the port's eager
-   decode, over several weight seeds, at full width in bf16 and at full
-   width cut to 4 layers in float32, each with faults planted in the
-   stitched RMSNorm kernels to show what the tolerance catches; and a
-   reduced float32 model served stitched vs eager.
+   RMSNorm chain and a SwiGLU chain, and the four hand-written kernels
+   (RMSNorm, SwiGLU/GeGLU, RoPE, decode attention) at sample shapes, each
+   held against its plain PyTorch version on the card.
+2. Ref-mode path: full-width qwen3-1.7b (random weights from a seed)
+   answers 4 requests through ``Engine(stitch_execute=True)``: the stitched
+   prefill and the stitched decode on every step.  Launch counts are zeroed
+   just before this run and read just after.  Every generated kernel of the
+   decode and prefill plans is then called on the inputs the main path gives
+   it and held against its plain version; its time, its bound and its
+   launches go into the ``kernels`` line.  A generated kernel that computes
+   an RMSNorm chain is also timed against ``F.rms_norm``.  Per plan, the
+   bytes moved by generated kernels, fused-torch groups and single ops.
+   Then the first decode step's bf16 logits against the eager decode over
+   several weight seeds, with faults planted in the stitched RMSNorm
+   kernels.
+3. Kernel-mode path: the same model and requests served inside
+   ``kernel_mode("kernels")``, where the norms, rotaries, GLUs and decode
+   attention are the hand-written kernels.  The hand-written kernels'
+   launches per prefill call and per decode step must be exactly 4L+1 / 2L /
+   L / L (113 / 56 / 28 / 28 at 28 layers, no decode attention in the
+   prefill).  Every kernel of the path, generated and hand-written, is held
+   against its plain version on the path's own operands and timed beside its
+   bound and, where one PyTorch call computes the same function, that call
+   (``F.rms_norm``, ``F.scaled_dot_product_attention``).  Both decode plans
+   are printed side by side; the kernel-mode bf16 logits are held against
+   the eager ref-mode decode over several weight seeds.
+4. Float32 checks: full width cut to 4 layers, the first decode step of the
+   stitched ref-mode and kernel-mode engines against the eager one over
+   several weight seeds, with faults planted in the stitched RMSNorm
+   kernels and in the decode-attention kernel (``kpos < pos``); and a
+   reduced model served stitched (both modes) vs eager.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -31,6 +46,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -60,9 +76,17 @@ TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1.6e-2, 1.6e-2)}
 LOGIT_TOL = 0.025
 # the same in float32 (full width, 4 layers): only the order of sums and
 # Triton's approximate exp/rsqrt differ.  Sound readings over 5 seeds on an
-# H100: 6.6e-7 to 8.8e-7; the limit is about 11x the largest.  Planted
-# faults read 3.3e-3 (norm in bf16) to 9.1e-3 (norm output x (1+2^-7)).
+# H100: 9.7e-7 to 1.19e-6 stitched, 1.18e-6 to 1.37e-6 in kernel mode; the
+# limit is about 7x the largest.  Planted faults read 3.3e-3 (norm in bf16)
+# to 9.1e-3 (norm output x (1+2^-7)) and 0.41 (decode attention dropping
+# the row's own key).
 F32_LOGIT_TOL = 1e-5
+# kernel mode (the hand-written kernels) against the eager ref-mode decode,
+# full width in bf16: besides the rounding noise above, the decode-attention
+# kernel keeps the probabilities in f32 where the ref-mode chain rounds them
+# to bf16.  Sound readings over 3 seeds on an H100: 0.0179 to 0.0189; the
+# limit is 1.3x the largest.
+KM_LOGIT_TOL = 0.025
 SEED = 0
 LOGIT_SEEDS = 3           # weight seeds of the full-width bf16 logit check
 F32_SEEDS = 5             # weight seeds of the 4-layer f32 logit check
@@ -390,13 +414,15 @@ def plan_line(tag, rep, compiled):
 def group_inputs(compiled, inputs):
     """Run ``compiled`` once, eagerly, keeping the inputs of the first
     ``triton`` group of every generated kernel (by digest); also returns
-    how many groups of the plan launch each kernel per call."""
+    how many groups of the plan launch each kernel per call, and, for every
+    hand-written kernel node (by kernel and operand signature), its first
+    node, operands and count per call."""
     from repro_torch.core.codegen import eval_node, source_value
     g = compiled.graph
     device = next(v.device for v in inputs.values() if hasattr(v, "device"))
     env = {n: source_value(node, inputs, device)
            for n, node in g.nodes.items() if node.is_source()}
-    seen, per_call = {}, {}
+    seen, per_call, hand = {}, {}, {}
     for grp, members in zip(compiled._order, compiled._members_topo):
         if grp.kind == "triton":
             k = grp.tuned.callable
@@ -410,8 +436,14 @@ def group_inputs(compiled, inputs):
         else:
             for nm in members:
                 node = g[nm]
-                env[nm] = eval_node(node, [env[o] for o in node.operands], g)
-    return seen, per_call
+                args = [env[o] for o in node.operands]
+                tag = node.attrs.get("kernel")
+                if tag is not None:
+                    key = (tag, tuple((tuple(a.shape), str(a.dtype)) for a in args),
+                           node.attrs["params_sig"])
+                    hand.setdefault(key, [node, args, 0])[2] += 1
+                env[nm] = eval_node(node, args, g)
+    return seen, per_call, hand
 
 
 def spec_inputs(sf, args):
@@ -420,62 +452,48 @@ def spec_inputs(sf, args):
     return dict(zip(sp.names, pytree.tree_flatten((tuple(args), {}))[0]))
 
 
-def serve_phase(dev):
-    from repro_torch.configs import get_config
-    from repro_torch.core import StitchCompiler
-    from repro_torch.kernels import stitched
-    from repro_torch.models import build_model
-    from repro_torch.serve import Engine, ServeConfig
-
-    cfg = get_config("qwen3-1.7b")
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(SEED, dev)
-    torch.cuda.synchronize()
-    print(f"init {cfg.name}: {cfg.n_layers}L d_model={cfg.d_model} "
-          f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} "
-          f"vocab={cfg.vocab} in {time.perf_counter() - t0:.1f}s")
-    scfg = ServeConfig(batch=4, max_len=128, max_new_tokens=16,
-                       stitch_execute=True, paged=False)
-    compiler = StitchCompiler(plan_budget=20.0)
-    eng = Engine(model, params, scfg, device=dev, compiler=compiler)
-    lens = np.array([50, 45, 40, 60], np.int32)      # one pow2 bucket: 64
-    prompts = prompts_for(cfg, lens, SEED)
-
-    # warm run: traces and compiles the prefill and decode plans and
-    # builds every generated kernel
+def warm_serve(eng, prompts, lens, steps, tag):
+    """Traces and compiles the prefill and decode plans and builds every
+    generated kernel: a prefill, one decode step, then the rest."""
     t0 = time.perf_counter()
     px = eng.prefill(prompts, prompt_lens=lens)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    for row in range(4):
+    for row in range(len(lens)):
         eng.insert(px, slot=row, row=row)
     eng.generate_step(steps=1)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    eng.generate_step(steps=scfg.max_new_tokens - 2)
+    eng.generate_step(steps=steps - 1)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    for row in range(4):
+    for row in range(len(lens)):
         eng.release(row)
-    print(f"warm run: first prefill {t1 - t0:.1f}s, first decode step "
+    print(f"{tag} warm run: first prefill {t1 - t0:.1f}s, first decode step "
           f"{t2 - t1:.1f}s (trace + plan + kernel builds), "
-          f"{scfg.max_new_tokens - 2} more steps {t3 - t2:.1f}s")
+          f"{steps - 1} more steps {t3 - t2:.1f}s")
     rep = eng.report()
-    plan_line("prefill", rep["prefill"], eng._prefill_exec.compiled)
-    plan_line("decode", rep["decode"], eng._exec.compiled)
+    plan_line(f"{tag} prefill", rep["prefill"], eng._prefill_exec.compiled)
+    plan_line(f"{tag} decode", rep["decode"], eng._exec.compiled)
 
-    # the measured main-path run: counts zeroed just before, read just after
-    dec0 = dict(rep["decode"]["calls"])
-    steps = scfg.max_new_tokens - 1
+
+def measured_serve(eng, prompts, lens, steps, dev, tag, vocab):
+    """The main-path run: every launch count is zeroed just before it, the
+    hand-written kernels' counts are read after the prefill and after the
+    decode steps, the generated kernels' after the decode steps."""
+    from repro_torch.kernels import ops, stitched
+    n = len(lens)
+    dec0 = dict(eng.report()["decode"]["calls"])
     torch.cuda.reset_peak_memory_stats()
     stitched.reset_launch_counts()
+    ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     px = eng.prefill(prompts, prompt_lens=lens)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    for row in range(4):
+    hand_prefill = ops.launch_counts()
+    for row in range(n):
         eng.insert(px, slot=row, row=row)
     cache_before = {k: v.clone() for k, v in eng.kv.decode_cache().items()}
     tok_before = torch.as_tensor(eng._tok.copy(), device=dev)
@@ -485,71 +503,128 @@ def serve_phase(dev):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     counts = stitched.launch_counts()
+    hand_total = ops.launch_counts()
     dec1 = eng.report()["decode"]["calls"]
     # device busy share of one decode step (the profiler's kernel time over
     # the step's wall time)
     t3 = time.perf_counter()
     busy = device_busy_ms(lambda: eng.generate_step(steps=1))
     wall = (time.perf_counter() - t3) * 1e3
-    for row in range(4):
+    for row in range(n):
         eng.release(row)
     peak = torch.cuda.max_memory_allocated()
     prefill_ms = (t1 - t0) * 1e3
     decode_ms = (t2 - t1b) * 1e3 / steps
-    tokens = 4 * (steps + 1)
-    print(f"serve: prefill_ms={prefill_ms:.2f} decode_ms_per_step={decode_ms:.2f} "
+    tokens = n * (steps + 1)
+    print(f"{tag} serve: prefill_ms={prefill_ms:.2f} "
+          f"decode_ms_per_step={decode_ms:.2f} "
           f"tokens_per_s={tokens / (prefill_ms / 1e3 + (t2 - t1b)):.2f} "
-          f"peak_mem_gb={peak / 2**30:.2f} launches={sum(counts.values())}")
-    print(f"decode step device busy: {busy} ms of {wall:.2f} ms wall (profiled)")
-    if toks.shape != (4, steps) or not np.all((toks >= 0) & (toks < cfg.vocab)):
-        fail(f"decode tokens malformed: {toks.shape}")
+          f"peak_mem_gb={peak / 2**30:.2f} "
+          f"stitched_launches={sum(counts.values())} "
+          f"hand_launches={sum(hand_total.values())}")
+    print(f"{tag} decode step device busy: {busy} ms of {wall:.2f} ms wall "
+          f"(profiled)")
+    if toks.shape != (n, steps) or not np.all((toks >= 0) & (toks < vocab)):
+        fail(f"{tag} decode tokens malformed: {toks.shape}")
     served = dec1["stitched"] - dec0["stitched"]
     fallbacks = dec1["fallback"] - dec0["fallback"]
     if served != steps or fallbacks:
-        fail(f"stitched decode served {served}/{steps} steps, "
+        fail(f"{tag} stitched decode served {served}/{steps} steps, "
              f"{fallbacks} fallbacks")
     if eng.report()["prefill"]["calls"]["fallback"]:
-        fail("prefill fell back to eager")
-    if sum(counts.values()) <= 0:
-        fail("no Triton stitched launch on the main path")
+        fail(f"{tag} prefill fell back to eager")
+    return {"px": px, "cache_before": cache_before, "tok_before": tok_before,
+            "counts": counts, "hand_prefill": hand_prefill,
+            "hand_total": hand_total, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms, "busy_ms": busy, "steps": steps}
 
-    # phase 3: every generated kernel of the two plans on its main-path inputs
-    kernels = []
-    seen = {}
-    pre_sf, dec_sf = eng._prefill_exec, eng._exec
-    padded = np.zeros((4, px.bucket), np.int64)
+
+def path_inputs(eng, params, prompts, run, dev):
+    """Each plan run once more, eagerly, on the measured run's inputs:
+    generated kernels and hand-written kernel nodes with their operands."""
+    px = run["px"]
+    padded = np.zeros((len(prompts), px.bucket), np.int64)
     padded[:, :prompts.shape[1]] = prompts
-    pre_in = spec_inputs(pre_sf, (params, torch.as_tensor(padded, device=dev),
-                                  torch.as_tensor(lens, device=dev)))
-    pre_seen, pre_per_call = group_inputs(pre_sf.compiled, pre_in)
-    seen.update(pre_seen)
-    dec_in = spec_inputs(dec_sf, (params, cache_before, tok_before))
-    dec_seen, dec_per_call = group_inputs(dec_sf.compiled, dec_in)
-    seen.update(dec_seen)
-    del cache_before
+    pre_in = spec_inputs(eng._prefill_exec, (
+        params, torch.as_tensor(padded, device=dev),
+        torch.as_tensor(px.lengths, device=dev)))
+    pre = group_inputs(eng._prefill_exec.compiled, pre_in)
+    dec_in = spec_inputs(eng._exec, (params, run["cache_before"],
+                                     run["tok_before"]))
+    dec = group_inputs(eng._exec.compiled, dec_in)
+    return pre, dec
+
+
+def stitched_rows(pre, dec, counts, tag, checked):
+    """Every generated kernel of the two plans not checked yet: held
+    against its plain version, timed, and its launches in this path's run
+    (fatal when a kernel of the path was never launched)."""
+    rows = []
+    seen = dict(pre[0])
+    seen.update(dec[0])
     for digest, (k, args) in seen.items():
         n = counts.get(digest, 0)
         if n <= 0:
-            fail(f"kernel {digest} of the path was never launched")
+            fail(f"{tag}: kernel {digest} of the path was never launched")
+        if digest in checked:
+            checked[digest]["launches"] += n
+            continue
         members = sorted({m.attrs.get("op") or m.kind.value
                           for m in k.pattern.compute_members})
-        kernels.append(check_kernel(f"stitched_{digest}[{','.join(members)}]",
-                                    k, args, launches=n))
-    seen.clear()
-    print(f"path kernels: {len(kernels)} distinct generated kernels checked")
-    by_digest = {row["generated"].split("k_")[1][:-3]: row for row in kernels}
-    for tag, per_call in (("prefill call", pre_per_call),
-                          ("decode step", dec_per_call)):
-        agg = {key: sum(n * by_digest[d][key] for d, n in per_call.items())
+        row = check_kernel(f"stitched_{digest}[{','.join(members)}]", k, args,
+                           launches=n)
+        checked[digest] = row
+        rows.append(row)
+    print(f"{tag} path kernels: {len(seen)} distinct generated kernels, "
+          f"{len(rows)} new")
+    for what, per_call in (("prefill call", pre[1]), ("decode step", dec[1])):
+        agg = {key: sum(n * checked[d][key] for d, n in per_call.items())
                for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
-        print(f"stitched kernels per {tag}: kernels={len(per_call)} "
+        print(f"{tag} stitched kernels per {what}: kernels={len(per_call)} "
               f"launches={sum(per_call.values())} "
               + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
+    return rows
 
-    # phase 4a: first decode step, stitched vs eager, full width, over
-    # several weight seeds; then faults planted in the stitched RMSNorm
-    # kernels (seed 0) show what the tolerance would catch
-    del pre_in, dec_in
+
+def plan_summary(eng, run):
+    plan = eng.report()["decode"]["plan"]
+    out = {k: plan[k] for k in ("n_ops", "n_kernels", "triton_groups",
+                                "torch_groups", "op_groups")}
+    out["bytes_gb"] = {k: round(gb, 4)
+                       for k, (gb, _) in plan_bytes(eng._exec.compiled).items()}
+    out["compile_s"] = round(plan["compile_seconds"] + plan["trace_seconds"], 2)
+    out["decode_ms_per_step"] = round(run["decode_ms"], 2)
+    g = eng._exec.graph
+    out["groups_with_hand_kernel"] = sum(
+        1 for grp in eng._exec.compiled.groups
+        if any(g[m].attrs.get("kernel") for m in grp.members))
+    return out
+
+
+def serve_phase(dev, model, params, lens, prompts, checked):
+    """The ref-mode path: full width, stitched prefill and decode, every
+    generated kernel held against its plain version; then the bf16 logit
+    check against the eager decode over several weight seeds."""
+    from repro_torch.core import StitchCompiler
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = model.cfg
+    scfg = ServeConfig(batch=4, max_len=128, max_new_tokens=16,
+                       stitch_execute=True, paged=False)
+    eng = Engine(model, params, scfg, device=dev,
+                 compiler=StitchCompiler(plan_budget=20.0))
+    warm_serve(eng, prompts, lens, scfg.max_new_tokens - 1, "ref-mode")
+    run = measured_serve(eng, prompts, lens, scfg.max_new_tokens - 1, dev,
+                         "ref-mode", cfg.vocab)
+    if sum(run["counts"].values()) <= 0:
+        fail("no Triton stitched launch on the ref-mode path")
+    pre, dec = path_inputs(eng, params, prompts, run, dev)
+    kernels = stitched_rows(pre, dec, run["counts"], "ref-mode", checked)
+    summary = plan_summary(eng, run)
+    del pre, dec, run
+
+    # first decode step, stitched vs eager, over several weight seeds; then
+    # faults planted in the stitched RMSNorm kernels (seed 0) show what the
+    # tolerance would catch
     eager = Engine(model, params, ServeConfig(batch=4, max_len=128,
                                               max_new_tokens=16), device=dev)
     readings, ref0 = [], None
@@ -561,9 +636,9 @@ def serve_phase(dev):
         ea = first_step_logits(eager, ps, lens)
         agree = float((st.argmax(-1) == ea.argmax(-1)).float().mean())
         readings.append(rel_diff(st, ea))
-        print(f"decode logits stitched vs eager (bf16, seed {SEED + s}): "
-              f"rel={readings[-1]:.6g} max_ref={float(ea.abs().max()):.4g} "
-              f"argmax_agree={agree}")
+        print(f"decode logits stitched vs eager (bf16, {cfg.n_layers}L, seed "
+              f"{SEED + s}): rel={readings[-1]:.6g} "
+              f"max_ref={float(ea.abs().max()):.4g} argmax_agree={agree}")
         if s == 0:
             ref0 = (ps, ea)
     eng.params = eager.params = params
@@ -572,7 +647,289 @@ def serve_phase(dev):
           f"planted faults {faults}")
     if not all(np.isfinite(r) and r <= LOGIT_TOL for r in readings):
         fail("stitched decode logits disagree with the eager decode")
-    return kernels
+    return kernels, summary
+
+
+# ---------------------------------------------------------------------------
+# kernel mode: the hand-written kernels
+# ---------------------------------------------------------------------------
+
+# per reference kernel body: the port's launch-count name, route, source and
+# the TPU kernel's pallas_call
+HAND = {
+    "_rmsnorm_kernel": ("rmsnorm", "triton", "src/repro_torch/kernels/norms.py",
+                        "src/repro/kernels/norms.py:44"),
+    "_glu_kernel": ("glu", "triton", "src/repro_torch/kernels/activations.py",
+                    "src/repro/kernels/activations.py:32"),
+    "_rope_kernel": ("rope", "triton", "src/repro_torch/kernels/rope.py",
+                     "src/repro/kernels/rope.py:44"),
+    "_decode_attn_kernel": ("decode_attention", "cuda",
+                            "src/repro_torch/csrc/decode_attention.cu",
+                            "src/repro/kernels/decode_attention.py:95"),
+}
+# elementwise operations per output element (the bound's operation count)
+HAND_OPS = {"_rmsnorm_kernel": 4, "_glu_kernel": 5, "_rope_kernel": 6}
+
+
+def expected_launches(n_layers: int) -> tuple[dict, dict]:
+    """Hand-written kernel launches per decode step and per prefill call of
+    a dense qk-norm model: 4 norms a layer + the final one, 2 rotaries and 1
+    GLU a layer, decode attention once a layer on decode only."""
+    step = {"rmsnorm": 4 * n_layers + 1, "rope": 2 * n_layers,
+            "glu": n_layers, "decode_attention": n_layers}
+    return step, dict(step, decode_attention=0)
+
+
+def build_phase() -> float:
+    """Build the CUDA library from an empty ``build/kernels``."""
+    from repro_torch.kernels import build
+    shutil.rmtree(build.build_dir(), ignore_errors=True)
+    libs, secs = build.build()
+    for stem, path in libs.items():
+        info = [ln.split("info    : ")[-1].strip()
+                for ln in path.with_suffix(".log").read_text().splitlines()
+                if "registers" in ln or "spill" in ln]
+        print(f"cuda build {stem}: {path.name} ptxas {info}")
+    print(f"cuda build: {len(libs)} libraries from an empty "
+          f"{build.build_dir().relative_to(ROOT)} in {secs:.2f}s")
+    return secs
+
+
+def hand_plain(tag):
+    from repro_torch.kernels import activations, decode_attention, norms, rope
+    return {"_rmsnorm_kernel": norms.rmsnorm_plain,
+            "_glu_kernel": activations.glu_plain,
+            "_rope_kernel": rope.rope_plain,
+            "_decode_attn_kernel": decode_attention.decode_attention_plain}[tag]
+
+
+def hand_samples(dev):
+    """Each hand-written kernel against its plain version at sample shapes
+    (ragged widths, a GQA group of 4, decode positions at 0, in the middle
+    and at Smax-1, with and without a window), in f32 and bf16."""
+    from repro_torch.kernels import activations, decode_attention, norms, rope
+    gen = torch.Generator().manual_seed(SEED)
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=gen).to(dtype).to(dev)
+
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        t = str(dt).replace("torch.", "")
+        cases.append((f"rmsnorm_{t}_12x200", norms.rmsnorm_op,
+                      "_rmsnorm_kernel",
+                      (rnd(12, 200, dtype=dt), rnd(200, dtype=dt), 1e-6)))
+        for act in ("silu", "gelu"):
+            cases.append((f"glu_{act}_{t}_7x333", activations.glu_op,
+                          "_glu_kernel", (rnd(7, 333, dtype=dt),
+                                          rnd(7, 333, dtype=dt), act)))
+        pos = torch.tensor([0, 5, 17, 63, 100, 127], dtype=torch.int32,
+                           device=dev)
+        cases.append((f"rope_{t}_6x3x64", rope.rope_op, "_rope_kernel",
+                      (rnd(6, 192, dtype=dt), pos, 1e4, 64)))
+        q, k, v = (rnd(3, 1, 8, 128, dtype=dt), rnd(3, 96, 2, 128, dtype=dt),
+                   rnd(3, 96, 2, 128, dtype=dt))
+        dpos = torch.tensor([[0], [47], [95]], dtype=torch.int32, device=dev)
+        for window in (None, 16):
+            cases.append((f"decode_attention_{t}_g4_s96_w{window}",
+                          decode_attention.decode_attention_op,
+                          "_decode_attn_kernel",
+                          (dpos, q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), 128 ** -0.5, window)))
+    errs = {}
+    for name, op, tag, args in cases:
+        out = op(*args)
+        torch.cuda.synchronize()
+        ref = hand_plain(tag)(*args)
+        errs[name] = max_err((out,), (ref,))
+        if not within((out,), (ref,)):
+            fail(f"hand-written kernel {name} disagrees with its plain version "
+                 f"(max err {errs[name]})")
+    print(f"hand-written kernel samples vs plain: "
+          + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
+
+
+def op_call(node, tensors):
+    """(op, args, kwargs) of a hand-written kernel node on ``tensors``."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.core.trace import _Slot
+    kw = node.attrs["eval_fn"].__kwdefaults__
+    args, kwargs = pytree.tree_map(
+        lambda s: tensors[s.i] if isinstance(s, _Slot) else s, kw["_tmpl"],
+        is_leaf=lambda s: isinstance(s, _Slot))
+    return kw["_t"], list(args), dict(kwargs)
+
+
+def hand_library(tag, args):
+    """One PyTorch call computing the same function on the same inputs,
+    where there is one (a yardstick; the port never calls it)."""
+    if tag == "_rmsnorm_kernel":
+        x, g, eps = args
+        return lambda: F.rms_norm(x, (x.shape[-1],), g, eps)
+    if tag == "_decode_attn_kernel":
+        pos, qt, kt, vt, scale, *rest = args    # window defaults to None
+        window = rest[0] if rest else None
+        kpos = torch.arange(kt.shape[2], device=kt.device)[None, :]
+        mask = kpos <= pos
+        if window is not None:
+            mask = mask & (pos - kpos < window)
+        mask = mask[:, None, None, :]
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
+    return None
+
+
+def hand_bound(tag, args, out) -> tuple[float, str]:
+    """Least time for the kernel's work on this run's data: each input read
+    once and the output written once over the memory rate, or its f32
+    operations over the f32 rate.  Decode attention reads only the valid
+    keys of each row."""
+    def nbytes(t):
+        return t.numel() * t.element_size()
+    if tag == "_decode_attn_kernel":
+        pos, qt, kt, vt, scale, *rest = args    # window defaults to None
+        window = rest[0] if rest else None
+        p = pos.reshape(-1).long()
+        hi = p.clamp(max=kt.shape[2] - 1)
+        lo = (p - window + 1).clamp(min=0) if window is not None else 0
+        keys = int((hi - lo + 1).clamp(min=0).sum())
+        _, hkv, _, dh = kt.shape
+        b = (2 * keys * hkv * dh * kt.element_size() + nbytes(qt)
+             + nbytes(pos) + nbytes(out))
+        ops = 4 * qt.shape[1] * dh * keys
+    else:
+        b = sum(nbytes(a) for a in args if isinstance(a, torch.Tensor)) \
+            + nbytes(out)
+        ops = HAND_OPS[tag] * out.numel()
+    tb, to = b / HBM_BW, ops / F32_PEAK
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def hand_rows(pre, dec, steps, hand_total):
+    """Every hand-written kernel node signature of the two plans, on its
+    main-path operands: held against the plain version and timed.  Its
+    launches are the plans' nodes of that signature times the calls of the
+    measured run; per kernel they must add up to the launch count."""
+    keys = {}
+    for hand, calls in ((pre[2], 1), (dec[2], steps)):
+        for key, (node, args, n) in hand.items():
+            keys.setdefault(key, [node, args, 0])[2] += n * calls
+    per_kernel = {name: 0 for name, *_ in HAND.values()}
+    rows = {}
+    for key, (node, tensors, launches) in sorted(
+            keys.items(), key=lambda kv: (kv[0][0], -kv[1][2])):
+        tag, sig, _ = key
+        name, route, source, replaces = HAND[tag]
+        per_kernel[name] += launches
+        op, args, kwargs = op_call(node, tensors)
+        plain = hand_plain(tag)
+
+        def run():
+            return op(*args, **kwargs)
+
+        out = run()
+        torch.cuda.synchronize()
+        ref = plain(*args, **kwargs)
+        err = max_err((out,), (ref,))
+        if not within((out,), (ref,)):
+            fail(f"{name} at {sig} disagrees with its plain version "
+                 f"(max err {err})")
+        lib = hand_library(tag, args)
+        lib_ms = lib_dev_ms = lib_err = None
+        if lib is not None:
+            lib_out = lib()
+            lib_err = max_err((lib_out,), (ref,))
+            if not within((lib_out,), (ref,)):
+                fail(f"library call of {name} disagrees with the plain "
+                     f"version (max err {lib_err})")
+            lib_ms = timed(lib, 50)
+            lib_dev_ms = device_ms(lib)
+        bound_ms, bound_by = hand_bound(tag, args, out)
+        shapes = ",".join("x".join(map(str, s)) for s, _ in sig)
+        dt = next(d for _, d in sig if "float" in d).replace("torch.", "")
+        rows[key] = {"name": f"{name}[{shapes},{dt}]",
+                     "route": route, "source": source, "replaces": replaces,
+                     "launches": launches, "max_abs_err": err,
+                     "ms": timed(run, 50), "device_ms": device_ms(run),
+                     "plain_ms": timed(lambda: plain(*args, **kwargs), 20),
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+                     "library_max_abs_err": lib_err}
+    if per_kernel != hand_total:
+        fail(f"hand-written kernel launches {hand_total} != the plans' nodes "
+             f"times their calls {per_kernel}")
+    for tag, (name, *_) in HAND.items():
+        for what, hand in (("decode step", dec[2]), ("prefill call", pre[2])):
+            mine = [(rows[k], n) for k, (_, _, n) in hand.items() if k[0] == tag]
+            agg = {f: sum(n * r[f] for r, n in mine)
+                   for f in ("ms", "device_ms", "plain_ms", "bound_ms")}
+            lib = [(r["library_ms"], r["library_device_ms"], n) for r, n in mine]
+            if lib and all(m is not None for m, _, _ in lib):
+                agg["library_ms"] = sum(m * n for m, _, n in lib)
+                agg["library_device_ms"] = sum(d * n for _, d, n in lib)
+            print(f"{name} per {what}: launches={sum(n for _, n in mine)} "
+                  + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
+    return list(rows.values())
+
+
+def kernel_mode_phase(dev, model, params, lens, prompts, checked):
+    """The kernel-mode path: the same model served through the hand-written
+    kernels (``kernel_mode("kernels")``), stitched prefill and decode; exact
+    launch counts per decode step and prefill call; every kernel of the
+    path held against its plain version; the bf16 logits against the
+    ref-mode eager decode over several weight seeds."""
+    from repro_torch.core import StitchCompiler
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = model.cfg
+    steps = 15
+    scfg = ServeConfig(batch=4, max_len=128, max_new_tokens=steps + 1,
+                       stitch_execute=True, paged=False)
+    with ops.kernel_mode("kernels"):
+        eng = Engine(model, params, scfg, device=dev,
+                     compiler=StitchCompiler(plan_budget=20.0))
+        warm_serve(eng, prompts, lens, steps, "kernel-mode")
+        run = measured_serve(eng, prompts, lens, steps, dev, "kernel-mode",
+                             cfg.vocab)
+    per_step, per_prefill = expected_launches(cfg.n_layers)
+    decode_counts = {k: run["hand_total"][k] - run["hand_prefill"][k]
+                     for k in per_step}
+    print(f"kernel-mode launches: prefill call {run['hand_prefill']}, "
+          f"{steps} decode steps {decode_counts}")
+    if run["hand_prefill"] != per_prefill:
+        fail(f"kernel-mode prefill launched {run['hand_prefill']}, expected "
+             f"{per_prefill}")
+    for k, n in per_step.items():
+        if decode_counts[k] != n * steps:
+            fail(f"kernel-mode decode launched {k} {decode_counts[k]} times in "
+                 f"{steps} steps, expected {n} a step")
+    pre, dec = path_inputs(eng, params, prompts, run, dev)
+    kernels = stitched_rows(pre, dec, run["counts"], "kernel-mode", checked)
+    kernels += hand_rows(pre, dec, steps, run["hand_total"])
+    summary = plan_summary(eng, run)
+    del pre, dec, run
+
+    eager = Engine(model, params, ServeConfig(batch=4, max_len=128,
+                                              max_new_tokens=2), device=dev)
+    readings = []
+    for s in range(LOGIT_SEEDS):
+        if s:
+            eng.params = eager.params = model.init(SEED + s, dev)
+        ps = prompts_for(cfg, lens, SEED + s)
+        with ops.kernel_mode("kernels"):
+            km = first_step_logits(eng, ps, lens)
+        ea = first_step_logits(eager, ps, lens)
+        agree = float((km.argmax(-1) == ea.argmax(-1)).float().mean())
+        readings.append(rel_diff(km, ea))
+        print(f"decode logits kernel mode vs ref-mode eager (bf16, "
+              f"{cfg.n_layers}L, seed {SEED + s}): rel={readings[-1]:.6g} "
+              f"argmax_agree={agree}")
+    eng.params = eager.params = params
+    print(f"kernel-mode decode logits bf16: tol={KM_LOGIT_TOL} sound "
+          f"max={max(readings):.6g}")
+    if not all(np.isfinite(r) and r <= KM_LOGIT_TOL for r in readings):
+        fail("kernel-mode decode logits disagree with the ref-mode eager decode")
+    return kernels, summary
 
 
 def prompts_for(cfg, lens, seed):
@@ -635,52 +992,98 @@ def fault_readings(eng, ref, lens, faults) -> dict:
     return out
 
 
+def faulted_decode_library():
+    """The decode-attention library built with a planted fault: a key is
+    valid when ``kpos < pos`` instead of ``kpos <= pos`` (the row's own new
+    key is dropped)."""
+    import ctypes
+    from repro_torch.kernels import build, decode_attention
+    src = (build.CSRC / "decode_attention.cu").read_text()
+    sound = "const int hi = min(p, smax - 1);"
+    if sound not in src:
+        fail("the decode-attention source lost the line the fault is planted in")
+    d = build.build_dir() / "planted_fault"
+    d.mkdir(parents=True, exist_ok=True)
+    path = d / "decode_attention.cu"
+    path.write_text(src.replace(sound, "const int hi = min(p - 1, smax - 1);"))
+    lib = build.compile_source([path], d)["decode_attention"]
+    return decode_attention.bind(ctypes.CDLL(str(lib)))
+
+
 def full_width_f32(dev):
     """qwen3-1.7b at full width, cut to 4 layers, in float32: the stitched
-    first decode step against the eager one over several weight seeds,
-    then with faults planted in the stitched RMSNorm kernels."""
+    first decode step, ref mode and kernel mode, against the eager ref-mode
+    one over several weight seeds; then faults planted in the stitched
+    RMSNorm kernels (ref mode) and in the decode-attention kernel (kernel
+    mode)."""
     from dataclasses import replace
     from repro_torch.configs import get_config
     from repro_torch.core import StitchCompiler
+    from repro_torch.kernels import decode_attention, ops
     from repro_torch.models import build_model
     from repro_torch.serve import Engine, ServeConfig
     cfg = replace(get_config("qwen3-1.7b"), n_layers=4, dtype="float32")
     model = build_model(cfg)
     params = model.init(SEED, dev)
     lens = np.array([30, 25, 20, 32], np.int32)
-    engs = [Engine(model, params, ServeConfig(
-        batch=4, max_len=64, max_new_tokens=2,
-        stitch_execute=stitch_execute), device=dev,
-        compiler=StitchCompiler(plan_budget=10.0))
-        for stitch_execute in (True, False)]
-    readings, ref0 = [], None
+
+    def engine(stitch_execute):
+        return Engine(model, params, ServeConfig(
+            batch=4, max_len=64, max_new_tokens=2,
+            stitch_execute=stitch_execute), device=dev,
+            compiler=StitchCompiler(plan_budget=10.0))
+
+    stitched, eager, km = engine(True), engine(False), engine(True)
+    readings, km_readings, ref0 = [], [], None
     for s in range(F32_SEEDS):
         if s:
             seeded = model.init(SEED + s, dev)
-            for e in engs:
+            for e in (stitched, eager, km):
                 e.params = seeded
         ps = prompts_for(cfg, lens, SEED + 1 + s)
-        st, ea = (first_step_logits(e, ps, lens) for e in engs)
-        readings.append(rel_diff(st, ea))
-        print(f"full-width 4-layer f32 decode logits stitched vs eager "
-              f"(seed {SEED + s}): rel={readings[-1]:.6g}")
+        ea = first_step_logits(eager, ps, lens)
+        readings.append(rel_diff(first_step_logits(stitched, ps, lens), ea))
+        with ops.kernel_mode("kernels"):
+            km_readings.append(rel_diff(first_step_logits(km, ps, lens), ea))
+        print(f"full-width 4-layer f32 decode logits vs eager (seed {SEED + s}): "
+              f"stitched rel={readings[-1]:.6g} kernel-mode rel="
+              f"{km_readings[-1]:.6g}")
         if s == 0:
             ref0 = (ps, ea)
-    if engs[0].report()["decode"]["calls"]["stitched"] != F32_SEEDS:
-        fail("4-layer f32 decode did not run stitched")
-    for e in engs:
+    for e, tag in ((stitched, "stitched"), (km, "kernel-mode")):
+        if e.report()["decode"]["calls"]["stitched"] != F32_SEEDS:
+            fail(f"4-layer f32 {tag} decode did not run stitched")
+    for e in (stitched, eager, km):
         e.params = params
-    faults = fault_readings(engs[0], ref0, lens, F32_FAULTS)
+    faults = fault_readings(stitched, ref0, lens, F32_FAULTS)
     print(f"full-width 4-layer f32 logits: tol={F32_LOGIT_TOL} sound "
           f"max={max(readings):.6g} planted faults {faults}")
     if not all(r <= F32_LOGIT_TOL for r in readings):
         fail("full-width f32 stitched logits disagree with eager")
+    decode_attention._lib()
+    sound_lib, decode_attention._LIB = (decode_attention._LIB,
+                                        faulted_decode_library())
+    try:
+        with ops.kernel_mode("kernels"):
+            planted = rel_diff(first_step_logits(km, ref0[0], lens), ref0[1])
+    finally:
+        decode_attention._LIB = sound_lib
+    print(f"full-width 4-layer f32 kernel-mode logits: tol={F32_LOGIT_TOL} "
+          f"sound max={max(km_readings):.6g} planted decode-attention fault "
+          f"(kpos < pos) {planted:.6g}")
+    if not all(r <= F32_LOGIT_TOL for r in km_readings):
+        fail("full-width f32 kernel-mode logits disagree with eager")
+    if not planted > F32_LOGIT_TOL:
+        fail("the f32 logit check missed the planted decode-attention fault")
 
 
 def reduced_reference(dev):
-    """Reduced qwen3 in float32: stitched serving equals eager serving."""
+    """Reduced qwen3 in float32: stitched serving, in ref mode and in kernel
+    mode (head_dim 16: the decode kernel's narrowest lane layout), equals
+    eager ref-mode serving."""
     from dataclasses import replace
     from repro_torch.configs import get_reduced
+    from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.serve import Engine, ServeConfig
     cfg = replace(get_reduced("qwen3-1.7b"), dtype="float32")
@@ -688,20 +1091,23 @@ def reduced_reference(dev):
     params = model.init(SEED, dev)
     prompts = np.random.default_rng(SEED).integers(0, cfg.vocab, (3, 7))
     lens = np.array([7, 5, 6])
-    outs = []
-    for stitch_execute in (True, False):
-        eng = Engine(model, params, ServeConfig(batch=3, max_len=32,
-                                                max_new_tokens=6,
-                                                stitch_execute=stitch_execute),
-                     device=dev)
-        outs.append(eng.generate(prompts, prompt_lens=lens))
-        if stitch_execute:
-            rep = eng.report()["decode"]
-            if rep["calls"]["fallback"] or not rep["plan"]["triton_groups"]:
-                fail("reduced stitched decode did not run its Triton groups")
-    same = bool(np.array_equal(outs[0], outs[1]))
-    print(f"reduced f32 stitched tokens == eager tokens: {same}")
-    if not same:
+    outs = {}
+    for mode, stitch_execute in (("ref", True), ("kernels", True),
+                                 ("ref", False)):
+        with ops.kernel_mode(mode):
+            eng = Engine(model, params, ServeConfig(
+                batch=3, max_len=32, max_new_tokens=6,
+                stitch_execute=stitch_execute), device=dev)
+            outs[mode, stitch_execute] = eng.generate(prompts, prompt_lens=lens)
+        rep = eng.report()["decode"]
+        if stitch_execute and (rep["calls"]["fallback"]
+                               or rep["calls"]["stitched"] != 5):
+            fail(f"reduced stitched {mode}-mode decode did not run stitched")
+    eager = outs["ref", False]
+    same = {f"{m} mode stitched": bool(np.array_equal(o, eager))
+            for (m, st), o in outs.items() if st}
+    print(f"reduced f32 tokens == eager ref-mode tokens: {same}")
+    if not all(same.values()):
         fail("reduced stitched tokens differ from eager tokens")
 
 
@@ -721,11 +1127,38 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    build_phase()
     samples = sample_kernels(dev)
     print(json.dumps({"sample_kernels": samples}))
-    kernels = serve_phase(dev)
+    hand_samples(dev)
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("qwen3-1.7b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, dev)
+    torch.cuda.synchronize()
+    print(f"init {cfg.name}: {cfg.n_layers}L d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab} in {time.perf_counter() - t0:.1f}s")
+    lens = np.array([50, 45, 40, 60], np.int32)      # one pow2 bucket: 64
+    prompts = prompts_for(cfg, lens, SEED)
+    checked: dict = {}
+    kernels, summaries = [], {}
+    for tag, phase in (("ref-mode", serve_phase),
+                       ("kernel-mode", kernel_mode_phase)):
+        t0 = time.perf_counter()
+        rows, summaries[tag] = phase(dev, model, params, lens, prompts, checked)
+        kernels += rows
+        print(f"{tag} phase: {time.perf_counter() - t0:.1f}s")
+    for tag, summary in summaries.items():
+        print(f"decode plan {tag} ({cfg.n_layers}L): {json.dumps(summary)}")
+    del params
+    t0 = time.perf_counter()
     full_width_f32(dev)
     reduced_reference(dev)
+    print(f"f32 and reduced checks: {time.perf_counter() - t0:.1f}s")
     print(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

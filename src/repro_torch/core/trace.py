@@ -24,6 +24,11 @@ translation:
   partitions fusion, like the paper's opaque ops, and the graph stays
   runnable end to end.  Multi-output ops get a shapeless base node plus
   ``.o{i}`` projections.
+* The hand-written kernels' custom ops (``repro_torch::rmsnorm`` etc.) are
+  CUSTOM nodes tagged ``attrs["kernel"]`` with the reference kernel body
+  they port (:data:`repro_torch.kernels.ops.KERNEL_TAGS`), the name the
+  planner's registry knows them by, so they fuse with their neighbours
+  instead of partitioning the graph.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ from typing import Callable
 import torch
 import torch.fx as fx
 from torch.utils import _pytree as pytree
+
+from repro_torch.kernels.ops import KERNEL_TAGS
 
 from .codegen import canonical_dtype as _torch_dtype, dtype_name, is_float
 from .ir import Graph, OpKind, OpNode, itemsize
@@ -251,6 +258,9 @@ class _Translator:
         if not has_tensor:
             # factory op (arange, full, scalar_tensor): value fixed at trace
             return self.const(target(*node.args, **node.kwargs))
+        tag = KERNEL_TAGS.get(target)
+        if tag is not None:
+            return self.custom(node, kernel=tag)
         packet = getattr(target, "__name__", str(target)).split(".")[0]
         handler = getattr(self, f"op_{packet}", None)
         if handler is not None:
@@ -520,7 +530,7 @@ class _Translator:
         return self._ew_names("add", [d, self.env[bias]], v)
 
     # -- opaque but executable -----------------------------------------------------
-    def custom(self, node: fx.Node) -> str:
+    def custom(self, node: fx.Node, kernel: str | None = None) -> str:
         tensors: list[fx.Node] = []
 
         def slot(n: fx.Node):
@@ -540,6 +550,8 @@ class _Translator:
         prim = str(target)
         attrs = {"prim": prim, "params_sig": _params_sig(*template),
                  "eval_fn": run}
+        if kernel is not None:
+            attrs["kernel"] = kernel
         stem = "custom_" + prim.split(".")[1] if prim.startswith("aten.") \
             else "custom"
         v = _meta(node)

@@ -12,7 +12,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rmsnorm", "swiglu", "rope", "attention"]
+__all__ = ["rmsnorm", "swiglu", "geglu", "rope", "attention"]
 
 
 def rmsnorm(x, gamma, eps: float = 1e-6):
@@ -24,6 +24,12 @@ def rmsnorm(x, gamma, eps: float = 1e-6):
 
 def swiglu(gate, up):
     return (F.silu(gate.to(torch.float32)) * up.to(torch.float32)).to(gate.dtype)
+
+
+def geglu(gate, up):
+    """GELU in its tanh form, which is ``jax.nn.gelu``'s default."""
+    return (F.gelu(gate.to(torch.float32), approximate="tanh")
+            * up.to(torch.float32)).to(gate.dtype)
 
 
 def rope(x, positions, theta: float = 10000.0):

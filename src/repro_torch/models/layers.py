@@ -1,5 +1,5 @@
 """Dense-family layer library: GQA attention (RoPE / qk-norm / dense KV
-cache), the SwiGLU MLP, RMSNorm, and their initializers.
+cache), the SwiGLU / GeGLU MLP, RMSNorm, and their initializers.
 
 All functions are pure; parameters are nested dicts of tensors in the
 reference's layout (weights ``(in, out)`` for ``x @ w``, activations
@@ -76,7 +76,8 @@ def apply_mlp(p: Params, x, cfg: ModelConfig):
     dt = torch_dtype(cfg.dtype)
     gate = x @ p["w_gate"].to(dt)
     up = x @ p["w_up"].to(dt)
-    return ops.swiglu(gate, up) @ p["w_down"].to(dt)
+    h = ops.swiglu(gate, up) if cfg.act == "swiglu" else ops.geglu(gate, up)
+    return h @ p["w_down"].to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -116,6 +117,13 @@ def apply_attention(p: Params, x, cfg: ModelConfig, positions,
         ck = cache["k"].index_put((rows, pos), k.to(cache["k"].dtype))
         cv = cache["v"].index_put((rows, pos), v.to(cache["v"].dtype))
         new_cache = {"k": ck, "v": cv, "length": length + S}
+        if S == 1 and ops.get_mode() == "kernels":
+            # the decode-attention kernel: the whole masked-softmax chain is
+            # one registered CUSTOM node (the position mask covers length
+            # validity, as in the einsum chain below)
+            out = ops.decode_attention(q, ck, cv, positions[:, 0], scale=scale)
+            out = out.reshape(B, S, Hq * dh) @ p["wo"].to(dt)
+            return out, new_cache
         Smax = ck.shape[1]
         group = Hq // Hkv
         # grouped-GQA contraction at native Hkv width, f32 accumulation
@@ -131,6 +139,13 @@ def apply_attention(p: Params, x, cfg: ModelConfig, positions,
                            probs.to(dt).to(torch.float32),
                            cv.to(torch.float32))
         out = out.reshape(B, S, Hq, dh).to(dt)
+    elif ops.get_mode() == "kernels" and S % 128 == 0:
+        # the reference runs its flash-attention kernel here
+        raise NotImplementedError(
+            f"kernel-mode prefill of {S} tokens runs the flash-attention "
+            f"kernel (_flash_kernel), which is not ported yet (next in "
+            f"ROADMAP.md Queue 1); use a prefill length that is not a "
+            f"multiple of 128, or kernel_mode('ref')")
     else:
         out = ops.attention(q, k, v, causal=True, scale=scale,
                             positions_q=positions)

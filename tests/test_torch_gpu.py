@@ -140,3 +140,105 @@ def test_stitched_engine_on_card_matches_eager():
             stitch_execute=stitch_execute), device="cuda")
         out.append(eng.generate(prompts, prompt_lens=lens))
     np.testing.assert_array_equal(out[0], out[1])
+
+
+# -- the hand-written kernels (kernel mode) -----------------------------------
+
+# qwen3-1.7b main-path shapes, batch 4: decode rows, qk-norm rows (16 q and
+# 8 kv heads of 128), prefill token rows (4 x 64)
+NORM_SHAPES = [(4, 2048), (64, 128), (32, 128), (256, 2048), (4096, 128)]
+GLU_SHAPES = [(4, 6144), (256, 6144)]
+ROPE_SHAPES = [(4, 16), (4, 8), (256, 16)]          # (rows, heads), Dh 128
+KERNEL_TOL = [("float32", 2e-5), ("bfloat16", 1.6e-2)]
+
+
+def _rand(shape, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=gen).to(getattr(torch, dtype)).cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
+def test_rmsnorm_kernel_on_card(dtype, tol):
+    _need_card()
+    from repro_torch.kernels import norms
+    for rows, d in NORM_SHAPES:
+        x, g = _rand((rows, d), dtype), _rand((d,), dtype, 1)
+        before = norms.launches
+        out = norms.rmsnorm_op(x, g, 1e-6)
+        assert norms.launches == before + 1
+        torch.testing.assert_close(out.float(),
+                                   norms.rmsnorm_plain(x, g, 1e-6).float(),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_glu_kernel_on_card(act, dtype, tol):
+    _need_card()
+    from repro_torch.kernels import activations
+    for shape in GLU_SHAPES:
+        gate, up = _rand(shape, dtype), _rand(shape, dtype, 1)
+        out = activations.glu_op(gate, up, act)
+        torch.testing.assert_close(
+            out.float(), activations.glu_plain(gate, up, act).float(),
+            rtol=tol, atol=tol)
+    # row-strided operands (a column slice of a wider tensor) are taken as
+    # they are; a transposed one is refused
+    wide_g, wide_u = _rand((4, 2 * 6144), dtype), _rand((4, 2 * 6144), dtype, 1)
+    g2, u2 = wide_g[:, :6144], wide_u[:, 6144:]
+    torch.testing.assert_close(activations.glu_op(g2, u2, act).float(),
+                               activations.glu_plain(g2, u2, act).float(),
+                               rtol=tol, atol=tol)
+    with pytest.raises(ValueError, match="contiguous"):
+        activations.glu_op(gate.t(), up.t(), act)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
+def test_rope_kernel_on_card(dtype, tol):
+    _need_card()
+    from repro_torch.kernels import rope
+    for rows, heads in ROPE_SHAPES:
+        x = _rand((rows, heads * 128), dtype)
+        pos = torch.randint(0, 128, (rows,), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(2)).cuda()
+        out = rope.rope_op(x, pos, 1e6, 128)
+        torch.testing.assert_close(
+            out.float(), rope.rope_plain(x, pos, 1e6, 128).float(),
+            rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
+@pytest.mark.parametrize("window", [None, 32])
+def test_decode_attention_kernel_on_card(window, dtype, tol):
+    """q (4, 16, 1, 128) against transposed views of a (4, 128, 8, 128)
+    cache; positions at 0, in the middle, at Smax-1 and one more."""
+    _need_card()
+    from repro_torch.kernels import decode_attention as da
+    q = _rand((4, 1, 16, 128), dtype)
+    k, v = _rand((4, 128, 8, 128), dtype, 1), _rand((4, 128, 8, 128), dtype, 2)
+    pos = torch.tensor([[0], [64], [127], [50]], dtype=torch.int32).cuda()
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    before = da.launches
+    out = da.decode_attention_op(pos, qt, kt, vt, 128 ** -0.5, window)
+    torch.cuda.synchronize()
+    assert da.launches == before + 1
+    torch.testing.assert_close(
+        out.float(), da.decode_attention_plain(pos, qt, kt, vt, 128 ** -0.5,
+                                               window).float(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_cuda_library_builds_from_an_empty_directory(tmp_path):
+    _need_card()
+    import ctypes
+    from repro_torch.kernels import build
+    libs = build.compile_source(sorted(build.CSRC.glob("*.cu")), tmp_path)
+    assert set(libs) == {p.stem for p in build.CSRC.glob("*.cu")}
+    lib = ctypes.CDLL(str(libs["decode_attention"]))
+    assert hasattr(lib, "repro_decode_attention")
+    assert "registers" in libs["decode_attention"].with_suffix(".log").read_text()
