@@ -493,6 +493,7 @@ def measured_serve(eng, prompts, lens, steps, dev, tag, vocab):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     hand_prefill = ops.launch_counts()
+    hand_prefill_sig = ops.launch_counts_by_signature()
     for row in range(n):
         eng.insert(px, slot=row, row=row)
     cache_before = {k: v.clone() for k, v in eng.kv.decode_cache().items()}
@@ -504,6 +505,7 @@ def measured_serve(eng, prompts, lens, steps, dev, tag, vocab):
     t2 = time.perf_counter()
     counts = stitched.launch_counts()
     hand_total = ops.launch_counts()
+    hand_total_sig = ops.launch_counts_by_signature()
     dec1 = eng.report()["decode"]["calls"]
     # device busy share of one decode step (the profiler's kernel time over
     # the step's wall time)
@@ -535,7 +537,8 @@ def measured_serve(eng, prompts, lens, steps, dev, tag, vocab):
         fail(f"{tag} prefill fell back to eager")
     return {"px": px, "cache_before": cache_before, "tok_before": tok_before,
             "counts": counts, "hand_prefill": hand_prefill,
-            "hand_total": hand_total, "prefill_ms": prefill_ms,
+            "hand_total": hand_total, "hand_prefill_sig": hand_prefill_sig,
+            "hand_total_sig": hand_total_sig, "prefill_ms": prefill_ms,
             "decode_ms": decode_ms, "busy_ms": busy, "steps": steps}
 
 
@@ -552,7 +555,7 @@ def path_inputs(eng, params, prompts, run, dev):
     dec_in = spec_inputs(eng._exec, (params, run["cache_before"],
                                      run["tok_before"]))
     dec = group_inputs(eng._exec.compiled, dec_in)
-    return pre, dec
+    return pre, dec, dec_in
 
 
 def stitched_rows(pre, dec, counts, tag, checked):
@@ -586,7 +589,68 @@ def stitched_rows(pre, dec, counts, tag, checked):
     return rows
 
 
-def plan_summary(eng, run):
+def group_kind(grp, g) -> str:
+    """The group's kind (``triton``, ``torch`` or ``op``), with ``_hand``
+    added when it holds a hand-written kernel node.  The planner prices a
+    ``torch_hand`` group as one fused kernel, but the executor runs it
+    member by member; an ``op_hand`` group is the kernel node alone."""
+    if grp.kind != "triton" and any(g[m].attrs.get("kernel")
+                                    for m in grp.members):
+        return grp.kind + "_hand"
+    return grp.kind
+
+
+def group_costs(compiled, inputs, reps: int = 3) -> dict:
+    """Per group kind of a plan: groups; GB per call as planned (each
+    group's external inputs read once and outputs written once) and as run
+    (a torch group runs member by member, every member reading its operands
+    and writing its value: an upper estimate, since views move nothing);
+    and host ms per call spent launching the kind's groups (the executor's
+    loop timed group by group, ``reps`` calls, one synchronize a call)."""
+    from repro_torch.core.codegen import eval_node, source_value
+    from repro_torch.core.pattern import FusionPattern
+    g = compiled.graph
+    out = {}
+    for grp in compiled.groups:
+        c = out.setdefault(group_kind(grp, g), {"groups": 0, "planned_gb": 0.0,
+                                                "run_gb": 0.0, "host_ms": 0.0})
+        p = FusionPattern(g, grp.members)
+        planned = (sum(g[n].bytes for n in p.external_inputs)
+                   + sum(g[n].bytes for n in p.external_outputs)) / 1e9
+        run = planned
+        if grp.kind == "torch":
+            run = sum(g[o].bytes for m in p.compute_members
+                      for o in m.operands) / 1e9 \
+                + sum(m.bytes for m in p.compute_members) / 1e9
+        c["groups"] += 1
+        c["planned_gb"] += planned
+        c["run_gb"] += run
+    device = next(v.device for v in inputs.values() if hasattr(v, "device"))
+    for _ in range(reps):
+        env = {n: source_value(node, inputs, device)
+               for n, node in g.nodes.items() if node.is_source()}
+        torch.cuda.synchronize()
+        for grp, members, dead in zip(compiled._order, compiled._members_topo,
+                                      compiled._free_after):
+            t0 = time.perf_counter()
+            if grp.kind == "triton" and grp.tuned and grp.tuned.callable:
+                pat = grp.tuned.pattern
+                outs = grp.tuned.callable(*[env[i] for i in pat.external_inputs])
+                env.update(zip(pat.external_outputs, outs))
+            else:
+                for nm in members:
+                    node = g[nm]
+                    env[nm] = eval_node(node, [env[o] for o in node.operands], g)
+            out[group_kind(grp, g)]["host_ms"] += \
+                (time.perf_counter() - t0) * 1e3 / reps
+            for nm in dead:
+                env.pop(nm, None)
+        torch.cuda.synchronize()
+    return {k: {f: round(v, 4) if isinstance(v, float) else v
+                for f, v in c.items()} for k, c in sorted(out.items())}
+
+
+def plan_summary(eng, run, dec_in):
     plan = eng.report()["decode"]["plan"]
     out = {k: plan[k] for k in ("n_ops", "n_kernels", "triton_groups",
                                 "torch_groups", "op_groups")}
@@ -598,6 +662,7 @@ def plan_summary(eng, run):
     out["groups_with_hand_kernel"] = sum(
         1 for grp in eng._exec.compiled.groups
         if any(g[m].attrs.get("kernel") for m in grp.members))
+    out["by_group_kind"] = group_costs(eng._exec.compiled, dec_in)
     return out
 
 
@@ -617,10 +682,10 @@ def serve_phase(dev, model, params, lens, prompts, checked):
                          "ref-mode", cfg.vocab)
     if sum(run["counts"].values()) <= 0:
         fail("no Triton stitched launch on the ref-mode path")
-    pre, dec = path_inputs(eng, params, prompts, run, dev)
+    pre, dec, dec_in = path_inputs(eng, params, prompts, run, dev)
     kernels = stitched_rows(pre, dec, run["counts"], "ref-mode", checked)
-    summary = plan_summary(eng, run)
-    del pre, dec, run
+    summary = plan_summary(eng, run, dec_in)
+    del pre, dec, dec_in, run
 
     # first decode step, stitched vs eager, over several weight seeds; then
     # faults planted in the stitched RMSNorm kernels (seed 0) show what the
@@ -684,7 +749,10 @@ def build_phase() -> float:
     """Build the CUDA library from an empty ``build/kernels``."""
     from repro_torch.kernels import build
     shutil.rmtree(build.build_dir(), ignore_errors=True)
-    libs, secs = build.build()
+    t0 = time.perf_counter()
+    libs = {src.stem: build.library(src.stem)
+            for src in sorted(build.CSRC.glob("*.cu"))}
+    secs = time.perf_counter() - t0
     for stem, path in libs.items():
         info = [ln.split("info    : ")[-1].strip()
                 for ln in path.with_suffix(".log").read_text().splitlines()
@@ -747,6 +815,27 @@ def hand_samples(dev):
                  f"(max err {errs[name]})")
     print(f"hand-written kernel samples vs plain: "
           + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
+    # RoPE in f32 against the rotation computed in f64 from exact angles:
+    # how far the kernel and its plain version each are from exact
+    x, pos, theta, hd = next(a for n, _, _, a in cases
+                             if n.startswith("rope_float32"))
+    exact = rope_f64(x, pos, theta, hd)
+    dist = {k: float((f(x, pos, theta, hd).double() - exact).abs().max())
+            for k, f in (("kernel", rope.rope_op), ("plain", rope.rope_plain))}
+    print(f"rope f32 vs f64 at positions up to {int(pos.max())}: "
+          + " ".join(f"{k}={v:.3g}" for k, v in dist.items()))
+
+
+def rope_f64(x, pos, theta, head_dim):
+    """``rope_op``'s rotation in f64 from the exact angles."""
+    half = head_dim // 2
+    freq = theta ** (-torch.arange(half, dtype=torch.float64,
+                                   device=x.device) / half)
+    ang = pos.double()[:, None, None] * freq            # (rows, 1, half)
+    xr = x.double().reshape(x.shape[0], -1, head_dim)
+    x1, x2 = xr[..., :half], xr[..., half:]
+    c, s = torch.cos(ang), torch.sin(ang)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1).reshape(x.shape)
 
 
 def op_call(node, tensors):
@@ -805,29 +894,56 @@ def hand_bound(tag, args, out) -> tuple[float, str]:
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
-def hand_rows(pre, dec, steps, hand_total):
-    """Every hand-written kernel node signature of the two plans, on its
-    main-path operands: held against the plain version and timed.  Its
-    launches are the plans' nodes of that signature times the calls of the
-    measured run; per kernel they must add up to the launch count."""
-    keys = {}
+def launch_signature(name, node, tensors) -> tuple:
+    """The key the kernel's launcher counts a launch of ``node`` under
+    (``build.signature`` of its arguments, defaults filled in)."""
+    import inspect
+    from repro_torch.kernels import activations, build, decode_attention
+    from repro_torch.kernels import norms, rope
+    launcher = {"rmsnorm": norms, "glu": activations, "rope": rope,
+                "decode_attention": decode_attention}[name]._launch
+    _, args, kwargs = op_call(node, tensors)
+    bound = inspect.signature(launcher).bind(*args, **kwargs)
+    bound.apply_defaults()
+    return build.signature(*bound.arguments.values())
+
+
+def hand_rows(pre, dec, steps, run):
+    """Every hand-written kernel launch signature of the two plans (shapes,
+    dtypes and other arguments), on its main-path operands: held against
+    the plain version and timed.  Its launches are the ones its launcher
+    counted under that signature in the measured run; they must equal the
+    plans' nodes of that signature times the calls of the run, and no
+    launch of the run may have a signature outside the plans."""
+    plans = {}
     for hand, calls in ((pre[2], 1), (dec[2], steps)):
-        for key, (node, args, n) in hand.items():
-            keys.setdefault(key, [node, args, 0])[2] += n * calls
-    per_kernel = {name: 0 for name, *_ in HAND.values()}
+        for (tag, *_), (node, tensors, n) in hand.items():
+            name = HAND[tag][0]
+            key = (name, launch_signature(name, node, tensors))
+            plans.setdefault(key, [tag, node, tensors, 0])[3] += n * calls
+    total, prefill = run["hand_total_sig"], run["hand_prefill_sig"]
+    measured = {(name, sig): n for name, c in total.items()
+                for sig, n in c.items()}
+    if set(measured) != set(plans):
+        fail(f"hand-written kernels launched at signatures "
+             f"{sorted(map(str, set(measured) - set(plans)))} outside the "
+             f"plans, or never at {sorted(map(str, set(plans) - set(measured)))}")
+    derived = {key: v[3] for key, v in plans.items()}
+    if measured != derived:
+        fail(f"hand-written kernel launches by signature {measured} != the "
+             f"plans' nodes times their calls {derived}")
     rows = {}
-    for key, (node, tensors, launches) in sorted(
-            keys.items(), key=lambda kv: (kv[0][0], -kv[1][2])):
-        tag, sig, _ = key
-        name, route, source, replaces = HAND[tag]
-        per_kernel[name] += launches
+    for key, (tag, node, tensors, _) in sorted(
+            plans.items(), key=lambda kv: (kv[0][0], -measured[kv[0]])):
+        name, sig = key
+        _, route, source, replaces = HAND[tag]
         op, args, kwargs = op_call(node, tensors)
         plain = hand_plain(tag)
 
-        def run():
+        def run_op():
             return op(*args, **kwargs)
 
-        out = run()
+        out = run_op()
         torch.cuda.synchronize()
         ref = plain(*args, **kwargs)
         err = max_err((out,), (ref,))
@@ -845,29 +961,34 @@ def hand_rows(pre, dec, steps, hand_total):
             lib_ms = timed(lib, 50)
             lib_dev_ms = device_ms(lib)
         bound_ms, bound_by = hand_bound(tag, args, out)
-        shapes = ",".join("x".join(map(str, s)) for s, _ in sig)
-        dt = next(d for _, d in sig if "float" in d).replace("torch.", "")
+        tensor_sig = [a for a in sig if isinstance(a, tuple)]
+        shapes = ",".join("x".join(map(str, s)) for s, _ in tensor_sig)
+        dt = next(d for _, d in tensor_sig if "float" in d).replace("torch.", "")
+        n_prefill = prefill[name].get(sig, 0)
         rows[key] = {"name": f"{name}[{shapes},{dt}]",
                      "route": route, "source": source, "replaces": replaces,
-                     "launches": launches, "max_abs_err": err,
-                     "ms": timed(run, 50), "device_ms": device_ms(run),
+                     "launches": measured[key],
+                     "launches_prefill_call": n_prefill,
+                     "launches_per_decode_step": (measured[key] - n_prefill)
+                     / steps,
+                     "max_abs_err": err,
+                     "ms": timed(run_op, 50), "device_ms": device_ms(run_op),
                      "plain_ms": timed(lambda: plain(*args, **kwargs), 20),
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
                      "library_max_abs_err": lib_err}
-    if per_kernel != hand_total:
-        fail(f"hand-written kernel launches {hand_total} != the plans' nodes "
-             f"times their calls {per_kernel}")
-    for tag, (name, *_) in HAND.items():
-        for what, hand in (("decode step", dec[2]), ("prefill call", pre[2])):
-            mine = [(rows[k], n) for k, (_, _, n) in hand.items() if k[0] == tag]
+    for name, *_ in HAND.values():
+        for what, field in (("decode step", "launches_per_decode_step"),
+                            ("prefill call", "launches_prefill_call")):
+            mine = [(r, r[field]) for (nm, _), r in rows.items()
+                    if nm == name and r[field]]
             agg = {f: sum(n * r[f] for r, n in mine)
                    for f in ("ms", "device_ms", "plain_ms", "bound_ms")}
-            lib = [(r["library_ms"], r["library_device_ms"], n) for r, n in mine]
-            if lib and all(m is not None for m, _, _ in lib):
-                agg["library_ms"] = sum(m * n for m, _, n in lib)
-                agg["library_device_ms"] = sum(d * n for _, d, n in lib)
-            print(f"{name} per {what}: launches={sum(n for _, n in mine)} "
+            if mine and all(r["library_ms"] is not None for r, _ in mine):
+                agg["library_ms"] = sum(n * r["library_ms"] for r, n in mine)
+                agg["library_device_ms"] = sum(n * r["library_device_ms"]
+                                               for r, n in mine)
+            print(f"{name} per {what}: launches={sum(n for _, n in mine):g} "
                   + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
     return list(rows.values())
 
@@ -903,11 +1024,11 @@ def kernel_mode_phase(dev, model, params, lens, prompts, checked):
         if decode_counts[k] != n * steps:
             fail(f"kernel-mode decode launched {k} {decode_counts[k]} times in "
                  f"{steps} steps, expected {n} a step")
-    pre, dec = path_inputs(eng, params, prompts, run, dev)
+    pre, dec, dec_in = path_inputs(eng, params, prompts, run, dev)
     kernels = stitched_rows(pre, dec, run["counts"], "kernel-mode", checked)
-    kernels += hand_rows(pre, dec, steps, run["hand_total"])
-    summary = plan_summary(eng, run)
-    del pre, dec, run
+    kernels += hand_rows(pre, dec, steps, run)
+    summary = plan_summary(eng, run, dec_in)
+    del pre, dec, dec_in, run
 
     eager = Engine(model, params, ServeConfig(batch=4, max_len=128,
                                               max_new_tokens=2), device=dev)
@@ -1006,7 +1127,7 @@ def faulted_decode_library():
     d.mkdir(parents=True, exist_ok=True)
     path = d / "decode_attention.cu"
     path.write_text(src.replace(sound, "const int hi = min(p - 1, smax - 1);"))
-    lib = build.compile_source([path], d)["decode_attention"]
+    lib = build.library("decode_attention", src_dir=d, out_dir=d)
     return decode_attention.bind(ctypes.CDLL(str(lib)))
 
 
@@ -1094,15 +1215,26 @@ def reduced_reference(dev):
     outs = {}
     for mode, stitch_execute in (("ref", True), ("kernels", True),
                                  ("ref", False)):
+        ops.reset_launch_counts()
         with ops.kernel_mode(mode):
             eng = Engine(model, params, ServeConfig(
                 batch=3, max_len=32, max_new_tokens=6,
                 stitch_execute=stitch_execute), device=dev)
             outs[mode, stitch_execute] = eng.generate(prompts, prompt_lens=lens)
+        if not stitch_execute:
+            continue
         rep = eng.report()["decode"]
-        if stitch_execute and (rep["calls"]["fallback"]
-                               or rep["calls"]["stitched"] != 5):
+        if rep["calls"]["fallback"] or rep["calls"]["stitched"] != 5:
             fail(f"reduced stitched {mode}-mode decode did not run stitched")
+        # ref mode runs generated kernels; the reduced kernel-mode plan has
+        # none (its kernels' groups run as torch groups), so it must have
+        # run every hand-written kernel instead
+        if mode == "ref" and not rep["plan"]["triton_groups"]:
+            fail("reduced stitched decode did not run its Triton groups")
+        launched = ops.launch_counts()
+        if mode == "kernels" and not all(launched.values()):
+            fail(f"reduced kernel-mode decode did not run every hand-written "
+                 f"kernel: {launched}")
     eager = outs["ref", False]
     same = {f"{m} mode stitched": bool(np.array_equal(o, eager))
             for (m, st), o in outs.items() if st}

@@ -190,23 +190,17 @@ cudaError_t launch(int dpl, dim3 grid, size_t shmem, cudaStream_t stream,
 // dtype: 0 = float32, 1 = bfloat16.  Every stride is in elements; the last
 // dimension of q, k and v must be contiguous.  window <= 0 means no window.
 // Returns the launch's cudaError_t (0 on success); the kernel runs
-// asynchronously on `stream`.
+// asynchronously on `stream`, on the current device.
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* pos, void* out,
-    int dtype, int device, int batch, int hq, int hkv, int smax, int dh,
+    int dtype, int batch, int hq, int hkv, int smax, int dh,
     long long q_sb, long long q_sh, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
     long long pos_sb, float scale, int window, void* stream) {
   if (batch <= 0 || hkv <= 0 || hq % hkv != 0 || hq / hkv > kMaxGroup ||
       smax <= 0 || dh <= 0 || dh > kMaxHeadDim)
     return static_cast<int>(cudaErrorInvalidValue);
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (current != device) {
-    err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  cudaError_t err;
   const int group = hq / hkv;
   const int lanes = (dh + 31) / 32;
   const int dpl = lanes <= 1 ? 1 : lanes <= 2 ? 2 : lanes <= 4 ? 4 : 8;

@@ -18,6 +18,8 @@ the op, as the reference wrappers do.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from . import build
@@ -26,10 +28,11 @@ from . import ref as _ref
 __all__ = ["swiglu", "geglu", "glu_plain", "launches"]
 
 _ACTS = {"silu": 0, "gelu": 1}
-_FLOAT = (torch.float32, torch.bfloat16, torch.float16)
+_FLOAT = (torch.float32, torch.bfloat16)
 BLOCK = 1024
 
-launches = 0          # kernel launches since the last reset
+# kernel launches since the last reset, by build.signature of the arguments
+launches: Counter = Counter()
 _JIT = None
 tl = libdevice = None  # bound by build.triton_jit at the first launch
 
@@ -57,7 +60,7 @@ def glu_plain(gate, up, act: str):
 
 
 def _launch(gate, up, act: str):
-    global launches, _JIT
+    global _JIT
     if act not in _ACTS:
         raise ValueError(f"glu: act {act!r}, expected one of {sorted(_ACTS)}")
     if gate.dim() != 2 or gate.shape != up.shape or gate.dtype != up.dtype \
@@ -75,7 +78,7 @@ def _launch(gate, up, act: str):
         _JIT = build.triton_jit(_glu_kernel)
     _JIT[(rows, -(-F // BLOCK))](gate, up, out, F, gate.stride(0), up.stride(0),
                                 ACT=_ACTS[act], BLOCK=BLOCK, num_warps=4)
-    launches += 1
+    launches[build.signature(gate, up, act)] += 1
     return out
 
 

@@ -2,26 +2,24 @@
 
 Each CUDA C++ source (``repro_torch/csrc/*.cu``) compiles with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, at first use,
-into ``build/kernels/`` at the repository root.  The library's file name carries a hash of the source and
-the flags, so a changed source builds anew and an unchanged one is loaded
-as it is.  Sources build in parallel: one ``nvcc`` process each, all
-started together.  A failed build raises :class:`BuildError` with nvcc's
-output.  A Triton kernel is JIT-compiled by Triton at its first launch
-(:func:`triton_jit`).  Nothing here runs at import time.
+into ``build/kernels/`` at the repository root.  The library's file name
+carries a hash of the source and the flags, so a changed source builds anew
+and an unchanged one is loaded as it is.  A failed build raises
+:class:`BuildError` with nvcc's output.  A Triton kernel is JIT-compiled
+by Triton at its first launch (:func:`triton_jit`).  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
 
-import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
-__all__ = ["BuildError", "CSRC", "NVCC_FLAGS", "build", "build_dir",
-           "compile_source", "library", "next_pow2", "nvcc", "triton_jit"]
+__all__ = ["BuildError", "CSRC", "NVCC_FLAGS", "build_dir", "library",
+           "next_pow2", "nvcc", "signature", "triton_jit"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,54 +49,37 @@ def _target(src: Path, out_dir: Path) -> Path:
     return out_dir / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 
 
-def compile_source(sources: list[Path], out_dir: Path) -> dict[str, Path]:
-    """Compile each source whose library is missing from ``out_dir``, all
-    at once; returns ``{source stem: library path}``.  nvcc's report
-    (``-Xptxas -v``: registers, shared memory, spills per kernel) is kept
-    beside each library as ``.log``."""
+def library(stem: str, src_dir: Path = CSRC, out_dir: Path | None = None) -> Path:
+    """The shared library of ``<src_dir>/<stem>.cu`` in ``out_dir``
+    (default :func:`build_dir`), compiled first when it is missing.  nvcc's
+    report (``-Xptxas -v``: registers, shared memory, spills per kernel) is
+    kept beside the library as ``.log``."""
+    src = src_dir / f"{stem}.cu"
+    out_dir = out_dir or build_dir()
+    target = _target(src, out_dir)
+    if target.exists():
+        return target
     out_dir.mkdir(parents=True, exist_ok=True)
-    targets = {src.stem: _target(src, out_dir) for src in sources}
-    running = []
-    for src in sources:
-        target = targets[src.stem]
-        if target.exists():
-            continue
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        try:
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                    stderr=subprocess.PIPE, text=True)
-        except OSError as e:
-            raise BuildError(f"cannot run {cmd[0]}: {e}") from e
-        running.append((src, target, tmp, proc))
-    failures = []
-    for src, target, tmp, proc in running:
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failures.append(f"nvcc failed on {src.name} "
-                            f"(exit {proc.returncode}):\n{out}{err}")
-            continue
-        target.with_suffix(".log").write_text(out + err)
-        tmp.replace(target)
-    if failures:
-        raise BuildError("\n".join(failures))
-    return targets
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    except OSError as e:
+        raise BuildError(f"cannot run {cmd[0]}: {e}") from e
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise BuildError(f"nvcc failed on {src.name} (exit {proc.returncode}):"
+                         f"\n{proc.stdout}{proc.stderr}")
+    target.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    tmp.replace(target)
+    return target
 
 
-def build() -> tuple[dict[str, Path], float]:
-    """Build every source under ``csrc/`` into :func:`build_dir`; returns
-    the libraries by source stem and the seconds the build took (near 0
-    when all were built)."""
-    t0 = time.perf_counter()
-    libs = compile_source(sorted(CSRC.glob("*.cu")), build_dir())
-    return libs, time.perf_counter() - t0
-
-
-def library(stem: str) -> ctypes.CDLL:
-    """The library of ``csrc/<stem>.cu``, built first if needed, loaded."""
-    path = compile_source([CSRC / f"{stem}.cu"], build_dir())[stem]
-    return ctypes.CDLL(str(path))
+def signature(*args) -> tuple:
+    """The key a hand-written kernel's launch is counted under: each tensor
+    argument's shape and dtype, every other argument as it is."""
+    return tuple((tuple(a.shape), str(a.dtype)) if hasattr(a, "dtype") else a
+                 for a in args)
 
 
 def triton_jit(fn):

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -32,7 +33,8 @@ __all__ = ["bind", "decode_attention", "decode_attention_plain", "launches"]
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0          # kernel launches since the last reset
+# kernel launches since the last reset, by build.signature of the arguments
+launches: Counter = Counter()
 _LIB: ctypes.CDLL | None = None
 
 
@@ -62,7 +64,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a built ``decode_attention`` library."""
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.repro_decode_attention.argtypes = (
-        [vp] * 5 + [ci] * 7 + [cl] * 9 + [ctypes.c_float, ci, vp])
+        [vp] * 5 + [ci] * 6 + [cl] * 9 + [ctypes.c_float, ci, vp])
     lib.repro_decode_attention.restype = ci
     lib.repro_cuda_error_string.argtypes = [ci]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -72,12 +74,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        _LIB = bind(build.library("decode_attention"))
+        _LIB = bind(ctypes.CDLL(str(build.library("decode_attention"))))
     return _LIB
 
 
 def _launch(pos, qt, kt, vt, scale: float, window: Optional[int] = None):
-    global launches
     B, Hq, one, Dh = qt.shape
     _, Hkv, Smax, _ = kt.shape
     if one != 1 or tuple(vt.shape) != tuple(kt.shape) or kt.shape[0] != B \
@@ -105,7 +106,7 @@ def _launch(pos, qt, kt, vt, scale: float, window: Optional[int] = None):
     out = torch.empty((B, Hq, 1, Dh), dtype=qt.dtype, device=dev)
     err = _lib().repro_decode_attention(
         qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), _DTYPES[qt.dtype], dev.index, B, Hq, Hkv, Smax, Dh,
+        out.data_ptr(), _DTYPES[qt.dtype], B, Hq, Hkv, Smax, Dh,
         qt.stride(0), qt.stride(1), kt.stride(0), kt.stride(1), kt.stride(2),
         vt.stride(0), vt.stride(1), vt.stride(2), pos.stride(0),
         float(scale), int(window) if window is not None else 0,
@@ -113,7 +114,7 @@ def _launch(pos, qt, kt, vt, scale: float, window: Optional[int] = None):
     if err:
         msg = _lib().repro_cuda_error_string(err).decode()
         raise RuntimeError(f"decode_attention kernel launch failed: {msg} ({err})")
-    launches += 1
+    launches[build.signature(pos, qt, kt, vt, scale, window)] += 1
     return out
 
 

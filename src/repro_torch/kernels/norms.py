@@ -17,6 +17,8 @@ reference wrapper does.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from . import build
@@ -24,9 +26,10 @@ from . import ref as _ref
 
 __all__ = ["rmsnorm", "rmsnorm_plain", "launches"]
 
-_FLOAT = (torch.float32, torch.bfloat16, torch.float16)
+_FLOAT = (torch.float32, torch.bfloat16)
 
-launches = 0          # kernel launches since the last reset
+# kernel launches since the last reset, by build.signature of the arguments
+launches: Counter = Counter()
 _JIT = None
 tl = None             # triton.language, bound by build.triton_jit at launch
 
@@ -50,7 +53,7 @@ def rmsnorm_plain(x, gamma, eps: float):
 
 
 def _launch(x, gamma, eps: float):
-    global launches, _JIT
+    global _JIT
     if x.dim() != 2 or tuple(gamma.shape) != (x.shape[1],):
         raise ValueError(f"rmsnorm: x {tuple(x.shape)}, gamma "
                          f"{tuple(gamma.shape)}; need (rows, d) and (d,)")
@@ -71,7 +74,7 @@ def _launch(x, gamma, eps: float):
     _JIT[grid](x, gamma, out, rows, d, x.stride(0), float(eps),
                BLOCK_R=block_r, BLOCK_D=block_d,
                num_warps=4 if block_r * block_d <= 2048 else 8)
-    launches += 1
+    launches[build.signature(x, gamma, eps)] += 1
     return out
 
 

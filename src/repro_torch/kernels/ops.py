@@ -32,7 +32,7 @@ from . import rope as _rope
 
 __all__ = ["KernelMode", "get_mode", "kernel_mode", "rmsnorm", "swiglu",
            "geglu", "rope", "attention", "decode_attention", "KERNEL_TAGS",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "launch_counts_by_signature", "reset_launch_counts"]
 
 KernelMode = Literal["kernels", "ref"]
 _mode: contextvars.ContextVar[str] = contextvars.ContextVar("kernel_mode",
@@ -73,12 +73,18 @@ def _use_kernels() -> bool:
 
 def launch_counts() -> dict[str, int]:
     """Launches of each hand-written kernel since the last reset."""
-    return {name: mod.launches for name, mod in _KERNELS.items()}
+    return {name: sum(mod.launches.values()) for name, mod in _KERNELS.items()}
+
+
+def launch_counts_by_signature() -> dict[str, dict[tuple, int]]:
+    """The same, per kernel by :func:`.build.signature` of its arguments:
+    each tensor's shape and dtype, the other arguments as they are."""
+    return {name: dict(mod.launches) for name, mod in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
-        mod.launches = 0
+        mod.launches.clear()
 
 
 # -- wrappers -----------------------------------------------------------------

@@ -21,6 +21,8 @@ makes the 2-D views outside the op, as the reference wrapper does.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from . import build
@@ -28,9 +30,10 @@ from . import ref as _ref
 
 __all__ = ["rope", "rope_plain", "launches"]
 
-_FLOAT = (torch.float32, torch.bfloat16, torch.float16)
+_FLOAT = (torch.float32, torch.bfloat16)
 
-launches = 0          # kernel launches since the last reset
+# kernel launches since the last reset, by build.signature of the arguments
+launches: Counter = Counter()
 _JIT = None
 tl = libdevice = None  # bound by build.triton_jit at the first launch
 
@@ -46,9 +49,8 @@ def _rope_kernel(x_ptr, pos_ptr, o_ptr, stride_x, stride_pos, theta, H,
     # the f32 steps of the reference, each rounded once: e = i / half,
     # p = theta^e, freq = 1 / p, ang = pos * freq, then cos and sin.  The
     # power and the trig functions go through f64 so that their f32 values
-    # are correctly rounded: an ulp off in freq is pos ulps off in the angle
-    # (3e-5 in the output at pos 127), and Triton's default f32 division is
-    # approximate, hence div_rn.
+    # are correctly rounded: an ulp off in freq is pos ulps off in the
+    # angle, and Triton's default f32 division is approximate, hence div_rn.
     e = tl.div_rn(i.to(tl.float32), 1.0 * HALF)
     p = libdevice.pow(theta.to(tl.float64), e.to(tl.float64)).to(tl.float32)
     ang = pos * tl.div_rn(1.0, p)
@@ -72,7 +74,7 @@ def rope_plain(x, positions, theta: float, head_dim: int):
 
 
 def _launch(x, positions, theta: float, head_dim: int):
-    global launches, _JIT
+    global _JIT
     if x.dim() != 2 or head_dim % 2 or x.shape[1] % head_dim \
             or tuple(positions.shape) != (x.shape[0],):
         raise ValueError(f"rope: x {tuple(x.shape)}, positions "
@@ -92,7 +94,7 @@ def _launch(x, positions, theta: float, head_dim: int):
                   float(theta), H,
                   HALF=half, BLOCK_H=build.next_pow2(H),
                   BLOCK_HALF=build.next_pow2(half), num_warps=4)
-    launches += 1
+    launches[build.signature(x, positions, theta, head_dim)] += 1
     return out
 
 

@@ -201,6 +201,17 @@ def test_cpu_tensors_never_count_launches():
                              torch.zeros(4, dtype=torch.int32))
     assert ops.launch_counts() == {"rmsnorm": 0, "glu": 0, "rope": 0,
                                    "decode_attention": 0}
+    assert ops.launch_counts_by_signature() == {
+        "rmsnorm": {}, "glu": {}, "rope": {}, "decode_attention": {}}
+
+
+def test_launch_signature_keys_shapes_dtypes_and_arguments():
+    x = torch.zeros(4, 2048, dtype=torch.bfloat16)
+    g = torch.zeros(2048)
+    assert build.signature(x, g, 1e-6) == (
+        ((4, 2048), "torch.bfloat16"), ((2048,), "torch.float32"), 1e-6)
+    assert build.signature(x, g, 1e-5) != build.signature(x, g, 1e-6)
+    assert build.signature(x[:2], g, 1e-6) != build.signature(x, g, 1e-6)
 
 
 # -- the CUDA build, with a stand-in for nvcc -----------------------------------
@@ -229,12 +240,12 @@ echo lib > "$out"
     src = tmp_path / "k.cu"
     src.write_text("// one\n")
     out = tmp_path / "out"
-    first = build.compile_source([src], out)["k"]
+    first = build.library("k", tmp_path, out)
     assert first.exists() and first.with_suffix(".log").read_text() == "ptxas info\n"
-    assert build.compile_source([src], out)["k"] == first
+    assert build.library("k", tmp_path, out) == first
     assert calls.read_text().count("run") == 1
     src.write_text("// two\n")
-    second = build.compile_source([src], out)["k"]
+    second = build.library("k", tmp_path, out)
     assert second != first and second.exists()
     assert calls.read_text().count("run") == 2
     assert not list(out.glob("*.tmp"))
@@ -246,7 +257,7 @@ def test_build_failure_raises_with_nvcc_output(tmp_path, monkeypatch):
     src = tmp_path / "bad.cu"
     src.write_text("int x\n")
     with pytest.raises(build.BuildError, match="expected a ;"):
-        build.compile_source([src], tmp_path / "out")
+        build.library("bad", tmp_path, tmp_path / "out")
     assert not list((tmp_path / "out").iterdir())
 
 
