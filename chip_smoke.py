@@ -5,12 +5,13 @@
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
 
-0. Build: the CUDA C++ library (``src/repro_torch/csrc``) from an empty
-   ``build/kernels``, with its build seconds and ptxas report.
+0. Build: the CUDA C++ libraries (``src/repro_torch/csrc``) and their
+   planted-fault copies from an empty ``build/kernels``, one nvcc each, all
+   started together, with each one's build seconds and ptxas report.
 1. Sample kernels: generated Triton stitched kernels for a softmax, an
-   RMSNorm chain and a SwiGLU chain, and the four hand-written kernels
-   (RMSNorm, SwiGLU/GeGLU, RoPE, decode attention) at sample shapes, each
-   held against its plain PyTorch version on the card.
+   RMSNorm chain and a SwiGLU chain, and the five hand-written kernels
+   (RMSNorm, SwiGLU/GeGLU, RoPE, decode attention, flash attention) at
+   sample shapes, each held against its plain PyTorch version on the card.
 2. Ref-mode path: full-width qwen3-1.7b (random weights from a seed)
    answers 4 requests through ``Engine(stitch_execute=True)``: the stitched
    prefill and the stitched decode on every step.  Launch counts are zeroed
@@ -61,6 +62,7 @@ import torch.nn.functional as F  # noqa: E402
 
 HBM_BW = 3.35e12          # H100 SXM bytes/s
 F32_PEAK = 67e12          # H100 SXM f32 FLOP/s outside the tensor cores
+BF16_PEAK = 989e12        # H100 SXM bf16 FLOP/s on the tensor cores, dense
 REPLACES = "src/repro/kernels/stitched.py:450"
 SOURCE = "src/repro_torch/kernels/stitched.py"
 # kernel vs plain version: f32 differs only by approximate exp/rsqrt and
@@ -79,7 +81,10 @@ LOGIT_TOL = 0.025
 # three runs on an H100: 9.7e-7 to 1.19e-6 stitched, 1.07e-6 to 1.37e-6 in
 # kernel mode; the limit is 7.3x the largest.  Planted faults read 3.3e-3
 # (norm in bf16) to 9.1e-3 (norm output x (1+2^-7)) and 0.41 (decode
-# attention dropping the row's own key).
+# attention dropping the row's own key).  At bucket 256 in kernel mode (the
+# flash kernel in every prefill layer): prefill 1.80e-6 to 2.08e-6, first
+# step 1.23e-6 to 1.46e-6 over 5 seeds; the flash fault (acc not rescaled
+# between kv tiles) reads 0.60 and 0.93.
 F32_LOGIT_TOL = 1e-5
 # kernel mode (the hand-written kernels) against the eager ref-mode decode,
 # full width in bf16: besides the rounding noise above, the decode-attention
@@ -87,6 +92,12 @@ F32_LOGIT_TOL = 1e-5
 # to bf16.  Sound readings over 3 seeds, in three runs on an H100: 0.0166
 # to 0.0189; the limit is 1.3x the largest.
 KM_LOGIT_TOL = 0.025
+# the long-prompt phase (bucket 256): kernel mode against the eager
+# ref-mode engine in bf16, prefill (last true position) and first decode
+# step, as rel_diff.  Sound readings over 3 seeds on an H100: prefill
+# 0.0156 to 0.0179, first step 0.0155 to 0.0185; the limit is 1.35x the
+# largest.
+KM_LONG_LOGIT_TOL = 0.025
 SEED = 0
 LOGIT_SEEDS = 3           # weight seeds of the full-width bf16 logit check
 F32_SEEDS = 5             # weight seeds of the 4-layer f32 logit check
@@ -739,51 +750,111 @@ HAND = {
     "_decode_attn_kernel": ("decode_attention", "cuda",
                             "src/repro_torch/csrc/decode_attention.cu",
                             "src/repro/kernels/decode_attention.py:95"),
+    "_flash_kernel": ("flash_attention", "cuda",
+                      "src/repro_torch/csrc/flash_attention.cu",
+                      "src/repro/kernels/flash_attention.py:94"),
 }
 # elementwise operations per output element (the bound's operation count)
 HAND_OPS = {"_rmsnorm_kernel": 4, "_glu_kernel": 5, "_rope_kernel": 6}
 
 
-def expected_launches(n_layers: int) -> tuple[dict, dict]:
+def expected_launches(n_layers: int, bucket: int) -> tuple[dict, dict]:
     """Hand-written kernel launches per decode step and per prefill call of
     a dense qk-norm model: 4 norms a layer + the final one, 2 rotaries and 1
-    GLU a layer, decode attention once a layer on decode only."""
+    GLU a layer, decode attention once a layer on decode only, flash
+    attention once a layer on a prefill whose bucket is a multiple of 128."""
     step = {"rmsnorm": 4 * n_layers + 1, "rope": 2 * n_layers,
-            "glu": n_layers, "decode_attention": n_layers}
-    return step, dict(step, decode_attention=0)
+            "glu": n_layers, "decode_attention": n_layers,
+            "flash_attention": 0}
+    return step, dict(step, decode_attention=0,
+                      flash_attention=n_layers if bucket % 128 == 0 else 0)
+
+
+# planted faults in the CUDA sources: (sound text, planted text).  Decode
+# attention drops the row's own key (kpos < pos); flash attention leaves acc
+# unrescaled when a later kv tile raises the row max
+FAULTS = {
+    "decode_attention": ("const int hi = min(p, smax - 1);",
+                         "const int hi = min(p - 1, smax - 1);"),
+    "flash_attention": ("#pragma unroll\n      for (int j = 0; j < DPT; ++j) "
+                        "acc[i][j] *= alpha;\n", ""),
+}
+
+
+def fault_dir() -> Path:
+    from repro_torch.kernels import build
+    return build.build_dir() / "planted_fault"
 
 
 def build_phase() -> float:
-    """Build the CUDA library from an empty ``build/kernels``."""
+    """Build every CUDA library, and a copy of each with its fault planted,
+    from an empty ``build/kernels``: one nvcc each, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
     shutil.rmtree(build.build_dir(), ignore_errors=True)
+    fault_dir().mkdir(parents=True)
+    for stem, (sound, planted) in FAULTS.items():
+        src = (build.CSRC / f"{stem}.cu").read_text()
+        if src.count(sound) != 1:
+            fail(f"the {stem} source lost the text its fault is planted in")
+        (fault_dir() / f"{stem}.cu").write_text(src.replace(sound, planted))
+    jobs = [(src.stem, build.CSRC, None)
+            for src in sorted(build.CSRC.glob("*.cu"))]
+    jobs += [(stem, fault_dir(), fault_dir()) for stem in FAULTS]
+
+    def one(job):
+        t = time.perf_counter()
+        path = build.library(*job)
+        return path, time.perf_counter() - t
+
     t0 = time.perf_counter()
-    libs = {src.stem: build.library(src.stem)
-            for src in sorted(build.CSRC.glob("*.cu"))}
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        built = list(ex.map(one, jobs))
     secs = time.perf_counter() - t0
-    for stem, path in libs.items():
+    for (stem, src_dir, _), (path, t) in zip(jobs, built):
         info = [ln.split("info    : ")[-1].strip()
                 for ln in path.with_suffix(".log").read_text().splitlines()
                 if "registers" in ln or "spill" in ln]
-        print(f"cuda build {stem}: {path.name} ptxas {info}")
-    print(f"cuda build: {len(libs)} libraries from an empty "
-          f"{build.build_dir().relative_to(ROOT)} in {secs:.2f}s")
+        what = "planted fault " if src_dir != build.CSRC else ""
+        print(f"cuda build {what}{stem}: {path.name} in {t:.2f}s ptxas {info}")
+    print(f"cuda build: {len(jobs)} libraries ({len(FAULTS)} with a planted "
+          f"fault) from an empty {build.build_dir().relative_to(ROOT)} in "
+          f"{secs:.2f}s, in parallel")
     return secs
 
 
 def hand_plain(tag):
     from repro_torch.kernels import activations, decode_attention, norms, rope
+    from repro_torch.kernels import flash_attention
     return {"_rmsnorm_kernel": norms.rmsnorm_plain,
             "_glu_kernel": activations.glu_plain,
             "_rope_kernel": rope.rope_plain,
-            "_decode_attn_kernel": decode_attention.decode_attention_plain}[tag]
+            "_decode_attn_kernel": decode_attention.decode_attention_plain,
+            "_flash_kernel": flash_attention.flash_attention_plain}[tag]
+
+
+# flash-attention samples: (name, B, Hq, Hkv, Lq, Lkv, Dh, causal, window,
+# q_offset).  Several kv tiles, one of them fully masked for the first q
+# tile; a chunk after 256 cached tokens; a window; MHA at Dh 64; Lq not a
+# power of two; rows without a valid key (qpos >= Lkv - 1 + window: 85 of
+# the 128 rows), which come out as the mean of V in both versions
+FLASH_SAMPLES = [
+    ("causal_g2_l256", 2, 16, 8, 256, 256, 128, True, None, 0),
+    ("chunk_lq128_lkv384_off256", 2, 16, 8, 128, 384, 128, True, None, 256),
+    ("causal_window64", 2, 16, 8, 256, 256, 128, True, 64, 0),
+    ("mha_dh64", 2, 8, 8, 256, 256, 64, True, None, 0),
+    ("causal_l384", 1, 16, 8, 384, 384, 128, True, None, 0),
+    ("rows_without_a_valid_key", 1, 4, 2, 128, 128, 128, True, 16, 100),
+]
 
 
 def hand_samples(dev):
     """Each hand-written kernel against its plain version at sample shapes
     (ragged widths, a GQA group of 4, decode positions at 0, in the middle
-    and at Smax-1, with and without a window), in f32 and bf16."""
+    and at Smax-1, with and without a window; the flash cases above), in
+    f32 and bf16."""
     from repro_torch.kernels import activations, decode_attention, norms, rope
+    from repro_torch.kernels import flash_attention
     gen = torch.Generator().manual_seed(SEED)
 
     def rnd(*shape, dtype):
@@ -812,6 +883,13 @@ def hand_samples(dev):
                           "_decode_attn_kernel",
                           (dpos, q.transpose(1, 2), k.transpose(1, 2),
                            v.transpose(1, 2), 128 ** -0.5, window)))
+        for name, B, hq, hkv, lq, lkv, dh, causal, window, off in FLASH_SAMPLES:
+            q = rnd(B, lq, hq, dh, dtype=dt)
+            k, v = rnd(B, lkv, hkv, dh, dtype=dt), rnd(B, lkv, hkv, dh, dtype=dt)
+            cases.append((f"flash_{t}_{name}", flash_attention.flash_attention_op,
+                          "_flash_kernel",
+                          (q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), dh ** -0.5, causal, window, off)))
     errs = {}
     for name, op, tag, args in cases:
         out = op(*args)
@@ -873,17 +951,42 @@ def hand_library(tag, args):
         mask = mask[:, None, None, :]
         return lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
+    if tag == "_flash_kernel":
+        qt, kt, vt, scale, causal, window, q_offset = args
+        if not (causal and window is None and q_offset == 0
+                and qt.shape[2] == kt.shape[2]):
+            return None
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
     return None
 
 
 def hand_bound(tag, args, out) -> tuple[float, str]:
     """Least time for the kernel's work on this run's data: each input read
-    once and the output written once over the memory rate, or its f32
-    operations over the f32 rate.  Decode attention reads only the valid
-    keys of each row."""
+    once and the output written once over the memory rate, or its
+    operations over the rate for their type, whichever is larger.
+    Elementwise kernels count f32 operations at the f32 rate; decode
+    attention reads only the valid keys of each row; flash attention's
+    QK^T and PV products count the valid (query, key) pairs, at the bf16
+    tensor-core rate for bf16 inputs and the f32 rate for f32 ones."""
     def nbytes(t):
         return t.numel() * t.element_size()
-    if tag == "_decode_attn_kernel":
+    rate = F32_PEAK
+    if tag == "_flash_kernel":
+        qt, kt, vt, scale, causal, window, q_offset = args
+        B, hq, lq, dh = qt.shape
+        qpos = q_offset + torch.arange(lq)[:, None]
+        kpos = torch.arange(kt.shape[2])[None, :]
+        valid = torch.ones(qpos.shape[0], kpos.shape[1], dtype=torch.bool)
+        if causal:
+            valid &= qpos >= kpos
+        if window is not None:
+            valid &= qpos - kpos < window
+        b = nbytes(qt) + nbytes(kt) + nbytes(vt) + nbytes(out)
+        ops = 4 * B * hq * int(valid.sum()) * dh
+        if qt.dtype == torch.bfloat16:
+            rate = BF16_PEAK
+    elif tag == "_decode_attn_kernel":
         pos, qt, kt, vt, scale, *rest = args    # window defaults to None
         window = rest[0] if rest else None
         p = pos.reshape(-1).long()
@@ -898,25 +1001,32 @@ def hand_bound(tag, args, out) -> tuple[float, str]:
         b = sum(nbytes(a) for a in args if isinstance(a, torch.Tensor)) \
             + nbytes(out)
         ops = HAND_OPS[tag] * out.numel()
-    tb, to = b / HBM_BW, ops / F32_PEAK
+    tb, to = b / HBM_BW, ops / rate
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
 def launch_signature(name, node, tensors) -> tuple:
     """The key the kernel's launcher counts a launch of ``node`` under
     (``build.signature`` of its arguments, defaults filled in)."""
-    import inspect
     from repro_torch.kernels import activations, build, decode_attention
-    from repro_torch.kernels import norms, rope
+    from repro_torch.kernels import flash_attention, norms, rope
     launcher = {"rmsnorm": norms, "glu": activations, "rope": rope,
-                "decode_attention": decode_attention}[name]._launch
+                "decode_attention": decode_attention,
+                "flash_attention": flash_attention}[name]._launch
     _, args, kwargs = op_call(node, tensors)
-    bound = inspect.signature(launcher).bind(*args, **kwargs)
+    return build.signature(*all_args(launcher, args, kwargs))
+
+
+def all_args(fn, args, kwargs) -> list:
+    """``fn``'s arguments in order, defaults filled in (the dispatcher drops
+    an argument left at its default from the traced call)."""
+    import inspect
+    bound = inspect.signature(fn).bind(*args, **kwargs)
     bound.apply_defaults()
-    return build.signature(*bound.arguments.values())
+    return list(bound.arguments.values())
 
 
-def hand_rows(pre, dec, steps, run):
+def hand_rows(pre, dec, steps, run, path):
     """Every hand-written kernel launch signature of the two plans (shapes,
     dtypes and other arguments), on its main-path operands: held against
     the plain version and timed.  Its launches are the ones its launcher
@@ -947,6 +1057,7 @@ def hand_rows(pre, dec, steps, run):
         _, route, source, replaces = HAND[tag]
         op, args, kwargs = op_call(node, tensors)
         plain = hand_plain(tag)
+        full = all_args(plain, args, kwargs)
 
         def run_op():
             return op(*args, **kwargs)
@@ -958,7 +1069,7 @@ def hand_rows(pre, dec, steps, run):
         if not within((out,), (ref,)):
             fail(f"{name} at {sig} disagrees with its plain version "
                  f"(max err {err})")
-        lib = hand_library(tag, args)
+        lib = hand_library(tag, full)
         lib_ms = lib_dev_ms = lib_err = None
         if lib is not None:
             lib_out = lib()
@@ -968,12 +1079,12 @@ def hand_rows(pre, dec, steps, run):
                      f"version (max err {lib_err})")
             lib_ms = timed(lib, 50)
             lib_dev_ms = device_ms(lib)
-        bound_ms, bound_by = hand_bound(tag, args, out)
+        bound_ms, bound_by = hand_bound(tag, full, out)
         tensor_sig = [a for a in sig if isinstance(a, tuple)]
         shapes = ",".join("x".join(map(str, s)) for s, _ in tensor_sig)
         dt = next(d for _, d in tensor_sig if "float" in d).replace("torch.", "")
         n_prefill = prefill[name].get(sig, 0)
-        rows[key] = {"name": f"{name}[{shapes},{dt}]",
+        rows[key] = {"name": f"{name}[{shapes},{dt}]", "path": path,
                      "route": route, "source": source, "replaces": replaces,
                      "launches": measured[key],
                      "launches_prefill_call": n_prefill,
@@ -996,48 +1107,60 @@ def hand_rows(pre, dec, steps, run):
                 agg["library_ms"] = sum(n * r["library_ms"] for r, n in mine)
                 agg["library_device_ms"] = sum(n * r["library_device_ms"]
                                                for r, n in mine)
-            print(f"{name} per {what}: launches={sum(n for _, n in mine):g} "
+            print(f"{path} {name} per {what}: "
+                  f"launches={sum(n for _, n in mine):g} "
                   + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
     return list(rows.values())
 
 
-def kernel_mode_phase(dev, model, params, lens, prompts, checked):
-    """The kernel-mode path: the same model served through the hand-written
-    kernels (``kernel_mode("kernels")``), stitched prefill and decode; exact
-    launch counts per decode step and prefill call; every kernel of the
-    path held against its plain version; the bf16 logits against the
-    ref-mode eager decode over several weight seeds."""
+def serve_kernel_mode(dev, model, params, lens, prompts, max_len, tag,
+                      checked):
+    """Serve the prompts stitched through the hand-written kernels
+    (``kernel_mode("kernels")``), prefill and 15 decode steps; the exact
+    launch counts per prefill call and decode step for the prompts' bucket;
+    every kernel of the path held against its plain version and timed.
+    Returns (engine, ``kernels`` rows, decode plan summary)."""
     from repro_torch.core import StitchCompiler
     from repro_torch.kernels import ops
     from repro_torch.serve import Engine, ServeConfig
     cfg = model.cfg
     steps = 15
-    scfg = ServeConfig(batch=4, max_len=128, max_new_tokens=steps + 1,
+    scfg = ServeConfig(batch=4, max_len=max_len, max_new_tokens=steps + 1,
                        stitch_execute=True, paged=False)
     with ops.kernel_mode("kernels"):
         eng = Engine(model, params, scfg, device=dev,
                      compiler=StitchCompiler(plan_budget=20.0))
-        warm_serve(eng, prompts, lens, steps, "kernel-mode")
-        run = measured_serve(eng, prompts, lens, steps, dev, "kernel-mode",
-                             cfg.vocab)
-    per_step, per_prefill = expected_launches(cfg.n_layers)
+        warm_serve(eng, prompts, lens, steps, tag)
+        run = measured_serve(eng, prompts, lens, steps, dev, tag, cfg.vocab)
+    bucket = run["px"].bucket
+    per_step, per_prefill = expected_launches(cfg.n_layers, bucket)
     decode_counts = {k: run["hand_total"][k] - run["hand_prefill"][k]
                      for k in per_step}
-    print(f"kernel-mode launches: prefill call {run['hand_prefill']}, "
-          f"{steps} decode steps {decode_counts}")
+    print(f"{tag} launches: prefill call (bucket {bucket}) "
+          f"{run['hand_prefill']}, {steps} decode steps {decode_counts}")
     if run["hand_prefill"] != per_prefill:
-        fail(f"kernel-mode prefill launched {run['hand_prefill']}, expected "
+        fail(f"{tag} prefill launched {run['hand_prefill']}, expected "
              f"{per_prefill}")
     for k, n in per_step.items():
         if decode_counts[k] != n * steps:
-            fail(f"kernel-mode decode launched {k} {decode_counts[k]} times in "
+            fail(f"{tag} decode launched {k} {decode_counts[k]} times in "
                  f"{steps} steps, expected {n} a step")
     pre, dec, dec_in = path_inputs(eng, params, prompts, run, dev)
-    kernels = stitched_rows(pre, dec, run["counts"], "kernel-mode", checked)
-    kernels += hand_rows(pre, dec, steps, run)
+    kernels = stitched_rows(pre, dec, run["counts"], tag, checked)
+    kernels += hand_rows(pre, dec, steps, run, tag)
     summary = plan_summary(eng, run, dec_in)
-    del pre, dec, dec_in, run
+    return eng, kernels, summary
 
+
+def kernel_mode_phase(dev, model, params, lens, prompts, checked):
+    """The kernel-mode path at the 64 bucket (``serve_kernel_mode``); then
+    its bf16 decode logits against the ref-mode eager decode over several
+    weight seeds."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = model.cfg
+    eng, kernels, summary = serve_kernel_mode(
+        dev, model, params, lens, prompts, 128, "kernel-mode", checked)
     eager = Engine(model, params, ServeConfig(batch=4, max_len=128,
                                               max_new_tokens=2), device=dev)
     readings = []
@@ -1061,6 +1184,49 @@ def kernel_mode_phase(dev, model, params, lens, prompts, checked):
     return kernels, summary
 
 
+# four prompts in the 256 bucket: a support ticket thread or a RAG query
+# with its retrieved passage
+LONG_LENS = np.array([256, 200, 160, 131], np.int32)
+LONG_MAX_LEN = 512
+
+
+def long_prompt_phase(dev, model, params, checked):
+    """The kernel-mode path at the 256 bucket, where every prefill layer
+    runs the flash-attention kernel (``serve_kernel_mode``); then its bf16
+    prefill and first-step logits against the ref-mode eager engine over
+    several weight seeds."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = model.cfg
+    tag = "kernel-mode long"
+    prompts = prompts_for(cfg, LONG_LENS, SEED)
+    eng, kernels, summary = serve_kernel_mode(
+        dev, model, params, LONG_LENS, prompts, LONG_MAX_LEN, tag, checked)
+    eager = Engine(model, params, ServeConfig(batch=4, max_len=LONG_MAX_LEN,
+                                              max_new_tokens=2), device=dev)
+    readings = {"prefill": [], "decode": []}
+    for s in range(LOGIT_SEEDS):
+        if s:
+            eng.params = eager.params = model.init(SEED + s, dev)
+        ps = prompts_for(cfg, LONG_LENS, SEED + s)
+        with ops.kernel_mode("kernels"):
+            km = prefill_and_step_logits(eng, ps, LONG_LENS)
+        ea = prefill_and_step_logits(eager, ps, LONG_LENS)
+        for what, a, b in zip(("prefill", "decode"), km, ea):
+            readings[what].append(rel_diff(a, b))
+            agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+            print(f"{tag} {what} logits vs ref-mode eager (bf16, "
+                  f"{cfg.n_layers}L, seed {SEED + s}): "
+                  f"rel={readings[what][-1]:.6g} argmax_agree={agree}")
+    eng.params = eager.params = params
+    print(f"{tag} logits bf16: tol={KM_LONG_LOGIT_TOL} sound max prefill="
+          f"{max(readings['prefill']):.6g} decode={max(readings['decode']):.6g}")
+    if not all(np.isfinite(r) and r <= KM_LONG_LOGIT_TOL
+               for rs in readings.values() for r in rs):
+        fail(f"{tag} logits disagree with the ref-mode eager engine")
+    return kernels, summary
+
+
 def prompts_for(cfg, lens, seed):
     rng = np.random.default_rng(seed)
     prompts = np.zeros((len(lens), int(lens.max())), np.int64)
@@ -1078,6 +1244,19 @@ def first_step_logits(e, prompts, lens):
     for row in range(len(lens)):
         e.release(row)
     return lg[0].float()
+
+
+def prefill_and_step_logits(e, prompts, lens):
+    """The prefill's logits at each row's last true position, from one call
+    of the engine's bucketed prefill, and the first decode step's after a
+    fresh prefill (both f32)."""
+    from repro_torch.serve.engine import ADMISSION_BUCKET
+    pb = min(ADMISSION_BUCKET.bucket_dim(prompts.shape[1]), e.cfg.max_len)
+    padded = np.zeros((len(prompts), pb), np.int64)
+    padded[:, :prompts.shape[1]] = prompts
+    logits, _ = e._prefill_exec(e.params, torch.as_tensor(padded, device=e.device),
+                                torch.as_tensor(lens, device=e.device))
+    return logits.float(), first_step_logits(e, prompts, lens)
 
 
 def rel_diff(a, b) -> float:
@@ -1121,22 +1300,13 @@ def fault_readings(eng, ref, lens, faults) -> dict:
     return out
 
 
-def faulted_decode_library():
-    """The decode-attention library built with a planted fault: a key is
-    valid when ``kpos < pos`` instead of ``kpos <= pos`` (the row's own new
-    key is dropped)."""
+def faulted_library(mod, stem):
+    """``mod``'s CUDA library with its fault planted (``FAULTS``), built by
+    the build phase into ``fault_dir()``."""
     import ctypes
-    from repro_torch.kernels import build, decode_attention
-    src = (build.CSRC / "decode_attention.cu").read_text()
-    sound = "const int hi = min(p, smax - 1);"
-    if sound not in src:
-        fail("the decode-attention source lost the line the fault is planted in")
-    d = build.build_dir() / "planted_fault"
-    d.mkdir(parents=True, exist_ok=True)
-    path = d / "decode_attention.cu"
-    path.write_text(src.replace(sound, "const int hi = min(p - 1, smax - 1);"))
-    lib = build.library("decode_attention", src_dir=d, out_dir=d)
-    return decode_attention.bind(ctypes.CDLL(str(lib)))
+    from repro_torch.kernels import build
+    return mod.bind(ctypes.CDLL(str(build.library(stem, src_dir=fault_dir(),
+                                                  out_dir=fault_dir()))))
 
 
 def full_width_f32(dev):
@@ -1144,11 +1314,13 @@ def full_width_f32(dev):
     first decode step, ref mode and kernel mode, against the eager ref-mode
     one over several weight seeds; then faults planted in the stitched
     RMSNorm kernels (ref mode) and in the decode-attention kernel (kernel
-    mode)."""
+    mode).  Then the kernel-mode prefill at the 256 bucket (the flash
+    kernel in every layer) and its first decode step against the eager
+    ones, and a fault planted in the flash kernel."""
     from dataclasses import replace
     from repro_torch.configs import get_config
     from repro_torch.core import StitchCompiler
-    from repro_torch.kernels import decode_attention, ops
+    from repro_torch.kernels import decode_attention, flash_attention, ops
     from repro_torch.models import build_model
     from repro_torch.serve import Engine, ServeConfig
     cfg = replace(get_config("qwen3-1.7b"), n_layers=4, dtype="float32")
@@ -1190,8 +1362,9 @@ def full_width_f32(dev):
     if not all(r <= F32_LOGIT_TOL for r in readings):
         fail("full-width f32 stitched logits disagree with eager")
     decode_attention._lib()
-    sound_lib, decode_attention._LIB = (decode_attention._LIB,
-                                        faulted_decode_library())
+    sound_lib, decode_attention._LIB = (
+        decode_attention._LIB,
+        faulted_library(decode_attention, "decode_attention"))
     try:
         with ops.kernel_mode("kernels"):
             planted = rel_diff(first_step_logits(km, ref0[0], lens), ref0[1])
@@ -1205,6 +1378,52 @@ def full_width_f32(dev):
     if not planted > F32_LOGIT_TOL:
         fail("the f32 logit check missed the planted decode-attention fault")
 
+    long = dict(batch=4, max_len=LONG_MAX_LEN, max_new_tokens=2)
+    km_long = Engine(model, params, ServeConfig(**long, stitch_execute=True),
+                     device=dev, compiler=StitchCompiler(plan_budget=10.0))
+    eager_long = Engine(model, params, ServeConfig(**long), device=dev)
+    flash_readings, ref_long = [], None
+    ops.reset_launch_counts()
+    for s in range(F32_SEEDS):
+        if s:
+            km_long.params = eager_long.params = model.init(SEED + s, dev)
+        ps = prompts_for(cfg, LONG_LENS, SEED + 1 + s)
+        ea = prefill_and_step_logits(eager_long, ps, LONG_LENS)
+        with ops.kernel_mode("kernels"):
+            km_logits = prefill_and_step_logits(km_long, ps, LONG_LENS)
+        flash_readings.append([rel_diff(a, b) for a, b in zip(km_logits, ea)])
+        print(f"full-width 4-layer f32 kernel-mode bucket 256 vs eager (seed "
+              f"{SEED + s}): prefill rel={flash_readings[-1][0]:.6g} decode "
+              f"rel={flash_readings[-1][1]:.6g}")
+        if s == 0:
+            ref_long = (ps, ea)
+    # two prefills a seed (prefill_and_step_logits), one flash launch a layer
+    flash_n = ops.launch_counts()["flash_attention"]
+    if flash_n != 2 * F32_SEEDS * cfg.n_layers:
+        fail(f"4-layer f32 kernel-mode prefills launched flash attention "
+             f"{flash_n} times, expected {2 * F32_SEEDS * cfg.n_layers}")
+    km_long.params = eager_long.params = params
+    flash_attention._lib()
+    sound_lib, flash_attention._LIB = (
+        flash_attention._LIB, faulted_library(flash_attention, "flash_attention"))
+    try:
+        with ops.kernel_mode("kernels"):
+            planted_flash = [rel_diff(a, b) for a, b in zip(
+                prefill_and_step_logits(km_long, ref_long[0], LONG_LENS),
+                ref_long[1])]
+    finally:
+        flash_attention._LIB = sound_lib
+    print(f"full-width 4-layer f32 kernel-mode bucket 256 logits: "
+          f"tol={F32_LOGIT_TOL} sound max prefill="
+          f"{max(r[0] for r in flash_readings):.6g} decode="
+          f"{max(r[1] for r in flash_readings):.6g}; planted flash fault (acc "
+          f"not rescaled) prefill={planted_flash[0]:.6g} "
+          f"decode={planted_flash[1]:.6g}")
+    if not all(r <= F32_LOGIT_TOL for rs in flash_readings for r in rs):
+        fail("full-width f32 kernel-mode bucket-256 logits disagree with eager")
+    if not max(planted_flash) > F32_LOGIT_TOL:
+        fail("the f32 logit check missed the planted flash-attention fault")
+
 
 def reduced_reference(dev):
     """Reduced qwen3 in float32: stitched serving, in ref mode and in kernel
@@ -1215,6 +1434,7 @@ def reduced_reference(dev):
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.serve.engine import ADMISSION_BUCKET
     cfg = replace(get_reduced("qwen3-1.7b"), dtype="float32")
     model = build_model(cfg)
     params = model.init(SEED, dev)
@@ -1236,11 +1456,15 @@ def reduced_reference(dev):
             fail(f"reduced stitched {mode}-mode decode did not run stitched")
         # ref mode runs generated kernels; the reduced kernel-mode plan has
         # none (its kernels' groups run as torch groups), so it must have
-        # run every hand-written kernel instead
+        # run every hand-written kernel of its path instead (no flash
+        # attention: the prompts' bucket is below 128)
         if mode == "ref" and not rep["plan"]["triton_groups"]:
             fail("reduced stitched decode did not run its Triton groups")
         launched = ops.launch_counts()
-        if mode == "kernels" and not all(launched.values()):
+        step, prefill = expected_launches(
+            cfg.n_layers, ADMISSION_BUCKET.bucket_dim(prompts.shape[1]))
+        path = {k for k in step if step[k] or prefill[k]}
+        if mode == "kernels" and not all(launched[k] for k in path):
             fail(f"reduced kernel-mode decode did not run every hand-written "
                  f"kernel: {launched}")
     eager = outs["ref", False]
@@ -1292,6 +1516,11 @@ def main() -> int:
         rows, summaries[tag] = phase(dev, model, params, lens, prompts, checked)
         kernels += rows
         print(f"{tag} phase: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    rows, summaries["kernel-mode long"] = long_prompt_phase(dev, model, params,
+                                                            checked)
+    kernels += rows
+    print(f"kernel-mode long phase: {time.perf_counter() - t0:.1f}s")
     for tag, summary in summaries.items():
         print(f"decode plan {tag} ({cfg.n_layers}L): {json.dumps(summary)}")
     del params

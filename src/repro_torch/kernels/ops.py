@@ -26,6 +26,7 @@ import torch
 
 from . import activations as _act
 from . import decode_attention as _decode
+from . import flash_attention as _flash
 from . import norms as _norms
 from . import ref as _ref
 from . import rope as _rope
@@ -40,7 +41,7 @@ _mode: contextvars.ContextVar[str] = contextvars.ContextVar("kernel_mode",
 
 # kernel modules by the name their launches are counted under
 _KERNELS = {"rmsnorm": _norms, "glu": _act, "rope": _rope,
-            "decode_attention": _decode}
+            "decode_attention": _decode, "flash_attention": _flash}
 
 # each custom op -> the reference kernel body it ports, the name the
 # planner's registry (kernels/registry.py) knows it by
@@ -49,6 +50,7 @@ KERNEL_TAGS = {
     torch.ops.repro_torch.glu.default: "_glu_kernel",
     torch.ops.repro_torch.rope.default: "_rope_kernel",
     torch.ops.repro_torch.decode_attention.default: "_decode_attn_kernel",
+    torch.ops.repro_torch.flash_attention.default: "_flash_kernel",
 }
 
 
@@ -114,9 +116,15 @@ def rope(x, positions, theta: float = 10000.0):
 
 
 def attention(q, k, v, *, causal: bool = True, scale: float | None = None,
-              window: int | None = None, positions_q=None):
+              window: int | None = None, q_offset: int = 0):
+    if _use_kernels():
+        return _flash.flash_attention(q, k, v, causal=causal, scale=scale,
+                                      window=window, q_offset=q_offset)
+    pos_q = None
+    if q_offset:
+        pos_q = (q_offset + torch.arange(q.shape[1], device=q.device))[None, :]
     return _ref.attention(q, k, v, causal=causal, scale=scale, window=window,
-                          positions_q=positions_q)
+                          positions_q=pos_q)
 
 
 def decode_attention(q, k, v, positions, *, scale: float | None = None,

@@ -15,6 +15,7 @@ from typing import Any
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as _ref
 from .config import ModelConfig
 
 Params = dict[str, Any]
@@ -85,10 +86,12 @@ def apply_mlp(p: Params, x, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def apply_attention(p: Params, x, cfg: ModelConfig, positions,
-                    cache: Params | None = None, return_kv: bool = False):
+                    cache: Params | None = None, window: int | None = None,
+                    return_kv: bool = False):
     """x: (B, S, D).  With ``cache`` (decode), S is the new-token count and
     attention runs against cache+new; returns (out, new_cache).  With
-    ``return_kv`` (prefill) the post-RoPE k/v are returned instead."""
+    ``return_kv`` (prefill) the post-RoPE k/v are returned instead.
+    ``window``: local-attention window (keys within ``window`` positions)."""
     dt = torch_dtype(cfg.dtype)
     B, S, D = x.shape
     Hq, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
@@ -121,7 +124,8 @@ def apply_attention(p: Params, x, cfg: ModelConfig, positions,
             # the decode-attention kernel: the whole masked-softmax chain is
             # one registered CUSTOM node (the position mask covers length
             # validity, as in the einsum chain below)
-            out = ops.decode_attention(q, ck, cv, positions[:, 0], scale=scale)
+            out = ops.decode_attention(q, ck, cv, positions[:, 0], scale=scale,
+                                       window=window)
             out = out.reshape(B, S, Hq * dh) @ p["wo"].to(dt)
             return out, new_cache
         Smax = ck.shape[1]
@@ -133,6 +137,8 @@ def apply_attention(p: Params, x, cfg: ModelConfig, positions,
         kpos = torch.arange(Smax, device=x.device)[None, None, None, None, :]
         qpos = positions[:, None, None, :, None]
         mask = kpos <= qpos
+        if window is not None:
+            mask = mask & (qpos - kpos < window)
         logits = torch.where(mask, logits, -1e30)
         probs = torch.softmax(logits, dim=-1)
         out = torch.einsum("bhgqk,bkhd->bqhgd",
@@ -140,14 +146,10 @@ def apply_attention(p: Params, x, cfg: ModelConfig, positions,
                            cv.to(torch.float32))
         out = out.reshape(B, S, Hq, dh).to(dt)
     elif ops.get_mode() == "kernels" and S % 128 == 0:
-        # the reference runs its flash-attention kernel here
-        raise NotImplementedError(
-            f"kernel-mode prefill of {S} tokens runs the flash-attention "
-            f"kernel (_flash_kernel), which is not ported yet (next in "
-            f"ROADMAP.md Queue 1); use a prefill length that is not a "
-            f"multiple of 128, or kernel_mode('ref')")
+        # the flash-attention kernel, as the reference's pallas mode
+        out = ops.attention(q, k, v, causal=True, scale=scale, window=window)
     else:
-        out = ops.attention(q, k, v, causal=True, scale=scale,
-                            positions_q=positions)
+        out = _ref.attention(q, k, v, causal=True, scale=scale, window=window,
+                             positions_q=positions)
     out = out.reshape(B, S, Hq * dh) @ p["wo"].to(dt)
     return out, new_cache

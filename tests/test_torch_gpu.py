@@ -232,6 +232,39 @@ def test_decode_attention_kernel_on_card(window, dtype, tol):
         rtol=tol, atol=tol)
 
 
+# (B, Hq, Hkv, Lq, Lkv, Dh, causal, window, q_offset): the prefill's shape
+# at bucket 256; a chunk after 256 cached tokens with a window; MHA at Dh 64
+# off the tile grid; rows without a valid key (qpos >= Lkv - 1 + window)
+FLASH_CASES = [(4, 16, 8, 256, 256, 128, True, None, 0),
+               (2, 8, 4, 128, 384, 128, True, 64, 256),
+               (2, 4, 4, 200, 200, 64, False, 48, 0),
+               (1, 4, 2, 128, 128, 128, True, 16, 100)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
+def test_flash_attention_kernel_on_card(dtype, tol):
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    for i, (B, Hq, Hkv, Lq, Lkv, Dh, causal, window, q_offset) in \
+            enumerate(FLASH_CASES):
+        q = _rand((B, Lq, Hq, Dh), dtype, 3 * i)
+        k, v = (_rand((B, Lkv, Hkv, Dh), dtype, 3 * i + j) for j in (1, 2))
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        args = (qt, kt, vt, Dh ** -0.5, causal, window, q_offset)
+        before = sum(fa.launches.values())
+        out = fa.flash_attention_op(*args)
+        torch.cuda.synchronize()
+        assert sum(fa.launches.values()) == before + 1
+        torch.testing.assert_close(out.float(),
+                                   fa.flash_attention_plain(*args).float(),
+                                   rtol=tol, atol=tol)
+    # the same shape with a strided last dimension is refused
+    bad = qt.contiguous().transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_op(bad, kt, vt, 0.1)
+
+
 @pytest.mark.gpu
 def test_cuda_library_builds_from_an_empty_directory(tmp_path):
     _need_card()
@@ -240,6 +273,7 @@ def test_cuda_library_builds_from_an_empty_directory(tmp_path):
     libs = {p.stem: build.library(p.stem, out_dir=tmp_path)
             for p in build.CSRC.glob("*.cu")}
     assert all(path.parent == tmp_path for path in libs.values())
-    lib = ctypes.CDLL(str(libs["decode_attention"]))
-    assert hasattr(lib, "repro_decode_attention")
-    assert "registers" in libs["decode_attention"].with_suffix(".log").read_text()
+    for stem in ("decode_attention", "flash_attention"):
+        lib = ctypes.CDLL(str(libs[stem]))
+        assert hasattr(lib, f"repro_{stem}")
+        assert "registers" in libs[stem].with_suffix(".log").read_text()

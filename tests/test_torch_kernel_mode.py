@@ -11,7 +11,10 @@ the same weights in both packages (``params_from_jax``):
 * the port's stitched ``Engine`` in kernel mode serves the reference
   engine's greedy tokens (pallas mode, jit), with prefill and step logits
   within rtol/atol 2e-4 (the reference's own tolerance), and its own
-  ref-mode tokens;
+  ref-mode tokens, at an 8 bucket and at a 128 bucket, where both prefills
+  run their flash-attention kernel;
+* the traced prefill's flash node has the reference node's operands and
+  registry price;
 * its decode plan fuses the registered kernels with their neighbours.
 
 Under jax 0.9.0 the reference's tracer leaves its Pallas CUSTOM nodes
@@ -190,22 +193,22 @@ def test_registered_kernel_plan_equals_reference():
                for grp in port.groups)
 
 
-@functools.lru_cache(maxsize=None)
-def served():
+def _serve_both(prompts, lens, bucket, max_len):
     """(reference pallas-mode run, port kernel-mode run, port kernel-mode
-    engine, port ref-mode stitched engine): tokens, prefill logits, step
-    logits."""
-    rmodel, rparams, model, params, prompts = setup()
+    engine) of the same prompts: tokens, prefill logits, step logits."""
+    rmodel, rparams, model, params, _ = setup()
     steps = NEW_TOKENS - 1
-    padded = np.zeros((2, 8), np.int32)
-    padded[:, :5] = prompts
+    B = len(lens)
+    padded = np.zeros((B, bucket), np.int32)
+    padded[:, :prompts.shape[1]] = prompts
     with ref_ops.kernel_mode("pallas"):
         reng = RefEngine(rmodel, rparams, RefServeConfig(
-            batch=2, max_len=32, max_new_tokens=NEW_TOKENS, paged=False))
+            batch=B, max_len=max_len, max_new_tokens=NEW_TOKENS, paged=False))
         rlogits0, _ = jax.jit(lambda p, t, l: rmodel.prefill(p, t, true_len=l))(
-            rparams, jnp.asarray(padded), jnp.asarray(LENS))
-        px = reng.prefill(prompts, prompt_lens=LENS)
-        for row in range(2):
+            rparams, jnp.asarray(padded), jnp.asarray(lens))
+        px = reng.prefill(prompts, prompt_lens=lens)
+        assert px.bucket == bucket
+        for row in range(B):
             reng.insert(px, slot=row, row=row)
         cache = reng.kv.decode_cache()
         tok = jnp.asarray(px.first_tokens.astype(np.int32)[:, None])
@@ -217,22 +220,46 @@ def served():
             rtoks.append(np.asarray(tok)[:, 0])
     ref = (np.stack(rtoks, 1), np.asarray(rlogits0), rsteps)
 
-    scfg = ServeConfig(batch=2, max_len=32, max_new_tokens=NEW_TOKENS,
+    scfg = ServeConfig(batch=B, max_len=max_len, max_new_tokens=NEW_TOKENS,
                        stitch_execute=True)
     with ops.kernel_mode("kernels"):
         eng = Engine(model, params, scfg, device="cpu")
         logits0, _ = eng._prefill_exec(
             params, torch.as_tensor(padded).long(),
-            torch.as_tensor(LENS, dtype=torch.int32))
-        pxp = eng.prefill(prompts, prompt_lens=LENS)
-        for row in range(2):
+            torch.as_tensor(lens, dtype=torch.int32))
+        pxp = eng.prefill(prompts, prompt_lens=lens)
+        assert pxp.bucket == bucket
+        for row in range(B):
             eng.insert(pxp, slot=row, row=row)
         toks, step_logits = eng.generate_step(steps=steps, return_logits=True)
     port = (np.concatenate([pxp.first_tokens[:, None], toks], 1),
             logits0.numpy(), [x.numpy() for x in step_logits])
-    ref_eng = Engine(model, params, scfg, device="cpu")
+    return ref, port, eng
+
+
+@functools.lru_cache(maxsize=None)
+def served():
+    """(reference pallas-mode run, port kernel-mode run, port kernel-mode
+    engine, port ref-mode stitched engine, its tokens) at the 8 bucket."""
+    _, _, model, params, prompts = setup()
+    ref, port, eng = _serve_both(prompts, LENS, 8, 32)
+    ref_eng = Engine(model, params, ServeConfig(
+        batch=2, max_len=32, max_new_tokens=NEW_TOKENS, stitch_execute=True),
+        device="cpu")
     ref_toks = ref_eng.generate(prompts, prompt_lens=LENS)
     return ref, port, eng, ref_eng, ref_toks
+
+
+# prompts of 100 and 70 tokens: bucket 128, where both packages' kernel
+# modes run their flash-attention kernel in the prefill
+LONG_LENS = np.array([100, 70])
+
+
+@functools.lru_cache(maxsize=None)
+def served_long():
+    cfg = setup()[2].cfg
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (2, 100))
+    return _serve_both(prompts, LONG_LENS, 128, 136)
 
 
 def test_kernel_mode_tokens_equal_reference_pallas_mode():
@@ -268,13 +295,57 @@ def test_kernel_mode_decode_plan_fuses_registered_kernels():
     assert {grp.kind for grp in fused} == {"torch"}
 
 
-def test_kernel_mode_prefill_at_a_128_bucket_raises():
-    """The reference runs its flash-attention kernel there; the port has
-    none yet and says so instead of taking another attention."""
-    _, _, model, params, _ = setup()
-    tokens = torch.zeros((1, 128), dtype=torch.long)
+def test_kernel_mode_prefill_at_a_128_bucket_matches_reference_pallas_mode():
+    ref, port, eng = served_long()
+    np.testing.assert_array_equal(port[0], ref[0])
+    np.testing.assert_allclose(port[1], ref[1], **TOL)
+    assert len(port[2]) == len(ref[2]) == NEW_TOKENS - 1
+    for p, r in zip(port[2], ref[2]):
+        np.testing.assert_allclose(p, r, **TOL)
+    rep = eng.report()
+    assert rep["prefill"]["calls"]["fallback"] == 0
+    g = eng._prefill_exec.graph
+    flash = [n for n in g.nodes.values()
+             if n.attrs.get("kernel") == "_flash_kernel"]
+    assert len(flash) == setup()[2].cfg.n_layers
+
+
+@functools.lru_cache(maxsize=None)
+def traced_prefills():
+    """(reference graph in pallas mode, port graph in kernel mode) of the
+    reduced prefill at 128 tokens.  The reference traces without remat,
+    which would hide each layer in one CUSTOM node (the values are the
+    same)."""
+    rmodel, rparams, model, params, _ = setup()
+    rmodel = ref_build(replace(rmodel.cfg, remat="none"))
+    toks = np.zeros((2, 128), np.int32)
+    with ref_ops.kernel_mode("pallas"):
+        rg, _ = ref_trace(lambda p, t: rmodel.prefill(p, t), rparams,
+                          jnp.asarray(toks), name="prefill")
     with ops.kernel_mode("kernels"):
-        with pytest.raises(NotImplementedError, match="_flash_kernel"):
-            model.prefill(params, tokens)
-        logits, _ = model.prefill(params, tokens[:, :64])
-    assert logits.shape == (1, model.cfg.vocab)
+        g, _ = trace_to_graph(lambda p, t: model.prefill(p, t), params,
+                              torch.as_tensor(toks).long(), name="prefill")
+    return rg, g
+
+
+def test_flash_node_operands_and_price_match_the_reference():
+    """The flash node takes the reference's operands, (q^T, k^T, v^T) in
+    (B, H, L, Dh), and the copied registry prices it alike.  Its formulas
+    read those operands as (B, L, H, Dh), so the modeled FLOPs take Hkv
+    where Lkv belongs: a reference caveat the port keeps."""
+    rg, g = traced_prefills()
+    rnodes = [n for n in rg.nodes.values() if ref_kernel_name(n) == "_flash_kernel"]
+    pnodes = [n for n in g.nodes.values() if n.attrs.get("kernel") == "_flash_kernel"]
+    assert len(pnodes) == len(rnodes) == setup()[2].cfg.n_layers
+    rdesc = ref_registry._REGISTRY["_flash_kernel"]
+    for rn, pn in zip(rnodes, pnodes):
+        assert [(tuple(g[o].shape), str(g[o].dtype)) for o in pn.operands] == \
+            [(tuple(rg[o].shape), str(rg[o].dtype)) for o in rn.operands]
+        assert tuple(pn.shape) == tuple(rn.shape)
+        assert [g[o].kind for o in pn.operands] == [OpKind.TRANSPOSE] * 3
+        desc = registry.lookup(pn)
+        assert desc.name == "_flash_kernel"
+        assert desc.flops(pn, g) == rdesc.flops(rn, rg)
+        assert desc.scratch_bytes(pn, g) == rdesc.scratch_bytes(rn, rg)
+        (B, Hq, L, Dh), hkv = g[pn.operands[0]].shape, g[pn.operands[1]].shape[1]
+        assert desc.flops(pn, g) == 4.0 * B * L * Hq * hkv * Dh

@@ -3,10 +3,10 @@ reference's Pallas kernels.
 
 On the CPU each kernel's custom op runs its plain version, so these tests
 hold the plain versions against the reference kernels run in interpret
-mode, on the same numpy inputs: RMSNorm, SwiGLU/GeGLU, RoPE and decode
-attention, in float32 (rtol/atol 2e-4, the reference's own tolerance) and
+mode, on the same numpy inputs: RMSNorm, SwiGLU/GeGLU, RoPE, decode
+attention and flash attention, in float32 (rtol/atol 2e-4, the reference's own tolerance) and
 bfloat16 (1.6e-2: one bf16 rounding step of the outputs, which both sides
-cast from f32).  They also run ``torch.library.opcheck`` on the four custom
+cast from f32).  They also run ``torch.library.opcheck`` on the five custom
 ops, check the mode switch, and drive the CUDA build with a stand-in
 compiler.  The kernels themselves run only on the card
 (``tests/test_torch_gpu.py``).
@@ -25,9 +25,11 @@ import torch
 
 from repro.kernels import activations as ref_act
 from repro.kernels import decode_attention as ref_decode
+from repro.kernels import flash_attention as ref_flash
 from repro.kernels import norms as ref_norms
 from repro.kernels import rope as ref_rope
 from repro_torch.kernels import activations, build, decode_attention, norms, ops
+from repro_torch.kernels import flash_attention
 from repro_torch.kernels import ref, rope
 
 DTYPES = [("float32", 2e-4), ("bfloat16", 1.6e-2)]
@@ -122,6 +124,47 @@ def test_decode_attention_takes_strided_views():
     assert a.is_contiguous() and a.shape == (2, 4, 1, 16)
 
 
+# (B, Hq, Hkv, Lq, Lkv, Dh, causal, window, q_offset); with block_q =
+# block_k = 32 the reference walks 2 to 4 kv blocks per q block
+FLASH_CASES = {
+    "causal_gqa2": (2, 4, 2, 128, 128, 16, True, None, 0),
+    "causal_window40": (1, 4, 2, 128, 128, 16, True, 40, 0),
+    "q_offset64_lq64_lkv128": (1, 4, 2, 64, 128, 16, True, None, 64),
+    "mha_dh32": (1, 2, 2, 128, 128, 32, True, None, 0),
+    # qpos 100..163 against 128 keys, window 16: rows at qpos >= 143 have
+    # no valid key and come out as the mean of V
+    "rows_without_a_valid_key": (1, 4, 2, 64, 128, 16, True, 16, 100),
+    "window24_not_causal": (1, 2, 1, 64, 64, 16, False, 24, 0),
+}
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_attention_plain_matches_reference_kernel(case, dtype, tol):
+    B, Hq, Hkv, Lq, Lkv, Dh, causal, window, q_offset = FLASH_CASES[case]
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((B, Lq, Hq, Dh)).astype(np.float32)
+    k = rng.standard_normal((B, Lkv, Hkv, Dh)).astype(np.float32)
+    v = rng.standard_normal((B, Lkv, Hkv, Dh)).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
+    kw = dict(causal=causal, window=window, q_offset=q_offset, block_q=32,
+              block_k=32)
+    out = flash_attention.flash_attention(tq, tk, tv, **kw)
+    assert out.shape == tq.shape and out.dtype == tq.dtype
+    _close(out, ref_flash.flash_attention(jq, jk, jv, **kw), tol)
+    # the op runs the plain version on the CPU, on the transposed views
+    plain = flash_attention.flash_attention_plain(
+        tq.transpose(1, 2), tk.transpose(1, 2), tv.transpose(1, 2),
+        Dh ** -0.5, causal, window, q_offset)
+    torch.testing.assert_close(out, plain.transpose(1, 2), rtol=0, atol=0)
+    if case == "rows_without_a_valid_key":
+        empty = q_offset + np.arange(Lq) >= Lkv - 1 + window
+        assert 0 < empty.sum() < Lq
+        mean_v = tv.float().mean(dim=1).repeat_interleave(Hq // Hkv, dim=1)
+        for i in np.flatnonzero(empty):
+            _close(out[:, i], mean_v.numpy(), tol)
+
+
 def _op_cases():
     rng = np.random.default_rng(5)
 
@@ -145,6 +188,16 @@ def _op_cases():
         ("decode_attention_window", decode_attention.decode_attention_op,
          (pos, t(2, 4, 1, 8), cache_k.transpose(1, 2), cache_v.transpose(1, 2),
           0.35, 4)),
+        ("flash_attention", flash_attention.flash_attention_op,
+         (t(2, 8, 4, 8).transpose(1, 2), cache_k.transpose(1, 2),
+          cache_v.transpose(1, 2), 0.35, True, None, 0)),
+        ("flash_attention_window_offset", flash_attention.flash_attention_op,
+         (t(2, 4, 4, 8).transpose(1, 2), cache_k.transpose(1, 2),
+          cache_v.transpose(1, 2), 0.35, True, 3, 12)),
+        ("flash_attention_bf16", flash_attention.flash_attention_op,
+         (t(2, 8, 4, 8, dtype=torch.bfloat16).transpose(1, 2),
+          cache_k.to(torch.bfloat16).transpose(1, 2),
+          cache_v.to(torch.bfloat16).transpose(1, 2), 0.35, False, 5, 0)),
     ]
 
 
@@ -157,7 +210,8 @@ def test_custom_op_opcheck(case):
 @pytest.mark.parametrize("mod,op", [
     (norms, norms.rmsnorm_op), (activations, activations.glu_op),
     (rope, rope.rope_op), (decode_attention, decode_attention.decode_attention_op),
-], ids=["rmsnorm", "glu", "rope", "decode_attention"])
+    (flash_attention, flash_attention.flash_attention_op),
+], ids=["rmsnorm", "glu", "rope", "decode_attention", "flash_attention"])
 def test_cuda_launcher_takes_the_op_signature(mod, op):
     """The dispatcher drops an argument left at its default, so the CUDA
     implementation must declare the op's parameters with the same
@@ -199,10 +253,12 @@ def test_cpu_tensors_never_count_launches():
         ops.decode_attention(x[:, :, :2], torch.randn(4, 8, 1, 16),
                              torch.randn(4, 8, 1, 16),
                              torch.zeros(4, dtype=torch.int32))
+        ops.attention(x, x, x)
     assert ops.launch_counts() == {"rmsnorm": 0, "glu": 0, "rope": 0,
-                                   "decode_attention": 0}
+                                   "decode_attention": 0, "flash_attention": 0}
     assert ops.launch_counts_by_signature() == {
-        "rmsnorm": {}, "glu": {}, "rope": {}, "decode_attention": {}}
+        "rmsnorm": {}, "glu": {}, "rope": {}, "decode_attention": {},
+        "flash_attention": {}}
 
 
 def test_launch_signature_keys_shapes_dtypes_and_arguments():
