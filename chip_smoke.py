@@ -9,9 +9,11 @@ result line):
    planted-fault copies from an empty ``build/kernels``, one nvcc each, all
    started together, with each one's build seconds and ptxas report.
 1. Sample kernels: generated Triton stitched kernels for a softmax, an
-   RMSNorm chain and a SwiGLU chain, and the five hand-written kernels
-   (RMSNorm, SwiGLU/GeGLU, RoPE, decode attention, flash attention) at
-   sample shapes, each held against its plain PyTorch version on the card.
+   RMSNorm chain and a SwiGLU chain, and the six hand-written kernels
+   (RMSNorm, SwiGLU/GeGLU, RoPE, decode attention, flash attention, the MoE
+   router) at sample shapes, each held against its plain PyTorch version on
+   the card (the router's ids exactly on rows without a near tie, ties to
+   the lowest index).
 2. Ref-mode path: full-width qwen3-1.7b (random weights from a seed)
    answers 4 requests through ``Engine(stitch_execute=True)``: the stitched
    prefill and the stitched decode on every step.  Launch counts are zeroed
@@ -40,6 +42,15 @@ result line):
    several weight seeds, with faults planted in the stitched RMSNorm
    kernels and in the decode-attention kernel (``kpos < pos``); and a
    reduced model served stitched (both modes) vs eager.
+5. MoE phase (after the long-prompt phase): full-width granite-moe-1b-a400m
+   (24 layers, 32 experts top-8, random weights from a seed) served in
+   kernel mode at the long prompts (bucket 256): exact launches per prefill
+   call and decode step from the config, every kernel of the path held
+   against its plain version, the router beside the ``softmax -> topk ->
+   div`` chain; bf16 prefill and first-step logits against the eager
+   ref-mode engine over several weight seeds; then (with the float32
+   checks) the model cut to 4 layers in float32, with a fault planted in
+   the router kernel.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -84,7 +95,10 @@ LOGIT_TOL = 0.025
 # attention dropping the row's own key).  At bucket 256 in kernel mode (the
 # flash kernel in every prefill layer): prefill 1.80e-6 to 2.08e-6, first
 # step 1.23e-6 to 1.46e-6 over 5 seeds; the flash fault (acc not rescaled
-# between kv tiles) reads 0.60 and 0.93.
+# between kv tiles) reads 0.60 and 0.93.  granite-moe-1b-a400m (4 layers,
+# kernel mode, bucket 256, the router kernel in every layer): prefill
+# 9.5e-7 to 1.13e-6, first step 6.5e-7 to 6.9e-7 over 5 seeds; the router
+# fault (the chosen column not masked) reads 0.93 and 1.10.
 F32_LOGIT_TOL = 1e-5
 # kernel mode (the hand-written kernels) against the eager ref-mode decode,
 # full width in bf16: besides the rounding noise above, the decode-attention
@@ -449,7 +463,7 @@ def group_inputs(compiled, inputs):
                 node = g[nm]
                 args = [env[o] for o in node.operands]
                 tag = node.attrs.get("kernel")
-                if tag is not None:
+                if tag is not None and "project" not in node.attrs:
                     key = (tag, tuple((tuple(a.shape), str(a.dtype)) for a in args),
                            node.attrs["params_sig"])
                     hand.setdefault(key, [node, args, 0])[2] += 1
@@ -753,31 +767,37 @@ HAND = {
     "_flash_kernel": ("flash_attention", "cuda",
                       "src/repro_torch/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention.py:94"),
+    "_router_kernel": ("router", "cuda", "src/repro_torch/csrc/router.cu",
+                       "src/repro/kernels/router.py:50"),
 }
 # elementwise operations per output element (the bound's operation count)
 HAND_OPS = {"_rmsnorm_kernel": 4, "_glu_kernel": 5, "_rope_kernel": 6}
 
 
-def expected_launches(n_layers: int, bucket: int) -> tuple[dict, dict]:
-    """Hand-written kernel launches per decode step and per prefill call of
-    a dense qk-norm model: 4 norms a layer + the final one, 2 rotaries and 1
-    GLU a layer, decode attention once a layer on decode only, flash
+def expected_launches(cfg, bucket: int) -> tuple[dict, dict]:
+    """Hand-written kernel launches per decode step and per prefill call,
+    from the config: 2 norms a layer (4 with qk-norm) + the final one, 2
+    rotaries and 1 GLU a layer (the experts' GLU in a MoE layer), the router
+    once a MoE layer, decode attention once a layer on decode only, flash
     attention once a layer on a prefill whose bucket is a multiple of 128."""
-    step = {"rmsnorm": 4 * n_layers + 1, "rope": 2 * n_layers,
-            "glu": n_layers, "decode_attention": n_layers,
-            "flash_attention": 0}
+    L = cfg.n_layers
+    step = {"rmsnorm": (4 if cfg.qk_norm else 2) * L + 1, "rope": 2 * L,
+            "glu": L, "decode_attention": L, "flash_attention": 0,
+            "router": L if cfg.family == "moe" else 0}
     return step, dict(step, decode_attention=0,
-                      flash_attention=n_layers if bucket % 128 == 0 else 0)
+                      flash_attention=L if bucket % 128 == 0 else 0)
 
 
 # planted faults in the CUDA sources: (sound text, planted text).  Decode
 # attention drops the row's own key (kpos < pos); flash attention leaves acc
-# unrescaled when a later kv tile raises the row max
+# unrescaled when a later kv tile raises the row max; the router does not
+# mask the column a round chose, so each row picks its top expert k times
 FAULTS = {
     "decode_attention": ("const int hi = min(p, smax - 1);",
                          "const int hi = min(p - 1, smax - 1);"),
     "flash_attention": ("#pragma unroll\n      for (int j = 0; j < DPT; ++j) "
                         "acc[i][j] *= alpha;\n", ""),
+    "router": ("if (lane + 32 * j == bi) p[j] = -1.0f;", ""),
 }
 
 
@@ -825,12 +845,63 @@ def build_phase() -> float:
 
 def hand_plain(tag):
     from repro_torch.kernels import activations, decode_attention, norms, rope
-    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import flash_attention, router
     return {"_rmsnorm_kernel": norms.rmsnorm_plain,
             "_glu_kernel": activations.glu_plain,
             "_rope_kernel": rope.rope_plain,
             "_decode_attn_kernel": decode_attention.decode_attention_plain,
-            "_flash_kernel": flash_attention.flash_attention_plain}[tag]
+            "_flash_kernel": flash_attention.flash_attention_plain,
+            "_router_kernel": router.topk_router_plain}[tag]
+
+
+def router_compare(name, x, k, out, ref) -> dict:
+    """The router kernel's (weights, ids) against the plain version's on
+    logits ``x``.  Ids must be equal on every row whose plain probabilities
+    among the top k+1 are, pair by pair, equal or more than 4 f32 ulps
+    apart; on a row with an exact tie they must also equal a stable
+    descending sort's (the lowest index first).  Rows with a closer gap
+    are counted, and their sorted weights compared within tolerance.
+    Fails on a disagreement; returns the counts and the weights' error."""
+    (w, ids), (pw, pids) = out, ref
+    xf = x.float()
+    e = torch.exp(xf - xf.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    top = torch.sort(p, dim=-1, descending=True, stable=True)
+    n = min(k + 1, x.shape[-1])
+    v = top.values[:, :n]
+    gap = v[:, :-1] - v[:, 1:]
+    ulp = torch.nextafter(v[:, :-1], torch.full_like(v[:, :-1], 2.0)) \
+        - v[:, :-1]
+    close = ((gap > 0) & (gap <= 4 * ulp)).any(-1)
+    tie = (gap == 0).any(-1) & ~close
+    far = ~close
+    if not torch.equal(ids[far], pids[far]):
+        bad = int((ids[far] != pids[far]).any(-1).sum())
+        fail(f"router {name}: ids differ from the plain version's on {bad} "
+             f"rows without a near tie")
+    if not torch.equal(ids[tie], top.indices[:, :k][tie].to(torch.int32)):
+        fail(f"router {name}: a tie did not go to the lowest index")
+    wf, pwf = w.float().clone(), pw.float().clone()
+    wf[close] = wf[close].sort(-1).values
+    pwf[close] = pwf[close].sort(-1).values
+    rtol, atol = TOL[str(w.dtype).replace("torch.", "")]
+    if not torch.allclose(wf, pwf, rtol=rtol, atol=atol):
+        fail(f"router {name}: weights disagree with the plain version "
+             f"(max err {max_err((wf,), (pwf,))})")
+    return {"err": max_err((wf,), (pwf,)), "rows": x.shape[0],
+            "tie_rows": int(tie.sum()), "close_rows": int(close.sum())}
+
+
+def router_chain(x, k, renorm=True):
+    """The same function as three PyTorch calls (``softmax``, ``topk``, a
+    divide): no single call computes it, so this is a yardstick of a chain,
+    not a library call.  ``torch.topk`` ranks ties in no fixed order."""
+    def run():
+        w, i = torch.topk(torch.softmax(x.float(), dim=-1), k)
+        if renorm:
+            w = w / w.sum(dim=-1, keepdim=True)
+        return w.to(x.dtype), i
+    return run
 
 
 # flash-attention samples: (name, B, Hq, Hkv, Lq, Lkv, Dh, causal, window,
@@ -901,6 +972,7 @@ def hand_samples(dev):
                  f"(max err {errs[name]})")
     print(f"hand-written kernel samples vs plain: "
           + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
+    router_samples(rnd)
     # RoPE in f32 against the rotation computed in f64 from exact angles:
     # how far the kernel and its plain version each are from exact
     x, pos, theta, hd = next(a for n, _, _, a in cases
@@ -910,6 +982,46 @@ def hand_samples(dev):
             for k, f in (("kernel", rope.rope_op), ("plain", rope.rope_plain))}
     print(f"rope f32 vs f64 at positions up to {int(pos.max())}: "
           + " ".join(f"{k}={v:.3g}" for k, v in dist.items()))
+
+
+# router samples (T, E, k): a granite decode step and bucket-256 prefill, a
+# ragged E past one lane's column, the widest E the kernel takes
+ROUTER_SAMPLES = [(4, 32, 8), (1024, 32, 8), (1000, 60, 4), (512, 64, 8)]
+
+
+def router_samples(rnd):
+    """The router kernel against its plain version (``router_compare``) at
+    the sample shapes, f32 and bf16, renormalised or not; and on
+    bf16-rounded f32 logits, where exact ties are common, with one row of
+    equal logits."""
+    from repro_torch.kernels import router
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        t = str(dt).replace("torch.", "")
+        for T, E, k in ROUTER_SAMPLES:
+            x = rnd(T, E, dtype=dt)
+            for renorm in (True, False):
+                cases.append((f"router_{t}_{T}x{E}_k{k}_renorm{int(renorm)}",
+                              x, k, renorm))
+    ties = rnd(4096, 32, dtype=torch.bfloat16).float()
+    ties[0] = 0.25
+    for renorm in (True, False):
+        cases.append((f"router_bf16_rounded_f32_4096x32_k8_renorm{int(renorm)}",
+                      ties, 8, renorm))
+    stats = {}
+    for name, x, k, renorm in cases:
+        out = router.topk_router_op(x, k, renorm)
+        torch.cuda.synchronize()
+        stats[name] = router_compare(name, x, k, out,
+                                     router.topk_router_plain(x, k, renorm))
+    if not stats[cases[-1][0]]["tie_rows"]:
+        fail("the bf16-rounded router samples hold no exact tie")
+    if out[1][0].tolist() != list(range(8)):
+        fail(f"router: a row of equal logits chose {out[1][0].tolist()}")
+    print("router kernel samples vs plain (weights max err; rows with an "
+          "exact tie; rows with a gap of 4 ulps or less): " + " ".join(
+              f"{n}={v['err']:.3g}/{v['tie_rows']}/{v['close_rows']}"
+              for n, v in stats.items()))
 
 
 def rope_f64(x, pos, theta, head_dim):
@@ -968,11 +1080,17 @@ def hand_bound(tag, args, out) -> tuple[float, str]:
     Elementwise kernels count f32 operations at the f32 rate; decode
     attention reads only the valid keys of each row; flash attention's
     QK^T and PV products count the valid (query, key) pairs, at the bf16
-    tensor-core rate for bf16 inputs and the f32 rate for f32 ones."""
+    tensor-core rate for bf16 inputs and the f32 rate for f32 ones; the
+    router counts its softmax (5 operations a logit) and k rounds of a
+    compare and a select per logit, at the f32 rate."""
     def nbytes(t):
         return t.numel() * t.element_size()
     rate = F32_PEAK
-    if tag == "_flash_kernel":
+    if tag == "_router_kernel":
+        x, k, _ = args
+        b = nbytes(x) + sum(nbytes(o) for o in out)
+        ops = x.numel() * (5 + 2 * k)
+    elif tag == "_flash_kernel":
         qt, kt, vt, scale, causal, window, q_offset = args
         B, hq, lq, dh = qt.shape
         qpos = q_offset + torch.arange(lq)[:, None]
@@ -1009,10 +1127,10 @@ def launch_signature(name, node, tensors) -> tuple:
     """The key the kernel's launcher counts a launch of ``node`` under
     (``build.signature`` of its arguments, defaults filled in)."""
     from repro_torch.kernels import activations, build, decode_attention
-    from repro_torch.kernels import flash_attention, norms, rope
+    from repro_torch.kernels import flash_attention, norms, rope, router
     launcher = {"rmsnorm": norms, "glu": activations, "rope": rope,
                 "decode_attention": decode_attention,
-                "flash_attention": flash_attention}[name]._launch
+                "flash_attention": flash_attention, "router": router}[name]._launch
     _, args, kwargs = op_call(node, tensors)
     return build.signature(*all_args(launcher, args, kwargs))
 
@@ -1065,10 +1183,21 @@ def hand_rows(pre, dec, steps, run, path):
         out = run_op()
         torch.cuda.synchronize()
         ref = plain(*args, **kwargs)
-        err = max_err((out,), (ref,))
-        if not within((out,), (ref,)):
-            fail(f"{name} at {sig} disagrees with its plain version "
-                 f"(max err {err})")
+        extra = {}
+        if tag == "_router_kernel":
+            cmp = router_compare(f"{name} at {sig}", full[0], full[1], out, ref)
+            err = cmp["err"]
+            chain = router_chain(*full)
+            extra = {"tie_rows": cmp["tie_rows"],
+                     "close_rows": cmp["close_rows"],
+                     "chain": "softmax -> topk -> div, three calls",
+                     "chain_ms": timed(chain, 50),
+                     "chain_device_ms": device_ms(chain)}
+        else:
+            err = max_err((out,), (ref,))
+            if not within((out,), (ref,)):
+                fail(f"{name} at {sig} disagrees with its plain version "
+                     f"(max err {err})")
         lib = hand_library(tag, full)
         lib_ms = lib_dev_ms = lib_err = None
         if lib is not None:
@@ -1095,7 +1224,7 @@ def hand_rows(pre, dec, steps, run, path):
                      "plain_ms": timed(lambda: plain(*args, **kwargs), 20),
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
-                     "library_max_abs_err": lib_err}
+                     "library_max_abs_err": lib_err, **extra}
     for name, *_ in HAND.values():
         for what, field in (("decode step", "launches_per_decode_step"),
                             ("prefill call", "launches_prefill_call")):
@@ -1103,10 +1232,10 @@ def hand_rows(pre, dec, steps, run, path):
                     if nm == name and r[field]]
             agg = {f: sum(n * r[f] for r, n in mine)
                    for f in ("ms", "device_ms", "plain_ms", "bound_ms")}
-            if mine and all(r["library_ms"] is not None for r, _ in mine):
-                agg["library_ms"] = sum(n * r["library_ms"] for r, n in mine)
-                agg["library_device_ms"] = sum(n * r["library_device_ms"]
-                                               for r, n in mine)
+            for lib in ("library", "chain"):
+                if mine and all(r.get(f"{lib}_ms") is not None for r, _ in mine):
+                    for f in (f"{lib}_ms", f"{lib}_device_ms"):
+                        agg[f] = sum(n * r[f] for r, n in mine)
             print(f"{path} {name} per {what}: "
                   f"launches={sum(n for _, n in mine):g} "
                   + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
@@ -1133,7 +1262,7 @@ def serve_kernel_mode(dev, model, params, lens, prompts, max_len, tag,
         warm_serve(eng, prompts, lens, steps, tag)
         run = measured_serve(eng, prompts, lens, steps, dev, tag, cfg.vocab)
     bucket = run["px"].bucket
-    per_step, per_prefill = expected_launches(cfg.n_layers, bucket)
+    per_step, per_prefill = expected_launches(cfg, bucket)
     decode_counts = {k: run["hand_total"][k] - run["hand_prefill"][k]
                      for k in per_step}
     print(f"{tag} launches: prefill call (bucket {bucket}) "
@@ -1225,6 +1354,128 @@ def long_prompt_phase(dev, model, params, checked):
                for rs in readings.values() for r in rs):
         fail(f"{tag} logits disagree with the ref-mode eager engine")
     return kernels, summary
+
+
+MOE_ARCH = "granite-moe-1b-a400m"
+# the MoE phase: kernel mode against the eager ref-mode engine in bf16 at
+# the long prompts, prefill (last true position) and first decode step, as
+# rel_diff.  Besides the rounding noise of the dense path, the stitched plan
+# computes the router's dot in f32 (the widening-convert fold) where the
+# eager engine rounds it to bf16, and a token whose 8th and 9th expert
+# probabilities differ by less than that rounding changes its experts: a
+# flip moves its output far more than rounding does.  Readings over 3 seeds
+# on an H100 (24 layers): prefill 0.0181 to 0.0431, first step 0.0249 to
+# 0.197 (argmax agreement 0.5 at seed 0); each limit is 1.35x its largest
+# reading, rounded up.  The float32 check (moe_f32) is the tight gate.
+MOE_LOGIT_TOL = {"prefill": 0.059, "decode": 0.27}
+
+
+def moe_phase(dev, checked):
+    """Full-width granite-moe-1b-a400m served in kernel mode at the long
+    prompts (``serve_kernel_mode``: the router kernel in every layer of the
+    prefill and of each decode step); then its bf16 prefill and first-step
+    logits against the ref-mode eager engine over several weight seeds."""
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = get_config(MOE_ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, dev)
+    torch.cuda.synchronize()
+    m = cfg.moe
+    print(f"init {cfg.name}: {cfg.n_layers}L d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} experts={m.n_experts} "
+          f"top_k={m.top_k} d_expert={m.d_expert} vocab={cfg.vocab} "
+          f"params={sum(t.numel() for t in tree_leaves(params)) / 1e9:.3f}B in "
+          f"{time.perf_counter() - t0:.1f}s")
+    tag = "moe kernel-mode long"
+    prompts = prompts_for(cfg, LONG_LENS, SEED)
+    eng, kernels, summary = serve_kernel_mode(
+        dev, model, params, LONG_LENS, prompts, LONG_MAX_LEN, tag, checked)
+    eager = Engine(model, params, ServeConfig(batch=4, max_len=LONG_MAX_LEN,
+                                              max_new_tokens=2), device=dev)
+    readings = {"prefill": [], "decode": []}
+    for s in range(LOGIT_SEEDS):
+        if s:
+            eng.params = eager.params = model.init(SEED + s, dev)
+        ps = prompts_for(cfg, LONG_LENS, SEED + s)
+        with ops.kernel_mode("kernels"):
+            km = prefill_and_step_logits(eng, ps, LONG_LENS)
+        ea = prefill_and_step_logits(eager, ps, LONG_LENS)
+        for what, a, b in zip(("prefill", "decode"), km, ea):
+            readings[what].append(rel_diff(a, b))
+            agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+            print(f"{tag} {what} logits vs ref-mode eager (bf16, "
+                  f"{cfg.n_layers}L, seed {SEED + s}): "
+                  f"rel={readings[what][-1]:.6g} argmax_agree={agree}")
+    print(f"{tag} logits bf16: tol={MOE_LOGIT_TOL} sound max prefill="
+          f"{max(readings['prefill']):.6g} decode={max(readings['decode']):.6g}")
+    if not all(np.isfinite(r) and r <= MOE_LOGIT_TOL[what]
+               for what, rs in readings.items() for r in rs):
+        fail(f"{tag} logits disagree with the ref-mode eager engine")
+    return kernels, summary
+
+
+def moe_f32(dev):
+    """granite-moe-1b-a400m at full width, cut to 4 layers, in float32: the
+    kernel-mode prefill at the 256 bucket (flash and the router in every
+    layer) and its first decode step against the eager ref-mode engine over
+    several weight seeds; then the same with a fault planted in the router
+    kernel."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.core import StitchCompiler
+    from repro_torch.kernels import ops, router
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = replace(get_config(MOE_ARCH), n_layers=4, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(SEED, dev)
+    long = dict(batch=4, max_len=LONG_MAX_LEN, max_new_tokens=2)
+    km = Engine(model, params, ServeConfig(**long, stitch_execute=True),
+                device=dev, compiler=StitchCompiler(plan_budget=10.0))
+    eager = Engine(model, params, ServeConfig(**long), device=dev)
+    readings, ref0 = [], None
+    ops.reset_launch_counts()
+    for s in range(F32_SEEDS):
+        if s:
+            km.params = eager.params = model.init(SEED + s, dev)
+        ps = prompts_for(cfg, LONG_LENS, SEED + 1 + s)
+        ea = prefill_and_step_logits(eager, ps, LONG_LENS)
+        with ops.kernel_mode("kernels"):
+            kl = prefill_and_step_logits(km, ps, LONG_LENS)
+        readings.append([rel_diff(a, b) for a, b in zip(kl, ea)])
+        print(f"moe 4-layer f32 kernel-mode bucket 256 vs eager (seed "
+              f"{SEED + s}): prefill rel={readings[-1][0]:.6g} decode "
+              f"rel={readings[-1][1]:.6g}")
+        if s == 0:
+            ref0 = (ps, ea)
+    # per seed two prefills and one decode step (prefill_and_step_logits)
+    n = ops.launch_counts()["router"]
+    if n != 3 * F32_SEEDS * cfg.n_layers:
+        fail(f"moe 4-layer f32 kernel mode launched the router {n} times, "
+             f"expected {3 * F32_SEEDS * cfg.n_layers}")
+    km.params = eager.params = params
+    router._lib()
+    sound_lib, router._LIB = router._LIB, faulted_library(router, "router")
+    try:
+        with ops.kernel_mode("kernels"):
+            planted = [rel_diff(a, b) for a, b in zip(
+                prefill_and_step_logits(km, ref0[0], LONG_LENS), ref0[1])]
+    finally:
+        router._LIB = sound_lib
+    print(f"moe 4-layer f32 kernel-mode logits: tol={F32_LOGIT_TOL} sound max "
+          f"prefill={max(r[0] for r in readings):.6g} "
+          f"decode={max(r[1] for r in readings):.6g}; planted router fault "
+          f"(chosen column not masked) prefill={planted[0]:.6g} "
+          f"decode={planted[1]:.6g}")
+    if not all(r <= F32_LOGIT_TOL for rs in readings for r in rs):
+        fail("moe 4-layer f32 kernel-mode logits disagree with eager")
+    if not min(planted) > F32_LOGIT_TOL:
+        fail("the f32 logit check missed the planted router fault")
 
 
 def prompts_for(cfg, lens, seed):
@@ -1462,7 +1713,7 @@ def reduced_reference(dev):
             fail("reduced stitched decode did not run its Triton groups")
         launched = ops.launch_counts()
         step, prefill = expected_launches(
-            cfg.n_layers, ADMISSION_BUCKET.bucket_dim(prompts.shape[1]))
+            cfg, ADMISSION_BUCKET.bucket_dim(prompts.shape[1]))
         path = {k for k in step if step[k] or prefill[k]}
         if mode == "kernels" and not all(launched[k] for k in path):
             fail(f"reduced kernel-mode decode did not run every hand-written "
@@ -1521,11 +1772,16 @@ def main() -> int:
                                                             checked)
     kernels += rows
     print(f"kernel-mode long phase: {time.perf_counter() - t0:.1f}s")
-    for tag, summary in summaries.items():
-        print(f"decode plan {tag} ({cfg.n_layers}L): {json.dumps(summary)}")
     del params
     t0 = time.perf_counter()
+    rows, summaries["moe kernel-mode long"] = moe_phase(dev, checked)
+    kernels += rows
+    print(f"moe phase: {time.perf_counter() - t0:.1f}s")
+    for tag, summary in summaries.items():
+        print(f"decode plan {tag}: {json.dumps(summary)}")
+    t0 = time.perf_counter()
     full_width_f32(dev)
+    moe_f32(dev)
     reduced_reference(dev)
     print(f"f32 and reduced checks: {time.perf_counter() - t0:.1f}s")
     print(f"total {time.perf_counter() - t_start:.1f}s")

@@ -11,6 +11,7 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 ARCHS = [
+    "granite_moe_1b_a400m",
     "qwen3_1_7b",
 ]
 

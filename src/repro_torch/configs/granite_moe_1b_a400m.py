@@ -1,0 +1,19 @@
+"""granite-moe-1b-a400m [hf:ibm-granite/granite-3.0-1b-a400m-base; hf]
+24L d_model=1024 16H (GQA kv=8) d_ff=512/expert, MoE 32e top-8, vocab 49155."""
+from dataclasses import replace
+from repro_torch.models.config import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    name="granite-moe-1b-a400m", family="moe",
+    n_layers=24, d_model=1024, n_heads=16, n_kv_heads=8,
+    d_ff=512, vocab=49155, act="swiglu", norm="rms",
+    moe=MoEConfig(n_experts=32, top_k=8, d_expert=512),
+    tie_embeddings=True,
+)
+
+def reduced() -> ModelConfig:
+    return replace(
+        CONFIG, name="granite-moe-smoke", n_layers=2, d_model=64, n_heads=4,
+        n_kv_heads=2, d_ff=32, vocab=256,
+        moe=MoEConfig(n_experts=4, top_k=2, d_expert=32),
+    )

@@ -28,7 +28,8 @@ translation:
   CUSTOM nodes tagged ``attrs["kernel"]`` with the reference kernel body
   they port (:data:`repro_torch.kernels.ops.KERNEL_TAGS`), the name the
   planner's registry knows them by, so they fuse with their neighbours
-  instead of partitioning the graph.
+  instead of partitioning the graph.  A multi-output kernel's ``.o{i}``
+  projections carry the same tag, as in the reference.
 """
 
 from __future__ import annotations
@@ -561,9 +562,14 @@ class _Translator:
             for i, o in enumerate(v):
                 if not isinstance(o, torch.Tensor):
                     continue
+                proj = {"prim": prim, "project": i}
+                if kernel is not None:
+                    # the projections carry the base's tag, so the registry
+                    # admits them as the reference's do
+                    proj["kernel"] = kernel
                 self.g.add(OpNode(f"{base}.o{i}", OpKind.CUSTOM,
                                   tuple(o.shape), dtype_name(o.dtype),
-                                  (base,), {"prim": prim, "project": i}))
+                                  (base,), proj))
             return base
         return self.add(stem, OpKind.CUSTOM, tuple(v.shape),
                         dtype_name(v.dtype), operands, attrs)

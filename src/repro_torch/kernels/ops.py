@@ -6,8 +6,9 @@ kernels and the plain oracles.
 
 * ``"kernels"`` — the hand-written kernels, the counterpart of the
   reference's ``"pallas"`` mode: RMSNorm, RoPE and SwiGLU/GeGLU in Triton,
-  decode attention in CUDA C++.  Each is a ``torch.library`` custom op, so
-  the tracer sees one node and tags it for the planner's registry; on the
+  decode attention, flash attention and the MoE router in CUDA C++.  Each
+  is a ``torch.library`` custom op, so the tracer sees one node (with a
+  projection per output) and tags it for the planner's registry; on the
   CPU the op runs its plain version.
 * ``"ref"`` — the plain-PyTorch oracles of :mod:`.ref`; the default.
 
@@ -30,9 +31,11 @@ from . import flash_attention as _flash
 from . import norms as _norms
 from . import ref as _ref
 from . import rope as _rope
+from . import router as _router
 
 __all__ = ["KernelMode", "get_mode", "kernel_mode", "rmsnorm", "swiglu",
-           "geglu", "rope", "attention", "decode_attention", "KERNEL_TAGS",
+           "geglu", "rope", "attention", "decode_attention", "topk_router",
+           "KERNEL_TAGS",
            "launch_counts", "launch_counts_by_signature", "reset_launch_counts"]
 
 KernelMode = Literal["kernels", "ref"]
@@ -41,7 +44,8 @@ _mode: contextvars.ContextVar[str] = contextvars.ContextVar("kernel_mode",
 
 # kernel modules by the name their launches are counted under
 _KERNELS = {"rmsnorm": _norms, "glu": _act, "rope": _rope,
-            "decode_attention": _decode, "flash_attention": _flash}
+            "decode_attention": _decode, "flash_attention": _flash,
+            "router": _router}
 
 # each custom op -> the reference kernel body it ports, the name the
 # planner's registry (kernels/registry.py) knows it by
@@ -51,6 +55,7 @@ KERNEL_TAGS = {
     torch.ops.repro_torch.rope.default: "_rope_kernel",
     torch.ops.repro_torch.decode_attention.default: "_decode_attn_kernel",
     torch.ops.repro_torch.flash_attention.default: "_flash_kernel",
+    torch.ops.repro_torch.topk_router.default: "_router_kernel",
 }
 
 
@@ -134,3 +139,10 @@ def decode_attention(q, k, v, positions, *, scale: float | None = None,
     :func:`repro_torch.models.layers.apply_attention`)."""
     return _decode.decode_attention(q, k, v, positions, scale=scale,
                                     window=window)
+
+
+def topk_router(logits, k: int, renormalize: bool = True):
+    """logits (T, E) -> (weights (T, k), ids (T, k) int32)."""
+    if _use_kernels():
+        return _router.topk_router(logits, k, renormalize)
+    return _ref.topk_router(logits, k, renormalize)

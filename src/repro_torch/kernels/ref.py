@@ -12,7 +12,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rmsnorm", "swiglu", "geglu", "rope", "attention"]
+__all__ = ["rmsnorm", "swiglu", "geglu", "rope", "attention", "topk_router"]
 
 
 def rmsnorm(x, gamma, eps: float = 1e-6):
@@ -75,3 +75,18 @@ def attention(q, k, v, *, causal: bool = True, scale: float | None = None,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vr.to(torch.float32))
     return out.to(q.dtype)
+
+
+def topk_router(logits, k: int, renormalize: bool = True):
+    """MoE router oracle: softmax over experts in f32, top k, optional
+    renormalisation.  logits (T, E) -> (weights (T, k) in the logits'
+    dtype, ids (T, k) int32).  Equal probabilities rank by the lower
+    expert index, as ``jax.lax.top_k`` and the reference's kernel rank
+    them: a stable descending sort, never ``torch.topk``, whose order
+    among ties is unspecified."""
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    weights, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, idx = weights[:, :k], idx[:, :k]
+    if renormalize:
+        weights = weights / torch.sum(weights, dim=-1, keepdim=True)
+    return weights.to(logits.dtype), idx.to(torch.int32)

@@ -1,5 +1,5 @@
 """Unified model interface: build a ported architecture from its config and
-get its init / prefill / decode callables.  Dense family only."""
+get its init / prefill / decode callables.  Dense and MoE families."""
 
 from __future__ import annotations
 
@@ -22,9 +22,9 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r} is not ported yet (dense and moe only)")
     return Model(
         cfg=cfg,
         init=lambda seed, device: lm.init_params(cfg, seed, device),

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense family.
+"""Decoder-only transformer LM, dense and MoE families.
 
 The layer loop is a Python loop over a list of per-layer parameter dicts,
 so tracing unrolls it exactly like the reference with ``scan_layers=False``.
@@ -15,8 +15,9 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import (Params, apply_attention, apply_mlp, apply_norm,
-                     init_attention, init_mlp, init_norm, torch_dtype)
+from .layers import (Params, apply_attention, apply_mlp, apply_moe,
+                     apply_norm, init_attention, init_mlp, init_moe, init_norm,
+                     torch_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -28,7 +29,8 @@ def init_layer(gen, cfg: ModelConfig, device) -> Params:
         "norm1": init_norm(cfg, device),
         "attn": init_attention(gen, cfg, device),
         "norm2": init_norm(cfg, device),
-        "mlp": init_mlp(gen, cfg, device),
+        "mlp": (init_moe(gen, cfg, device) if cfg.family == "moe"
+                else init_mlp(gen, cfg, device)),
     }
 
 
@@ -73,6 +75,11 @@ def _layer(h, lp: Params, cfg: ModelConfig, positions, cache=None,
                                    cache=cache, return_kv=return_kv)
     h = h + attn_out
     m_in = apply_norm(lp["norm2"], h, cfg)
+    if cfg.family == "moe":
+        # token rows through the MoE; serving drops its aux metrics
+        B, S, D = m_in.shape
+        y2d, _ = apply_moe(lp["mlp"], m_in.reshape(B * S, D), cfg)
+        return h + y2d.reshape(B, S, D), kv
     return h + apply_mlp(lp["mlp"], m_in, cfg), kv
 
 

@@ -265,6 +265,68 @@ def test_flash_attention_kernel_on_card(dtype, tol):
         fa.flash_attention_op(bad, kt, vt, 0.1)
 
 
+# (T, E, k): a granite decode step and its bucket-256 prefill, a ragged E
+# past one lane's column, the widest E the kernel takes
+ROUTER_CASES = [(4, 32, 8), (1024, 32, 8), (1000, 60, 4), (512, 64, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
+@pytest.mark.parametrize("renorm", [True, False])
+def test_router_kernel_on_card(renorm, dtype, tol):
+    """Ids equal the plain version's, weights within tolerance; exact ties
+    (bf16-rounded logits, and a row of equal logits) take the lowest
+    index."""
+    _need_card()
+    from repro_torch.kernels import router
+    for i, (T, E, k) in enumerate(ROUTER_CASES):
+        x = _rand((T, E), dtype, 10 + i)
+        if i == 1:
+            x = x.to(torch.bfloat16).to(x.dtype)
+            x[0] = 0.5
+        before = sum(router.launches.values())
+        w, ids = router.topk_router(x, k, renorm)
+        torch.cuda.synchronize()
+        assert sum(router.launches.values()) == before + 1
+        pw, pids = router.topk_router_plain(x, k, renorm)
+        torch.testing.assert_close(ids, pids, rtol=0, atol=0)
+        torch.testing.assert_close(w.float(), pw.float(), rtol=tol, atol=tol)
+        if i == 1:
+            assert ids[0].tolist() == list(range(k))
+    with pytest.raises(ValueError, match="contiguous"):
+        router.topk_router(_rand((32, 16), dtype).t(), 2)
+    with pytest.raises(ValueError, match="E <= 64"):
+        router.topk_router(_rand((4, 65), dtype), 2)
+
+
+@pytest.mark.gpu
+def test_reduced_granite_kernel_mode_on_card():
+    """Reduced granite in float32, served stitched in kernel mode: tokens
+    equal the eager ref-mode engine's, and the router kernel runs once a
+    layer in the prefill and in every decode step."""
+    _need_card()
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = replace(get_reduced("granite-moe-1b-a400m"), dtype="float32")
+    model = build_model(cfg)
+    params = model.init(0, "cuda")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (3, 7))
+    lens = np.array([7, 5, 6])
+    scfg = dict(batch=3, max_len=32, max_new_tokens=6)
+    ops.reset_launch_counts()
+    with ops.kernel_mode("kernels"):
+        eng = Engine(model, params, ServeConfig(**scfg, stitch_execute=True),
+                     device="cuda")
+        toks = eng.generate(prompts, prompt_lens=lens)
+    # one prefill call and five decode steps
+    assert ops.launch_counts()["router"] == 6 * cfg.n_layers
+    eager = Engine(model, params, ServeConfig(**scfg), device="cuda")
+    np.testing.assert_array_equal(toks, eager.generate(prompts,
+                                                       prompt_lens=lens))
+
+
 @pytest.mark.gpu
 def test_cuda_library_builds_from_an_empty_directory(tmp_path):
     _need_card()
@@ -273,7 +335,9 @@ def test_cuda_library_builds_from_an_empty_directory(tmp_path):
     libs = {p.stem: build.library(p.stem, out_dir=tmp_path)
             for p in build.CSRC.glob("*.cu")}
     assert all(path.parent == tmp_path for path in libs.values())
-    for stem in ("decode_attention", "flash_attention"):
+    for stem, fn in (("decode_attention", "repro_decode_attention"),
+                     ("flash_attention", "repro_flash_attention"),
+                     ("router", "repro_topk_router")):
         lib = ctypes.CDLL(str(libs[stem]))
-        assert hasattr(lib, f"repro_{stem}")
+        assert hasattr(lib, fn)
         assert "registers" in libs[stem].with_suffix(".log").read_text()

@@ -193,15 +193,19 @@ def test_registered_kernel_plan_equals_reference():
                for grp in port.groups)
 
 
-def _serve_both(prompts, lens, bucket, max_len):
+def _serve_both(prompts, lens, bucket, max_len, models=None,
+                modes=("pallas", "kernels")):
     """(reference pallas-mode run, port kernel-mode run, port kernel-mode
-    engine) of the same prompts: tokens, prefill logits, step logits."""
-    rmodel, rparams, model, params, _ = setup()
+    engine) of the same prompts: tokens, prefill logits, step logits.
+    ``models`` (reference model and params, port model and params) default
+    to the reduced qwen3 of :func:`setup`; ``modes`` are the reference's and
+    the port's kernel modes."""
+    rmodel, rparams, model, params = models or setup()[:4]
     steps = NEW_TOKENS - 1
     B = len(lens)
     padded = np.zeros((B, bucket), np.int32)
     padded[:, :prompts.shape[1]] = prompts
-    with ref_ops.kernel_mode("pallas"):
+    with ref_ops.kernel_mode(modes[0]):
         reng = RefEngine(rmodel, rparams, RefServeConfig(
             batch=B, max_len=max_len, max_new_tokens=NEW_TOKENS, paged=False))
         rlogits0, _ = jax.jit(lambda p, t, l: rmodel.prefill(p, t, true_len=l))(
@@ -222,7 +226,7 @@ def _serve_both(prompts, lens, bucket, max_len):
 
     scfg = ServeConfig(batch=B, max_len=max_len, max_new_tokens=NEW_TOKENS,
                        stitch_execute=True)
-    with ops.kernel_mode("kernels"):
+    with ops.kernel_mode(modes[1]):
         eng = Engine(model, params, scfg, device="cpu")
         logits0, _ = eng._prefill_exec(
             params, torch.as_tensor(padded).long(),

@@ -4,9 +4,10 @@ reference's Pallas kernels.
 On the CPU each kernel's custom op runs its plain version, so these tests
 hold the plain versions against the reference kernels run in interpret
 mode, on the same numpy inputs: RMSNorm, SwiGLU/GeGLU, RoPE, decode
-attention and flash attention, in float32 (rtol/atol 2e-4, the reference's own tolerance) and
-bfloat16 (1.6e-2: one bf16 rounding step of the outputs, which both sides
-cast from f32).  They also run ``torch.library.opcheck`` on the five custom
+attention and flash attention (the MoE router's are in
+``tests/test_torch_moe.py``), in float32 (rtol/atol 2e-4, the reference's
+own tolerance) and bfloat16 (1.6e-2: one bf16 rounding step of the outputs, which both sides
+cast from f32).  They also run ``torch.library.opcheck`` on the six custom
 ops, check the mode switch, and drive the CUDA build with a stand-in
 compiler.  The kernels themselves run only on the card
 (``tests/test_torch_gpu.py``).
@@ -30,7 +31,7 @@ from repro.kernels import norms as ref_norms
 from repro.kernels import rope as ref_rope
 from repro_torch.kernels import activations, build, decode_attention, norms, ops
 from repro_torch.kernels import flash_attention
-from repro_torch.kernels import ref, rope
+from repro_torch.kernels import ref, rope, router
 
 DTYPES = [("float32", 2e-4), ("bfloat16", 1.6e-2)]
 
@@ -198,6 +199,9 @@ def _op_cases():
          (t(2, 8, 4, 8, dtype=torch.bfloat16).transpose(1, 2),
           cache_k.to(torch.bfloat16).transpose(1, 2),
           cache_v.to(torch.bfloat16).transpose(1, 2), 0.35, False, 5, 0)),
+        ("topk_router", router.topk_router_op, (t(6, 32), 8, True)),
+        ("topk_router_bf16_no_renorm", router.topk_router_op,
+         (t(5, 12, dtype=torch.bfloat16), 3, False)),
     ]
 
 
@@ -211,7 +215,9 @@ def test_custom_op_opcheck(case):
     (norms, norms.rmsnorm_op), (activations, activations.glu_op),
     (rope, rope.rope_op), (decode_attention, decode_attention.decode_attention_op),
     (flash_attention, flash_attention.flash_attention_op),
-], ids=["rmsnorm", "glu", "rope", "decode_attention", "flash_attention"])
+    (router, router.topk_router_op),
+], ids=["rmsnorm", "glu", "rope", "decode_attention", "flash_attention",
+        "topk_router"])
 def test_cuda_launcher_takes_the_op_signature(mod, op):
     """The dispatcher drops an argument left at its default, so the CUDA
     implementation must declare the op's parameters with the same
@@ -254,11 +260,13 @@ def test_cpu_tensors_never_count_launches():
                              torch.randn(4, 8, 1, 16),
                              torch.zeros(4, dtype=torch.int32))
         ops.attention(x, x, x)
+        ops.topk_router(torch.randn(4, 8), 2)
     assert ops.launch_counts() == {"rmsnorm": 0, "glu": 0, "rope": 0,
-                                   "decode_attention": 0, "flash_attention": 0}
+                                   "decode_attention": 0, "flash_attention": 0,
+                                   "router": 0}
     assert ops.launch_counts_by_signature() == {
         "rmsnorm": {}, "glu": {}, "rope": {}, "decode_attention": {},
-        "flash_attention": {}}
+        "flash_attention": {}, "router": {}}
 
 
 def test_launch_signature_keys_shapes_dtypes_and_arguments():
@@ -319,6 +327,6 @@ def test_build_failure_raises_with_nvcc_output(tmp_path, monkeypatch):
 
 def test_csrc_sources_are_found():
     stems = {p.stem for p in build.CSRC.glob("*.cu")}
-    assert "decode_attention" in stems
+    assert {"decode_attention", "flash_attention", "router"} <= stems
     assert build.build_dir().parts[-2:] == ("build", "kernels")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

@@ -194,3 +194,44 @@ def test_serve_launcher_static_cpu(capsys):
                    "--prompt-len", "6", "--new-tokens", "3"])
     out = capsys.readouterr().out
     assert "tokens/s" in out and "triton_groups" in out
+
+
+@pytest.mark.parametrize("window", [None, 300])
+def test_chunked_causal_attention_matches_reference(window):
+    """Past 512 tokens the ref-mode prefill attends in 512-row q chunks, as
+    the reference's unrolled branch does (``use_scan=False``)."""
+    from repro.models.layers import _chunked_causal_attention as ref_chunked
+    from repro_torch.models.layers import _chunked_causal_attention
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((2, 1024, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 1024, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 1024, 2, 16)).astype(np.float32)
+    want = ref_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0.25,
+                       window, use_scan=False)
+    got = _chunked_causal_attention(torch.as_tensor(q), torch.as_tensor(k),
+                                    torch.as_tensor(v), 0.25, window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _traced_prefill(model, params, S):
+    g, _ = trace_to_graph(lambda p, t: model.prefill(p, t), params,
+                          torch.zeros((1, S), dtype=torch.long), name="prefill")
+    return g
+
+
+def test_ref_mode_prefill_past_512_tokens_is_chunked():
+    """At 1024 tokens no traced tensor is larger than one 512-row chunk of
+    the logits, (B, Hq, 512, S): the grouped einsum's batched GEMM holds it
+    as (B*Hkv, group*512, S).  The logits equal the reference's.  At 512
+    tokens the prefill still takes the one-shot oracle, whose logits are
+    (B, Hq, S, S)."""
+    rmodel, rparams, _, model, params, _ = setup()
+    Hq = model.cfg.n_heads
+    g = _traced_prefill(model, params, 1024)
+    assert max(n.size for n in g.nodes.values()) == Hq * 512 * 1024
+    g = _traced_prefill(model, params, 512)
+    assert any(tuple(n.shape) == (1, Hq, 512, 512) for n in g.nodes.values())
+    toks = np.random.default_rng(12).integers(0, model.cfg.vocab, (1, 1024))
+    want, _ = jax.jit(rmodel.prefill)(rparams, jnp.asarray(toks))
+    got, _ = model.prefill(params, torch.as_tensor(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
