@@ -9,9 +9,9 @@ result line):
    planted-fault copies from an empty ``build/kernels``, one nvcc each, all
    started together, with each one's build seconds and ptxas report.
 1. Sample kernels: generated Triton stitched kernels for a softmax, an
-   RMSNorm chain and a SwiGLU chain, and the six hand-written kernels
+   RMSNorm chain and a SwiGLU chain, and the seven hand-written kernels
    (RMSNorm, SwiGLU/GeGLU, RoPE, decode attention, flash attention, the MoE
-   router) at sample shapes, each held against its plain PyTorch version on
+   router, the selective scan) at sample shapes, each held against its plain PyTorch version on
    the card (the router's ids exactly on rows without a near tie, ties to
    the lowest index).
 2. Ref-mode path: full-width qwen3-1.7b (random weights from a seed)
@@ -51,17 +51,31 @@ result line):
    ref-mode engine over several weight seeds; then (with the float32
    checks) the model cut to 4 layers in float32, with a fault planted in
    the router kernel.
+6. ssm phase (after the MoE phase): the scan kernel at sample shapes (with
+   phase 1's samples: f32, bf16, and f32 with B and C as strided views);
+   full-width falcon-mamba-7b (64 layers, random weights from a seed)
+   scored in kernel mode through ``stitch(train_forward)`` at 4 x 256
+   tokens: exactly 64 scan and 65 RMSNorm launches a call and no other
+   hand-written kernel, the call's ms, tokens/s, device busy and peak
+   memory, every kernel of the path against its plain version (the scan
+   beside its bound, whose term is the SFU's exponentials); then
+   ``stitch(block_fn)`` on layer 0 (one scan launch a call); bf16 loss and
+   block output against the eager ref-mode model over several weight
+   seeds; then (with the float32 checks) the model cut to 4 layers in
+   float32, with a fault planted in the scan kernel.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import json
 import re
 import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -98,7 +112,10 @@ LOGIT_TOL = 0.025
 # between kv tiles) reads 0.60 and 0.93.  granite-moe-1b-a400m (4 layers,
 # kernel mode, bucket 256, the router kernel in every layer): prefill
 # 9.5e-7 to 1.13e-6, first step 6.5e-7 to 6.9e-7 over 5 seeds; the router
-# fault (the chosen column not masked) reads 0.93 and 1.10.
+# fault (the chosen column not masked) reads 0.93 and 1.10.  falcon-mamba-7b
+# (4 layers, kernel mode, the scan kernel in every layer): loss 0 to 1.7e-7,
+# block_fn output 2.8e-7 to 4.5e-7 over 5 seeds; the scan fault (the state
+# restarts at every chunk of 16 steps) reads 0.105 in the block check.
 F32_LOGIT_TOL = 1e-5
 # kernel mode (the hand-written kernels) against the eager ref-mode decode,
 # full width in bf16: besides the rounding noise above, the decode-attention
@@ -448,7 +465,8 @@ def group_inputs(compiled, inputs):
     env = {n: source_value(node, inputs, device)
            for n, node in g.nodes.items() if node.is_source()}
     seen, per_call, hand = {}, {}, {}
-    for grp, members in zip(compiled._order, compiled._members_topo):
+    for grp, members, dead in zip(compiled._order, compiled._members_topo,
+                                  compiled._free_after):
         if grp.kind == "triton":
             k = grp.tuned.callable
             args = [env[i] for i in k.pattern.external_inputs]
@@ -468,6 +486,10 @@ def group_inputs(compiled, inputs):
                            node.attrs["params_sig"])
                     hand.setdefault(key, [node, args, 0])[2] += 1
                 env[nm] = eval_node(node, args, g)
+        # values die after their last use, as in the executor: a 64-layer
+        # plan's values would not fit on the card together
+        for nm in dead:
+            env.pop(nm, None)
     return seen, per_call, hand
 
 
@@ -583,13 +605,15 @@ def path_inputs(eng, params, prompts, run, dev):
     return pre, dec, dec_in
 
 
-def stitched_rows(pre, dec, counts, tag, checked):
-    """Every generated kernel of the two plans not checked yet: held
+def stitched_rows(parts, counts, tag, checked):
+    """Every generated kernel of the path's plans not checked yet: held
     against its plain version, timed, and its launches in this path's run
-    (fatal when a kernel of the path was never launched)."""
+    (fatal when a kernel of the path was never launched).  ``parts`` are
+    (what a call is, the plan's ``group_inputs``)."""
     rows = []
-    seen = dict(pre[0])
-    seen.update(dec[0])
+    seen = {}
+    for _, res in parts:
+        seen.update(res[0])
     for digest, (k, args) in seen.items():
         n = counts.get(digest, 0)
         if n <= 0:
@@ -605,7 +629,7 @@ def stitched_rows(pre, dec, counts, tag, checked):
         rows.append(row)
     print(f"{tag} path kernels: {len(seen)} distinct generated kernels, "
           f"{len(rows)} new")
-    for what, per_call in (("prefill call", pre[1]), ("decode step", dec[1])):
+    for what, (_, per_call, _) in parts:
         agg = {key: sum(n * checked[d][key] for d, n in per_call.items())
                for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
         print(f"{tag} stitched kernels per {what}: kernels={len(per_call)} "
@@ -716,7 +740,8 @@ def serve_phase(dev, model, params, lens, prompts, checked):
     if sum(run["counts"].values()) <= 0:
         fail("no Triton stitched launch on the ref-mode path")
     pre, dec, dec_in = path_inputs(eng, params, prompts, run, dev)
-    kernels = stitched_rows(pre, dec, run["counts"], "ref-mode", checked)
+    kernels = stitched_rows([("prefill call", pre), ("decode step", dec)],
+                            run["counts"], "ref-mode", checked)
     summary = plan_summary(eng, run, dec_in)
     del pre, dec, dec_in, run
 
@@ -769,21 +794,30 @@ HAND = {
                       "src/repro/kernels/flash_attention.py:94"),
     "_router_kernel": ("router", "cuda", "src/repro_torch/csrc/router.cu",
                        "src/repro/kernels/router.py:50"),
+    "_mamba_kernel": ("mamba_scan", "cuda", "src/repro_torch/csrc/mamba_scan.cu",
+                      "src/repro/kernels/mamba_scan.py:52"),
 }
 # elementwise operations per output element (the bound's operation count)
 HAND_OPS = {"_rmsnorm_kernel": 4, "_glu_kernel": 5, "_rope_kernel": 6}
 
 
-def expected_launches(cfg, bucket: int) -> tuple[dict, dict]:
+def expected_launches(cfg, bucket: int | None = None) -> tuple[dict, dict]:
     """Hand-written kernel launches per decode step and per prefill call,
     from the config: 2 norms a layer (4 with qk-norm) + the final one, 2
     rotaries and 1 GLU a layer (the experts' GLU in a MoE layer), the router
     once a MoE layer, decode attention once a layer on decode only, flash
-    attention once a layer on a prefill whose bucket is a multiple of 128."""
+    attention once a layer on a prefill whose bucket is a multiple of 128.
+    The ssm family scores and does not serve: both are then one scoring
+    call's (``train_forward``), a norm and a scan a layer and the final
+    norm, nothing else."""
     L = cfg.n_layers
+    if cfg.family == "ssm":
+        call = {name: 0 for name, *_ in HAND.values()}
+        call.update(rmsnorm=L + 1, mamba_scan=L)
+        return call, call
     step = {"rmsnorm": (4 if cfg.qk_norm else 2) * L + 1, "rope": 2 * L,
             "glu": L, "decode_attention": L, "flash_attention": 0,
-            "router": L if cfg.family == "moe" else 0}
+            "router": L if cfg.family == "moe" else 0, "mamba_scan": 0}
     return step, dict(step, decode_attention=0,
                       flash_attention=L if bucket % 128 == 0 else 0)
 
@@ -791,13 +825,17 @@ def expected_launches(cfg, bucket: int) -> tuple[dict, dict]:
 # planted faults in the CUDA sources: (sound text, planted text).  Decode
 # attention drops the row's own key (kpos < pos); flash attention leaves acc
 # unrescaled when a later kv tile raises the row max; the router does not
-# mask the column a round chose, so each row picks its top expert k times
+# mask the column a round chose, so each row picks its top expert k times;
+# the selective scan's state restarts at every staged chunk of time steps
 FAULTS = {
     "decode_attention": ("const int hi = min(p, smax - 1);",
                          "const int hi = min(p - 1, smax - 1);"),
     "flash_attention": ("#pragma unroll\n      for (int j = 0; j < DPT; ++j) "
                         "acc[i][j] *= alpha;\n", ""),
     "router": ("if (lane + 32 * j == bi) p[j] = -1.0f;", ""),
+    "mamba_scan": ("const int steps = min(kChunk, L - t0);",
+                   "const int steps = min(kChunk, L - t0);\n"
+                   "    for (int n = 0; n < kMaxState; ++n) h[n] = 0.f;"),
 }
 
 
@@ -845,13 +883,14 @@ def build_phase() -> float:
 
 def hand_plain(tag):
     from repro_torch.kernels import activations, decode_attention, norms, rope
-    from repro_torch.kernels import flash_attention, router
+    from repro_torch.kernels import flash_attention, mamba_scan, router
     return {"_rmsnorm_kernel": norms.rmsnorm_plain,
             "_glu_kernel": activations.glu_plain,
             "_rope_kernel": rope.rope_plain,
             "_decode_attn_kernel": decode_attention.decode_attention_plain,
             "_flash_kernel": flash_attention.flash_attention_plain,
-            "_router_kernel": router.topk_router_plain}[tag]
+            "_router_kernel": router.topk_router_plain,
+            "_mamba_kernel": mamba_scan.mamba_scan_plain}[tag]
 
 
 def router_compare(name, x, k, out, ref) -> dict:
@@ -973,6 +1012,7 @@ def hand_samples(dev):
     print(f"hand-written kernel samples vs plain: "
           + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
     router_samples(rnd)
+    scan_samples(rnd)
     # RoPE in f32 against the rotation computed in f64 from exact angles:
     # how far the kernel and its plain version each are from exact
     x, pos, theta, hd = next(a for n, _, _, a in cases
@@ -1024,6 +1064,44 @@ def router_samples(rnd):
               for n, v in stats.items()))
 
 
+# selective-scan samples (Bb, L, Dm, N): falcon-mamba-7b's scoring shape, one
+# step, a ragged L, the reduced config's N, several staged chunks of 16 steps
+SCAN_SAMPLES = [(4, 256, 8192, 16), (1, 1, 8192, 16), (2, 33, 128, 16),
+                (2, 48, 64, 8), (1, 700, 512, 16)]
+
+
+def scan_samples(rnd):
+    """The selective-scan kernel against its plain version at the sample
+    shapes, x and delta in f32 and in bf16, and in f32 with B and C as
+    strided column views of one projection, as the model hands them (a
+    row stride of dt_rank + 2N)."""
+    from repro_torch.kernels import mamba_scan
+    errs = {}
+    for Bb, L, Dm, N in SCAN_SAMPLES:
+        for dt, strided in ((torch.float32, False), (torch.bfloat16, False),
+                            (torch.float32, True)):
+            x = rnd(Bb, L, Dm, dtype=dt)
+            delta = F.softplus(rnd(Bb, L, Dm, dtype=torch.float32) - 1.0).to(dt)
+            A = -torch.arange(1, N + 1, dtype=torch.float32,
+                              device=x.device).repeat(Dm, 1)
+            dbc = 0.5 * rnd(Bb, L, 256 + 2 * N, dtype=torch.float32)
+            B, C = dbc[..., 256:256 + N], dbc[..., 256 + N:]
+            if not strided:
+                B, C = B.contiguous(), C.contiguous()
+            D = rnd(Dm, dtype=torch.float32)
+            name = (f"scan_{str(dt).replace('torch.', '')}_{Bb}x{L}x{Dm}x{N}"
+                    + ("_strided_bc" if strided else ""))
+            out = mamba_scan.mamba_scan_op(x, delta, A, B, C, D)
+            torch.cuda.synchronize()
+            ref = mamba_scan.mamba_scan_plain(x, delta, A, B, C, D)
+            errs[name] = max_err((out,), (ref,))
+            if not within((out,), (ref,)):
+                fail(f"scan kernel {name} disagrees with its plain version "
+                     f"(max err {errs[name]})")
+    print("scan kernel samples vs plain (f32 2e-5, bf16 1.6e-2): "
+          + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
+
+
 def rope_f64(x, pos, theta, head_dim):
     """``rope_op``'s rotation in f64 from the exact angles."""
     half = head_dim // 2
@@ -1073,7 +1151,23 @@ def hand_library(tag, args):
     return None
 
 
-def hand_bound(tag, args, out) -> tuple[float, str]:
+@functools.lru_cache(maxsize=None)
+def sfu_rate() -> tuple[float, str]:
+    """Exponentials a second on this card: the SFU's 16 results a clock per
+    SM (the arithmetic-instruction throughput table of NVIDIA's CUDA C++
+    documentation, compute capability 9.0) x the SMs x the card's maximum
+    SM clock from nvidia-smi; and the sentence saying so."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = 16 * sms * mhz * 1e6
+    return rate, (f"SFU: 16 exp a clock per SM x {sms} SMs x {mhz:.0f} MHz "
+                  f"(clocks.max.sm) = {rate:.4g} exp/s")
+
+
+def hand_bound(tag, args, out) -> tuple[float, str, str]:
     """Least time for the kernel's work on this run's data: each input read
     once and the output written once over the memory rate, or its
     operations over the rate for their type, whichever is larger.
@@ -1082,10 +1176,15 @@ def hand_bound(tag, args, out) -> tuple[float, str]:
     QK^T and PV products count the valid (query, key) pairs, at the bf16
     tensor-core rate for bf16 inputs and the f32 rate for f32 ones; the
     router counts its softmax (5 operations a logit) and k rounds of a
-    compare and a select per logit, at the f32 rate."""
+    compare and a select per logit, at the f32 rate; the selective scan
+    counts one exponential a state element a step at the SFU's rate
+    (:func:`sfu_rate`) and 5 other f32 operations (two products, a fused
+    multiply-add for the update, one for the sum over n) at the f32 rate.
+    Returns (ms, "bytes" or "operations", the bounding term)."""
     def nbytes(t):
         return t.numel() * t.element_size()
-    rate = F32_PEAK
+    rate, kind = F32_PEAK, "f32"
+    extra = 0.0
     if tag == "_router_kernel":
         x, k, _ = args
         b = nbytes(x) + sum(nbytes(o) for o in out)
@@ -1103,7 +1202,7 @@ def hand_bound(tag, args, out) -> tuple[float, str]:
         b = nbytes(qt) + nbytes(kt) + nbytes(vt) + nbytes(out)
         ops = 4 * B * hq * int(valid.sum()) * dh
         if qt.dtype == torch.bfloat16:
-            rate = BF16_PEAK
+            rate, kind = BF16_PEAK, "bf16 tensor cores"
     elif tag == "_decode_attn_kernel":
         pos, qt, kt, vt, scale, *rest = args    # window defaults to None
         window = rest[0] if rest else None
@@ -1115,22 +1214,32 @@ def hand_bound(tag, args, out) -> tuple[float, str]:
         b = (2 * keys * hkv * dh * kt.element_size() + nbytes(qt)
              + nbytes(pos) + nbytes(out))
         ops = 4 * qt.shape[1] * dh * keys
+    elif tag == "_mamba_kernel":
+        x, delta, A, B, C, D = args
+        elems = x.numel() * A.shape[1]          # state elements x steps
+        b = sum(nbytes(a) for a in args) + nbytes(out)
+        ops = 5 * elems
+        extra = elems / sfu_rate()[0]
     else:
         b = sum(nbytes(a) for a in args if isinstance(a, torch.Tensor)) \
             + nbytes(out)
         ops = HAND_OPS[tag] * out.numel()
-    tb, to = b / HBM_BW, ops / rate
-    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+    terms = {"bytes": b / HBM_BW, kind: ops / rate, "exp (SFU)": extra}
+    term = max(terms, key=terms.get)
+    return (terms[term] * 1e3, "bytes" if term == "bytes" else "operations",
+            term)
 
 
 def launch_signature(name, node, tensors) -> tuple:
     """The key the kernel's launcher counts a launch of ``node`` under
     (``build.signature`` of its arguments, defaults filled in)."""
     from repro_torch.kernels import activations, build, decode_attention
-    from repro_torch.kernels import flash_attention, norms, rope, router
+    from repro_torch.kernels import flash_attention, mamba_scan, norms, rope
+    from repro_torch.kernels import router
     launcher = {"rmsnorm": norms, "glu": activations, "rope": rope,
                 "decode_attention": decode_attention,
-                "flash_attention": flash_attention, "router": router}[name]._launch
+                "flash_attention": flash_attention, "router": router,
+                "mamba_scan": mamba_scan}[name]._launch
     _, args, kwargs = op_call(node, tensors)
     return build.signature(*all_args(launcher, args, kwargs))
 
@@ -1144,22 +1253,27 @@ def all_args(fn, args, kwargs) -> list:
     return list(bound.arguments.values())
 
 
-def hand_rows(pre, dec, steps, run, path):
-    """Every hand-written kernel launch signature of the two plans (shapes,
-    dtypes and other arguments), on its main-path operands: held against
-    the plain version and timed.  Its launches are the ones its launcher
-    counted under that signature in the measured run; they must equal the
-    plans' nodes of that signature times the calls of the run, and no
-    launch of the run may have a signature outside the plans."""
+def hand_rows(parts, path):
+    """Every hand-written kernel launch signature of the path's plans
+    (shapes, dtypes and other arguments), on its main-path operands: held
+    against the plain version and timed.  ``parts`` are (what a call is,
+    the plan's ``group_inputs``, its calls in the measured run, the
+    launches by kernel and signature the run counted in those calls).  A
+    signature's launches must equal the plans' nodes of that signature
+    times their calls, and no launch of the run may have a signature
+    outside the plans."""
     plans = {}
-    for hand, calls in ((pre[2], 1), (dec[2], steps)):
-        for (tag, *_), (node, tensors, n) in hand.items():
+    for _, res, calls, _ in parts:
+        for (tag, *_), (node, tensors, n) in res[2].items():
             name = HAND[tag][0]
             key = (name, launch_signature(name, node, tensors))
             plans.setdefault(key, [tag, node, tensors, 0])[3] += n * calls
-    total, prefill = run["hand_total_sig"], run["hand_prefill_sig"]
-    measured = {(name, sig): n for name, c in total.items()
-                for sig, n in c.items()}
+    measured, per_part = {}, {}
+    for what, _, calls, sig in parts:
+        for name, c in sig.items():
+            for s, n in c.items():
+                measured[name, s] = measured.get((name, s), 0) + n
+                per_part[what, name, s] = n / calls
     if set(measured) != set(plans):
         fail(f"hand-written kernels launched at signatures "
              f"{sorted(map(str, set(measured) - set(plans)))} outside the "
@@ -1168,6 +1282,10 @@ def hand_rows(pre, dec, steps, run, path):
     if measured != derived:
         fail(f"hand-written kernel launches by signature {measured} != the "
              f"plans' nodes times their calls {derived}")
+
+    def field(what):
+        return "launches_per_" + what.replace(" ", "_")
+
     rows = {}
     for key, (tag, node, tensors, _) in sorted(
             plans.items(), key=lambda kv: (kv[0][0], -measured[kv[0]])):
@@ -1208,34 +1326,34 @@ def hand_rows(pre, dec, steps, run, path):
                      f"version (max err {lib_err})")
             lib_ms = timed(lib, 50)
             lib_dev_ms = device_ms(lib)
-        bound_ms, bound_by = hand_bound(tag, full, out)
+        bound_ms, bound_by, term = hand_bound(tag, full, out)
         tensor_sig = [a for a in sig if isinstance(a, tuple)]
         shapes = ",".join("x".join(map(str, s)) for s, _ in tensor_sig)
         dt = next(d for _, d in tensor_sig if "float" in d).replace("torch.", "")
-        n_prefill = prefill[name].get(sig, 0)
-        rows[key] = {"name": f"{name}[{shapes},{dt}]", "path": path,
-                     "route": route, "source": source, "replaces": replaces,
-                     "launches": measured[key],
-                     "launches_prefill_call": n_prefill,
-                     "launches_per_decode_step": (measured[key] - n_prefill)
-                     / steps,
-                     "max_abs_err": err,
-                     "ms": timed(run_op, 50), "device_ms": device_ms(run_op),
-                     "plain_ms": timed(lambda: plain(*args, **kwargs), 20),
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
-                     "library_max_abs_err": lib_err, **extra}
+        row = {"name": f"{name}[{shapes},{dt}]", "path": path,
+               "route": route, "source": source, "replaces": replaces,
+               "launches": measured[key]}
+        for what, *_ in parts:
+            row[field(what)] = per_part.get((what, *key), 0)
+        rows[key] = dict(row, **{
+            "max_abs_err": err,
+            "ms": timed(run_op, 50), "device_ms": device_ms(run_op),
+            "plain_ms": timed(lambda: plain(*args, **kwargs), 20),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_term": term,
+            "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+            "library_max_abs_err": lib_err, **extra})
     for name, *_ in HAND.values():
-        for what, field in (("decode step", "launches_per_decode_step"),
-                            ("prefill call", "launches_prefill_call")):
-            mine = [(r, r[field]) for (nm, _), r in rows.items()
-                    if nm == name and r[field]]
+        for what, *_ in parts:
+            mine = [(r, r[field(what)]) for (nm, _), r in rows.items()
+                    if nm == name and r[field(what)]]
             agg = {f: sum(n * r[f] for r, n in mine)
                    for f in ("ms", "device_ms", "plain_ms", "bound_ms")}
             for lib in ("library", "chain"):
                 if mine and all(r.get(f"{lib}_ms") is not None for r, _ in mine):
                     for f in (f"{lib}_ms", f"{lib}_device_ms"):
                         agg[f] = sum(n * r[f] for r, n in mine)
+            if not mine and not any(nm == name for nm, _ in rows):
+                continue
             print(f"{path} {name} per {what}: "
                   f"launches={sum(n for _, n in mine):g} "
                   + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
@@ -1275,8 +1393,13 @@ def serve_kernel_mode(dev, model, params, lens, prompts, max_len, tag,
             fail(f"{tag} decode launched {k} {decode_counts[k]} times in "
                  f"{steps} steps, expected {n} a step")
     pre, dec, dec_in = path_inputs(eng, params, prompts, run, dev)
-    kernels = stitched_rows(pre, dec, run["counts"], tag, checked)
-    kernels += hand_rows(pre, dec, steps, run, tag)
+    parts = [("prefill call", pre), ("decode step", dec)]
+    kernels = stitched_rows(parts, run["counts"], tag, checked)
+    prefill_sig = run["hand_prefill_sig"]
+    decode_sig = {k: dict(Counter(c) - Counter(prefill_sig[k]))
+                  for k, c in run["hand_total_sig"].items()}
+    kernels += hand_rows([("prefill call", pre, 1, prefill_sig),
+                          ("decode step", dec, steps, decode_sig)], tag)
     summary = plan_summary(eng, run, dec_in)
     return eng, kernels, summary
 
@@ -1476,6 +1599,242 @@ def moe_f32(dev):
         fail("moe 4-layer f32 kernel-mode logits disagree with eager")
     if not min(planted) > F32_LOGIT_TOL:
         fail("the f32 logit check missed the planted router fault")
+
+
+SSM_ARCH = "falcon-mamba-7b"
+# the scoring batch: 4 windows of 256 tokens, as a log-likelihood task's
+# candidates, a reranker's passages or a perplexity filter's crawled text
+SCORE_BATCH = (4, 256)
+SCORE_CALLS = 5           # measured scoring calls after the first
+BLOCK_CALLS = 3           # measured block_fn calls after the first
+# the ssm phase in bf16 (64 layers): the stitched kernel-mode loss against
+# the eager ref-mode model's (the oracle loop) as |diff| / |eager loss|, and
+# the layer-0 block_fn output as rel_diff.  The stitched plan computes the
+# dots in f32 where eager rounds them to bf16 (the widening-convert fold),
+# and 64 layers carry that noise to the loss.  Readings over 3 seeds on an
+# H100: loss 2.64e-4 to 4.06e-4, block 2.24e-3 to 2.76e-3; each limit is
+# 1.35x its largest reading, rounded up.  A loss over 1024 tokens moves
+# little under a wrong scan, so the block check, per element, and the f32
+# check below (where the planted scan fault reads 0.105) are the gates.
+SSM_TOL = {"loss": 5.5e-4, "block": 3.8e-3}
+
+
+def score_batch(cfg, seed, dev):
+    """Tokens and labels (B, S) from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return {k: torch.as_tensor(rng.integers(0, cfg.vocab, SCORE_BATCH),
+                               device=dev) for k in ("tokens", "labels")}
+
+
+def block_input(cfg, seed, dev):
+    """A block's input (B, S, d_model) in the compute dtype: unit normal, the
+    scale of a normed hidden state."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((*SCORE_BATCH, cfg.d_model), generator=gen, device=dev)
+    return x.to(getattr(torch, cfg.dtype))
+
+
+def measured_calls(sf, args, calls):
+    """The main-path run of a stitched function: every launch count is
+    zeroed just before ``calls`` calls and read just after; each call is
+    timed on the host around a synchronize."""
+    from repro_torch.kernels import ops, stitched
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stitched.reset_launch_counts()
+    ops.reset_launch_counts()
+    times, out = [], None
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        out = sf(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"out": out, "ms": times, "counts": stitched.launch_counts(),
+            "hand": ops.launch_counts(),
+            "hand_sig": ops.launch_counts_by_signature(),
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def stitched_call(tag, fn, args, dev):
+    """``stitch(fn)`` in kernel mode, its first call (trace, plan, kernel
+    builds) timed, and its plan line."""
+    from repro_torch.core import StitchCompiler
+    from repro_torch.exec import stitch
+    from repro_torch.kernels import ops
+    with ops.kernel_mode("kernels"):
+        sf = stitch(fn, device=dev, compiler=StitchCompiler(plan_budget=20.0),
+                    name=tag.replace(" ", "_"))
+        t0 = time.perf_counter()
+        sf(*args)
+        torch.cuda.synchronize()
+    print(f"{tag} first call: {time.perf_counter() - t0:.1f}s (trace + plan "
+          f"+ kernel builds)")
+    plan_line(tag, sf.report(), sf.compiled)
+    return sf
+
+
+def ssm_phase(dev, checked):
+    """Full-width falcon-mamba-7b (64 layers, random weights from a seed)
+    scored in kernel mode through ``stitch(train_forward)`` at 4 x 256
+    tokens: the scan kernel and the RMSNorm kernel in every layer, exactly
+    64 / 65 launches a call; every kernel of the path against its plain
+    version and timed.  Then ``stitch(block_fn)`` on layer 0 (one scan
+    launch a call).  Then, over several weight seeds, the bf16 loss and the
+    layer-0 block output against the eager ref-mode model."""
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.mamba import _dims
+    cfg = get_config(SSM_ARCH)
+    model = build_model(cfg)
+    s, dm, dtr = _dims(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    print(f"init {cfg.name}: {cfg.n_layers}L d_model={cfg.d_model} "
+          f"d_inner={dm} d_state={s.d_state} d_conv={s.d_conv} dt_rank={dtr} "
+          f"vocab={cfg.vocab} params={n / 1e9:.4f}B measured "
+          f"({n * 4 / 1e9:.2f} GB f32; ModelConfig.param_count "
+          f"{cfg.param_count() / 1e9:.4f}B leaves out the conv bias, "
+          f"{n - cfg.param_count()}) in {time.perf_counter() - t0:.1f}s")
+    tag = "ssm score"
+    batch = score_batch(cfg, SEED, dev)
+    sf = stitched_call(tag, model.train_forward, (params, batch), dev)
+    run = measured_calls(sf, (params, batch), SCORE_CALLS)
+    loss = run["out"][0]
+    ms = float(np.median(run["ms"]))
+    t1 = time.perf_counter()
+    busy = device_busy_ms(lambda: sf(params, batch))
+    wall = (time.perf_counter() - t1) * 1e3
+    tokens = SCORE_BATCH[0] * SCORE_BATCH[1]
+    print(f"{tag}: loss={float(loss):.6f} call_ms={ms:.2f} (median of "
+          f"{[round(t, 2) for t in run['ms']]}) tokens_per_s={tokens / ms * 1e3:.1f} "
+          f"peak_mem_gb={run['peak'] / 2**30:.2f} "
+          f"stitched_launches={sum(run['counts'].values())} "
+          f"hand_launches={run['hand']}")
+    print(f"{tag} call device busy: {busy} ms of {wall:.2f} ms wall (profiled)")
+    if loss.shape != () or not bool(torch.isfinite(loss)) or float(loss) <= 0:
+        fail(f"{tag} loss malformed: {loss}")
+    if sf.report()["calls"]["fallback"]:
+        fail(f"{tag} fell back to eager")
+    per_call, _ = expected_launches(cfg)
+    want = {k: v * SCORE_CALLS for k, v in per_call.items()}
+    if run["hand"] != want:
+        fail(f"{tag}: {SCORE_CALLS} calls launched {run['hand']}, expected {want}")
+    res = group_inputs(sf.compiled, spec_inputs(sf, (params, batch)))
+    kernels = stitched_rows([("scoring call", res)], run["counts"], tag, checked)
+    kernels += hand_rows([("scoring call", res, SCORE_CALLS, run["hand_sig"])],
+                         tag)
+    del res
+    plan = sf.report()["plan"]
+    print(f"score plan {tag}: " + json.dumps({
+        "n_ops": plan["n_ops"], "n_kernels": plan["n_kernels"],
+        "triton_groups": plan["triton_groups"],
+        "torch_groups": plan["torch_groups"], "op_groups": plan["op_groups"],
+        "ilp": plan["ilp_method"],
+        "compile_s": round(plan["compile_seconds"] + plan["trace_seconds"], 2),
+        "call_ms": round(ms, 2), "tokens_per_s": round(tokens / ms * 1e3, 1),
+        "device_busy_ms": busy, "peak_mem_gb": round(run["peak"] / 2**30, 2)}))
+
+    btag = "ssm block"
+    lp, x = model.layer_params(params, 0), block_input(cfg, SEED, dev)
+    bf = stitched_call(btag, model.block_fn, (lp, x), dev)
+    brun = measured_calls(bf, (lp, x), BLOCK_CALLS)
+    print(f"{btag}: call_ms={float(np.median(brun['ms'])):.2f} (median of "
+          f"{[round(t, 2) for t in brun['ms']]}) hand_launches={brun['hand']}")
+    want = {k: (BLOCK_CALLS if k == "mamba_scan" else 0) for k in brun["hand"]}
+    if brun["hand"] != want:
+        fail(f"{btag}: {BLOCK_CALLS} calls launched {brun['hand']}, expected "
+             f"{want}")
+    bres = group_inputs(bf.compiled, spec_inputs(bf, (lp, x)))
+    kernels += stitched_rows([("block call", bres)], brun["counts"], btag,
+                             checked)
+    kernels += hand_rows([("block call", bres, BLOCK_CALLS, brun["hand_sig"])],
+                         btag)
+    del bres, brun, run
+
+    readings = {"loss": [], "block": []}
+    for s in range(LOGIT_SEEDS):
+        if s:
+            # the old weights go first: two 29 GB copies do not fit beside
+            # the activations
+            params = lp = None
+            torch.cuda.empty_cache()
+            params = model.init(SEED + s, dev)
+            lp = model.layer_params(params, 0)
+        b, xs = score_batch(cfg, SEED + s, dev), block_input(cfg, SEED + s, dev)
+        st, ea = float(sf(params, b)[0]), float(model.train_forward(params, b)[0])
+        readings["loss"].append(abs(st - ea) / abs(ea))
+        readings["block"].append(rel_diff(bf(lp, xs).float(),
+                                          model.block_fn(lp, xs).float()))
+        print(f"{tag} bf16 vs ref-mode eager ({cfg.n_layers}L, seed "
+              f"{SEED + s}): loss {st:.6f} vs {ea:.6f} rel={readings['loss'][-1]:.6g} "
+              f"block_fn layer 0 rel={readings['block'][-1]:.6g}")
+    print(f"{tag} bf16: tol={SSM_TOL} sound max loss="
+          f"{max(readings['loss']):.6g} block={max(readings['block']):.6g}")
+    if not all(np.isfinite(r) and r <= SSM_TOL[what]
+               for what, rs in readings.items() for r in rs):
+        fail(f"{tag} bf16 readings disagree with the ref-mode eager model")
+    return kernels
+
+
+def ssm_f32(dev):
+    """falcon-mamba-7b at full width, cut to 4 layers, in float32: the
+    kernel-mode scoring loss and layer-0 block output against the eager
+    ref-mode model over several weight seeds; then the same with a fault
+    planted in the scan kernel (its state restarts at every staged chunk),
+    which the block check must see."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mamba_scan, ops
+    from repro_torch.models import build_model
+    cfg = replace(get_config(SSM_ARCH), n_layers=4, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(SEED, dev)
+    sf = bf = None
+    readings, ref0 = [], None
+    for s in range(F32_SEEDS):
+        if s:
+            params = model.init(SEED + s, dev)
+        b = score_batch(cfg, SEED + 1 + s, dev)
+        x = block_input(cfg, SEED + 1 + s, dev)
+        lp = model.layer_params(params, 0)
+        if sf is None:
+            sf = stitched_call("ssm 4-layer f32 score", model.train_forward,
+                               (params, b), dev)
+            bf = stitched_call("ssm 4-layer f32 block", model.block_fn,
+                               (lp, x), dev)
+            ops.reset_launch_counts()
+        ea, ey = float(model.train_forward(params, b)[0]), model.block_fn(lp, x)
+        readings.append((abs(float(sf(params, b)[0]) - ea) / abs(ea),
+                         rel_diff(bf(lp, x), ey)))
+        print(f"ssm 4-layer f32 kernel mode vs eager (seed {SEED + s}): loss "
+              f"rel={readings[-1][0]:.6g} block_fn rel={readings[-1][1]:.6g}")
+        if s == 0:
+            ref0 = (params, b, x, ea, ey)
+    # one scoring call (a scan a layer) and one block call a seed
+    n = ops.launch_counts()["mamba_scan"]
+    if n != F32_SEEDS * (cfg.n_layers + 1):
+        fail(f"ssm 4-layer f32 launched the scan {n} times, expected "
+             f"{F32_SEEDS * (cfg.n_layers + 1)}")
+    params, b, x, ea, ey = ref0
+    mamba_scan._lib()
+    sound_lib, mamba_scan._LIB = mamba_scan._LIB, faulted_library(mamba_scan,
+                                                                  "mamba_scan")
+    try:
+        planted = (abs(float(sf(params, b)[0]) - ea) / abs(ea),
+                   rel_diff(bf(model.layer_params(params, 0), x), ey))
+    finally:
+        mamba_scan._LIB = sound_lib
+    print(f"ssm 4-layer f32: tol={F32_LOGIT_TOL} sound max loss="
+          f"{max(r[0] for r in readings):.6g} block={max(r[1] for r in readings):.6g}; "
+          f"planted scan fault (state restarts at each chunk) loss="
+          f"{planted[0]:.6g} block={planted[1]:.6g}")
+    if not all(r <= F32_LOGIT_TOL for rs in readings for r in rs):
+        fail("ssm 4-layer f32 kernel-mode readings disagree with eager")
+    if not planted[1] > F32_LOGIT_TOL:
+        fail("the f32 block check missed the planted scan fault")
 
 
 def prompts_for(cfg, lens, seed):
@@ -1736,6 +2095,8 @@ def main() -> int:
     import triton
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"triton {triton.__version__} device {torch.cuda.get_device_name(0)}")
+    print(f"bound rates: {HBM_BW:.4g} B/s, f32 {F32_PEAK:.4g} FLOP/s, bf16 "
+          f"tensor cores {BF16_PEAK:.4g} FLOP/s, {sfu_rate()[1]}")
     # one rounding per GEMM: f32 accumulation, no TF32
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1777,11 +2138,17 @@ def main() -> int:
     rows, summaries["moe kernel-mode long"] = moe_phase(dev, checked)
     kernels += rows
     print(f"moe phase: {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels += ssm_phase(dev, checked)
+    torch.cuda.empty_cache()
+    print(f"ssm phase: {time.perf_counter() - t0:.1f}s")
     for tag, summary in summaries.items():
         print(f"decode plan {tag}: {json.dumps(summary)}")
     t0 = time.perf_counter()
     full_width_f32(dev)
     moe_f32(dev)
+    ssm_f32(dev)
     reduced_reference(dev)
     print(f"f32 and reduced checks: {time.perf_counter() - t0:.1f}s")
     print(f"total {time.perf_counter() - t_start:.1f}s")

@@ -11,6 +11,7 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 ARCHS = [
+    "falcon_mamba_7b",
     "granite_moe_1b_a400m",
     "qwen3_1_7b",
 ]

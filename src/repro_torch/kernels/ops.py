@@ -6,10 +6,12 @@ kernels and the plain oracles.
 
 * ``"kernels"`` — the hand-written kernels, the counterpart of the
   reference's ``"pallas"`` mode: RMSNorm, RoPE and SwiGLU/GeGLU in Triton,
-  decode attention, flash attention and the MoE router in CUDA C++.  Each
-  is a ``torch.library`` custom op, so the tracer sees one node (with a
-  projection per output) and tags it for the planner's registry; on the
-  CPU the op runs its plain version.
+  decode attention, flash attention, the MoE router and the Mamba-1
+  selective scan in CUDA C++.  Each is a ``torch.library`` custom op, so
+  the tracer sees one node (with a projection per output) and tags it with
+  the reference kernel's name; the planner's registry prices the tags it
+  knows and cuts the graph at the others (the scan), as the reference's
+  does.  On the CPU the op runs its plain version.
 * ``"ref"`` — the plain-PyTorch oracles of :mod:`.ref`; the default.
 
 The switch is a context variable, read when the model function runs: at
@@ -28,6 +30,7 @@ import torch
 from . import activations as _act
 from . import decode_attention as _decode
 from . import flash_attention as _flash
+from . import mamba_scan as _mamba
 from . import norms as _norms
 from . import ref as _ref
 from . import rope as _rope
@@ -35,7 +38,7 @@ from . import router as _router
 
 __all__ = ["KernelMode", "get_mode", "kernel_mode", "rmsnorm", "swiglu",
            "geglu", "rope", "attention", "decode_attention", "topk_router",
-           "KERNEL_TAGS",
+           "mamba_scan", "KERNEL_TAGS",
            "launch_counts", "launch_counts_by_signature", "reset_launch_counts"]
 
 KernelMode = Literal["kernels", "ref"]
@@ -45,10 +48,11 @@ _mode: contextvars.ContextVar[str] = contextvars.ContextVar("kernel_mode",
 # kernel modules by the name their launches are counted under
 _KERNELS = {"rmsnorm": _norms, "glu": _act, "rope": _rope,
             "decode_attention": _decode, "flash_attention": _flash,
-            "router": _router}
+            "router": _router, "mamba_scan": _mamba}
 
 # each custom op -> the reference kernel body it ports, the name the
-# planner's registry (kernels/registry.py) knows it by
+# planner's registry (kernels/registry.py) knows it by; ``_mamba_kernel`` is
+# not in the registry (nor in the reference's), so its node cuts the graph
 KERNEL_TAGS = {
     torch.ops.repro_torch.rmsnorm.default: "_rmsnorm_kernel",
     torch.ops.repro_torch.glu.default: "_glu_kernel",
@@ -56,6 +60,7 @@ KERNEL_TAGS = {
     torch.ops.repro_torch.decode_attention.default: "_decode_attn_kernel",
     torch.ops.repro_torch.flash_attention.default: "_flash_kernel",
     torch.ops.repro_torch.topk_router.default: "_router_kernel",
+    torch.ops.repro_torch.mamba_scan.default: "_mamba_kernel",
 }
 
 
@@ -146,3 +151,12 @@ def topk_router(logits, k: int, renormalize: bool = True):
     if _use_kernels():
         return _router.topk_router(logits, k, renormalize)
     return _ref.topk_router(logits, k, renormalize)
+
+
+def mamba_scan(x, delta, A, B, C, D, return_state: bool = False):
+    """x, delta (Bb, L, Dm); A (Dm, N); B, C (Bb, L, N); D (Dm,) -> y
+    [, final state (Bb, Dm, N) f32].  The kernel takes no state out, so a
+    call that asks for it runs the oracle, as in the reference."""
+    if _use_kernels() and not return_state:
+        return _mamba.mamba_scan(x, delta, A, B, C, D)
+    return _ref.mamba_scan(x, delta, A, B, C, D, return_state=return_state)

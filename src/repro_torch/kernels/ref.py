@@ -12,7 +12,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rmsnorm", "swiglu", "geglu", "rope", "attention", "topk_router"]
+__all__ = ["rmsnorm", "swiglu", "geglu", "rope", "attention", "topk_router",
+           "mamba_scan"]
 
 
 def rmsnorm(x, gamma, eps: float = 1e-6):
@@ -90,3 +91,60 @@ def topk_router(logits, k: int, renormalize: bool = True):
     if renormalize:
         weights = weights / torch.sum(weights, dim=-1, keepdim=True)
     return weights.to(logits.dtype), idx.to(torch.int32)
+
+
+def _scan(x, delta, A, B, C, D):
+    """The selective scan's loop, f32 throughout: one ``(Bb, Dm, N)`` state
+    tile per step, never the ``(Bb, L, Dm, N)`` tensor.  Returns y in x's
+    dtype and the final state (f32)."""
+    xf, df = x.to(torch.float32), delta.to(torch.float32)
+    Af, Bf, Cf = A.to(torch.float32), B.to(torch.float32), C.to(torch.float32)
+    Bb, L, Dm = x.shape
+    h = xf.new_zeros((Bb, Dm, A.shape[1]))
+    ys = xf.new_empty((Bb, L, Dm))
+    for t in range(L):
+        d_t = df[:, t]
+        dA_t = torch.exp(d_t[..., None] * Af)
+        dBx_t = (d_t * xf[:, t])[..., None] * Bf[:, t, None, :]
+        h = dA_t * h + dBx_t
+        ys[:, t] = torch.einsum("bdn,bn->bd", h, Cf[:, t])
+    y = ys + xf * D.to(torch.float32)
+    return y.to(x.dtype), h
+
+
+# The oracle is a custom op on every device, so a trace holds it as one
+# untagged CUSTOM node (the reference's lax.scan is one node), not L
+# unrolled steps; the planner cuts the graph there.
+@torch.library.custom_op("repro_torch::mamba_scan_ref", mutates_args=())
+def _mamba_scan_ref(x: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor,
+                    D: torch.Tensor) -> torch.Tensor:
+    return _scan(x, delta, A, B, C, D)[0]
+
+
+@_mamba_scan_ref.register_fake
+def _(x, delta, A, B, C, D):
+    return x.new_empty(x.shape)
+
+
+@torch.library.custom_op("repro_torch::mamba_scan_ref_state", mutates_args=())
+def _mamba_scan_ref_state(x: torch.Tensor, delta: torch.Tensor,
+                          A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                          D: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return _scan(x, delta, A, B, C, D)
+
+
+@_mamba_scan_ref_state.register_fake
+def _(x, delta, A, B, C, D):
+    return (x.new_empty(x.shape),
+            x.new_empty((x.shape[0], x.shape[2], A.shape[1]),
+                        dtype=torch.float32))
+
+
+def mamba_scan(x, delta, A, B, C, D, return_state: bool = False):
+    """Mamba-1 selective scan oracle.  x, delta (Bb, L, Dm); A (Dm, N);
+    B, C (Bb, L, N); D (Dm,).  Returns y (Bb, L, Dm) in x's dtype [, the
+    final state (Bb, Dm, N) f32]."""
+    if return_state:
+        return _mamba_scan_ref_state(x, delta, A, B, C, D)
+    return _mamba_scan_ref(x, delta, A, B, C, D)

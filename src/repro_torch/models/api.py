@@ -1,12 +1,14 @@
 """Unified model interface: build a ported architecture from its config and
-get its init / prefill / decode callables.  Dense and MoE families."""
+get its callables.  Dense and MoE families serve (init / prefill / decode);
+the ssm family (falcon-mamba) scores (``train_forward``, ``block_fn``) and
+does not serve yet."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Callable
 
-from . import lm
+from . import lm, mamba
 from .config import ModelConfig
 
 Params = dict[str, Any]
@@ -16,15 +18,36 @@ Params = dict[str, Any]
 class Model:
     cfg: ModelConfig
     init: Callable[..., Params]                    # (seed, device) -> params
-    prefill: Callable[..., tuple]                  # (params, tokens, true_len=)
-    decode_step: Callable[..., tuple]              # (params, cache, tokens)
-    init_cache: Callable[..., Params]              # (batch, max_len, device)
+    prefill: Callable[..., tuple] | None           # (params, tokens, true_len=)
+    decode_step: Callable[..., tuple] | None       # (params, cache, tokens)
+    init_cache: Callable[..., Params] | None       # (batch, max_len, device)
+    # (params, {"tokens", "labels"}) -> (loss, aux): the forward of a
+    # training step, here a scoring pass (forward only); None for the
+    # families whose training is not ported yet
+    train_forward: Callable[..., tuple] | None = None
+    # single-block forward (layer_params, x) -> x': a block stitched on its
+    # own, the reference's function-level entry point
+    block_fn: Callable[..., Any] | None = None
+
+    def layer_params(self, params: Params, index: int = 0) -> Params:
+        """One layer's params, the ``block_fn`` operand for layer
+        ``index``."""
+        return params["layers"][index]
 
 
 def build_model(cfg: ModelConfig) -> Model:
+    if cfg.family == "ssm":
+        return Model(
+            cfg=cfg,
+            init=lambda seed, device: mamba.init_params(cfg, seed, device),
+            prefill=None, decode_step=None, init_cache=None,
+            train_forward=lambda p, batch: mamba.train_forward(p, batch, cfg),
+            block_fn=lambda lp, x: mamba._block(lp, x, cfg),
+        )
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense and moe only)")
+            f"family {cfg.family!r} is not ported yet (dense, moe and ssm "
+            f"only)")
     return Model(
         cfg=cfg,
         init=lambda seed, device: lm.init_params(cfg, seed, device),

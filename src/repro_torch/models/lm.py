@@ -4,7 +4,9 @@ The layer loop is a Python loop over a list of per-layer parameter dicts,
 so tracing unrolls it exactly like the reference with ``scan_layers=False``.
 
 * ``prefill``     — full-sequence causal forward that fills a KV cache;
-* ``decode_step`` — single-token step against a static-shape KV cache.
+* ``decode_step`` — single-token step against a static-shape KV cache;
+* ``lm_loss``     — the chunked cross-entropy of a final hidden state (the
+  ssm family's ``train_forward`` scores through it).
 """
 
 from __future__ import annotations
@@ -66,6 +68,39 @@ def _head_matrix(params: Params, cfg: ModelConfig):
     if cfg.tie_embeddings:
         return params["embed"].t().to(dt)
     return params["lm_head"].to(dt)
+
+
+def lm_loss(params: Params, h, labels, cfg: ModelConfig, n_chunks: int = 16):
+    """Mean cross-entropy of ``h`` (B, S, D) against ``labels`` (B, S),
+    chunked: the (tokens, vocab) logits exist one chunk of tokens at a time
+    (16 chunks: 64 tokens a chunk at 1024 tokens), each in f32 with its own
+    max, exp, sum and log and the gold logit by ``gather``; the chunks are
+    unrolled as the reference's ``scan_or_unroll`` is with
+    ``scan_layers=False``.  ``cfg.loss_groups > 1`` chunks within each of G
+    token groups, as the reference does.  Forward only."""
+    B, S, D = h.shape
+    W = _head_matrix(params, cfg)
+    T = B * S
+    G = cfg.loss_groups
+    while T % G:
+        G //= 2
+    G = max(G, 1)
+    Tg = T // G
+    while Tg % n_chunks:
+        n_chunks -= 1
+    Tc = Tg // n_chunks
+    hg = h.reshape(G, Tg, D)
+    yg = labels.reshape(G, Tg)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for j in range(n_chunks):
+        hcb = hg[:, j * Tc:(j + 1) * Tc]
+        ycb = yg[:, j * Tc:(j + 1) * Tc]
+        logits = torch.einsum("gtd,dv->gtv", hcb, W).to(torch.float32)
+        m = torch.amax(logits, dim=-1)
+        lse = torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1)) + m
+        gold = torch.gather(logits, -1, ycb[..., None].long())[..., 0]
+        total = total + torch.sum(lse - gold)
+    return total / T
 
 
 def _layer(h, lp: Params, cfg: ModelConfig, positions, cache=None,

@@ -56,6 +56,11 @@ class Engine:
         if cfg.paged:
             raise NotImplementedError(
                 "paged KV is not ported yet; use paged=False (dense)")
+        if model.prefill is None or model.decode_step is None:
+            raise NotImplementedError(
+                f"{model.cfg.family} serving is not ported yet "
+                f"({model.cfg.name}: no prefill or decode step); the model "
+                f"scores through train_forward and block_fn")
         self.model = model
         self.params = params
         self.cfg = cfg

@@ -327,6 +327,95 @@ def test_reduced_granite_kernel_mode_on_card():
                                                        prompt_lens=lens))
 
 
+# selective-scan samples (Bb, L, Dm, N): falcon-mamba-7b's scoring shape, one
+# step, a ragged L, the reduced config's N, several staged chunks
+SCAN_CASES = [(4, 256, 8192, 16), (1, 1, 8192, 16), (2, 33, 128, 16),
+              (2, 48, 64, 8), (1, 700, 512, 16)]
+
+
+def _scan_args(Bb, L, Dm, N, dtype, seed, strided):
+    """x, delta, A, B, C, D as the model makes them: delta a softplus, A =
+    -(1..N), B and C f32 (column views of one projection when
+    ``strided``)."""
+    dt = getattr(torch, dtype)
+    x = _rand((Bb, L, Dm), "float32", seed).to(dt)
+    delta = torch.nn.functional.softplus(
+        _rand((Bb, L, Dm), "float32", seed + 1) - 1.0).to(dt)
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device="cuda").repeat(Dm, 1)
+    dbc = 0.5 * _rand((Bb, L, 4 + 2 * N), "float32", seed + 2)
+    B, C = dbc[..., 4:4 + N], dbc[..., 4 + N:]
+    if not strided:
+        B, C = B.contiguous(), C.contiguous()
+    return x, delta, A, B, C, _rand((Dm,), "float32", seed + 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strided", [False, True], ids=["contiguous_bc",
+                                                        "strided_bc"])
+@pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
+def test_mamba_scan_kernel_on_card(dtype, tol, strided):
+    """The scan kernel against its plain version, B and C contiguous or as
+    strided views; the C entry point refuses what the kernel does not
+    take."""
+    _need_card()
+    from repro_torch.kernels import mamba_scan
+    for i, case in enumerate(SCAN_CASES):
+        args = _scan_args(*case, dtype, 20 + i, strided)
+        before = sum(mamba_scan.launches.values())
+        y = mamba_scan.mamba_scan(*args)
+        torch.cuda.synchronize()
+        assert sum(mamba_scan.launches.values()) == before + 1
+        assert y.dtype == args[0].dtype and y.is_contiguous()
+        torch.testing.assert_close(y.float(),
+                                   mamba_scan.mamba_scan_plain(*args).float(),
+                                   rtol=tol, atol=tol)
+    x, delta, A, B, C, D = _scan_args(1, 4, 64, 8, dtype, 0, strided)
+    with pytest.raises(ValueError, match="outside 1..16"):
+        mamba_scan.mamba_scan(x, delta, -torch.ones(64, 17, device="cuda"),
+                              torch.ones(1, 4, 17, device="cuda"),
+                              torch.ones(1, 4, 17, device="cuda"), D)
+    other = torch.bfloat16 if dtype == "float32" else torch.float32
+    with pytest.raises(ValueError, match="differ in dtype"):
+        mamba_scan.mamba_scan(x, delta.to(other), A, B, C, D)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        mamba_scan.mamba_scan(x.half(), delta.half(), A, B, C, D)
+    with pytest.raises(ValueError, match="empty"):
+        mamba_scan.mamba_scan(x[:, :0], delta[:, :0], A, B[:, :0], C[:, :0], D)
+
+
+@pytest.mark.gpu
+def test_reduced_falcon_mamba_kernel_mode_on_card():
+    """Reduced falcon-mamba in float32, scored through stitch() in kernel
+    mode: the loss and a block's output equal eager ref mode (the oracle
+    loop), with one scan launch a layer a call."""
+    _need_card()
+    from repro_torch.configs import get_reduced
+    from repro_torch.exec import stitch
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    cfg = replace(get_reduced("falcon-mamba-7b"), dtype="float32")
+    model = build_model(cfg)
+    params = model.init(0, "cuda")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (2, 40)),
+                                device="cuda") for k in ("tokens", "labels")}
+    x = torch.as_tensor(rng.standard_normal((2, 40, cfg.d_model)),
+                        dtype=torch.float32, device="cuda")
+    lp = model.layer_params(params, 0)
+    ops.reset_launch_counts()
+    with ops.kernel_mode("kernels"):
+        score = stitch(model.train_forward, device="cuda")
+        block = stitch(model.block_fn, device="cuda")
+        loss, _ = score(params, batch)
+        y = block(lp, x)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mamba_scan"] == cfg.n_layers + 1
+    assert ops.launch_counts()["rmsnorm"] == cfg.n_layers + 1
+    eager_loss, _ = model.train_forward(params, batch)
+    torch.testing.assert_close(loss, eager_loss, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(y, model.block_fn(lp, x), rtol=2e-5, atol=2e-5)
+
+
 @pytest.mark.gpu
 def test_cuda_library_builds_from_an_empty_directory(tmp_path):
     _need_card()
@@ -337,7 +426,8 @@ def test_cuda_library_builds_from_an_empty_directory(tmp_path):
     assert all(path.parent == tmp_path for path in libs.values())
     for stem, fn in (("decode_attention", "repro_decode_attention"),
                      ("flash_attention", "repro_flash_attention"),
-                     ("router", "repro_topk_router")):
+                     ("router", "repro_topk_router"),
+                     ("mamba_scan", "repro_mamba_scan")):
         lib = ctypes.CDLL(str(libs[stem]))
         assert hasattr(lib, fn)
         assert "registers" in libs[stem].with_suffix(".log").read_text()

@@ -5,10 +5,11 @@ On the CPU each kernel's custom op runs its plain version, so these tests
 hold the plain versions against the reference kernels run in interpret
 mode, on the same numpy inputs: RMSNorm, SwiGLU/GeGLU, RoPE, decode
 attention and flash attention (the MoE router's are in
-``tests/test_torch_moe.py``), in float32 (rtol/atol 2e-4, the reference's
+``tests/test_torch_moe.py``, the selective scan's in
+``tests/test_torch_mamba.py``), in float32 (rtol/atol 2e-4, the reference's
 own tolerance) and bfloat16 (1.6e-2: one bf16 rounding step of the outputs, which both sides
-cast from f32).  They also run ``torch.library.opcheck`` on the six custom
-ops, check the mode switch, and drive the CUDA build with a stand-in
+cast from f32).  They also run ``torch.library.opcheck`` on the custom
+ops (the selective scan's oracle ops too), check the mode switch, and drive the CUDA build with a stand-in
 compiler.  The kernels themselves run only on the card
 (``tests/test_torch_gpu.py``).
 """
@@ -30,7 +31,7 @@ from repro.kernels import flash_attention as ref_flash
 from repro.kernels import norms as ref_norms
 from repro.kernels import rope as ref_rope
 from repro_torch.kernels import activations, build, decode_attention, norms, ops
-from repro_torch.kernels import flash_attention
+from repro_torch.kernels import flash_attention, mamba_scan
 from repro_torch.kernels import ref, rope, router
 
 DTYPES = [("float32", 2e-4), ("bfloat16", 1.6e-2)]
@@ -202,7 +203,26 @@ def _op_cases():
         ("topk_router", router.topk_router_op, (t(6, 32), 8, True)),
         ("topk_router_bf16_no_renorm", router.topk_router_op,
          (t(5, 12, dtype=torch.bfloat16), 3, False)),
+        ("mamba_scan", mamba_scan.mamba_scan_op, _scan_args(t, torch.float32)),
+        ("mamba_scan_bf16_strided_bc", mamba_scan.mamba_scan_op,
+         _scan_args(t, torch.bfloat16, strided=True)),
+        ("mamba_scan_ref", torch.ops.repro_torch.mamba_scan_ref.default,
+         _scan_args(t, torch.float32, strided=True)),
+        ("mamba_scan_ref_state", torch.ops.repro_torch.mamba_scan_ref_state.default,
+         _scan_args(t, torch.bfloat16)),
     ]
+
+
+def _scan_args(t, dtype, strided=False):
+    """(x, delta, A, B, C, D) of a (2, 5, 6) scan with N = 4; B and C as
+    column views of one (2, 5, 10) projection when ``strided``."""
+    x, dt = t(2, 5, 6, dtype=dtype), t(2, 5, 6).abs().to(dtype)
+    if strided:
+        dbc = t(2, 5, 10)
+        B, C = dbc[..., 2:6], dbc[..., 6:]
+    else:
+        B, C = t(2, 5, 4), t(2, 5, 4)
+    return x, dt, -t(6, 4).abs(), B, C, t(6)
 
 
 @pytest.mark.parametrize("case", _op_cases(), ids=lambda c: c[0])
@@ -215,9 +235,9 @@ def test_custom_op_opcheck(case):
     (norms, norms.rmsnorm_op), (activations, activations.glu_op),
     (rope, rope.rope_op), (decode_attention, decode_attention.decode_attention_op),
     (flash_attention, flash_attention.flash_attention_op),
-    (router, router.topk_router_op),
+    (router, router.topk_router_op), (mamba_scan, mamba_scan.mamba_scan_op),
 ], ids=["rmsnorm", "glu", "rope", "decode_attention", "flash_attention",
-        "topk_router"])
+        "topk_router", "mamba_scan"])
 def test_cuda_launcher_takes_the_op_signature(mod, op):
     """The dispatcher drops an argument left at its default, so the CUDA
     implementation must declare the op's parameters with the same
@@ -261,12 +281,14 @@ def test_cpu_tensors_never_count_launches():
                              torch.zeros(4, dtype=torch.int32))
         ops.attention(x, x, x)
         ops.topk_router(torch.randn(4, 8), 2)
+        ops.mamba_scan(x[:, 0], x[:, 0].abs(), -torch.ones(16, 3),
+                       torch.randn(4, 2, 3), torch.randn(4, 2, 3), torch.ones(16))
     assert ops.launch_counts() == {"rmsnorm": 0, "glu": 0, "rope": 0,
                                    "decode_attention": 0, "flash_attention": 0,
-                                   "router": 0}
+                                   "router": 0, "mamba_scan": 0}
     assert ops.launch_counts_by_signature() == {
         "rmsnorm": {}, "glu": {}, "rope": {}, "decode_attention": {},
-        "flash_attention": {}, "router": {}}
+        "flash_attention": {}, "router": {}, "mamba_scan": {}}
 
 
 def test_launch_signature_keys_shapes_dtypes_and_arguments():
@@ -327,6 +349,7 @@ def test_build_failure_raises_with_nvcc_output(tmp_path, monkeypatch):
 
 def test_csrc_sources_are_found():
     stems = {p.stem for p in build.CSRC.glob("*.cu")}
-    assert {"decode_attention", "flash_attention", "router"} <= stems
+    assert {"decode_attention", "flash_attention", "router",
+            "mamba_scan"} <= stems
     assert build.build_dir().parts[-2:] == ("build", "kernels")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
