@@ -9,11 +9,11 @@ result line):
    planted-fault copies from an empty ``build/kernels``, one nvcc each, all
    started together, with each one's build seconds and ptxas report.
 1. Sample kernels: generated Triton stitched kernels for a softmax, an
-   RMSNorm chain and a SwiGLU chain, and the seven hand-written kernels
+   RMSNorm chain and a SwiGLU chain, and the eight hand-written kernels
    (RMSNorm, SwiGLU/GeGLU, RoPE, decode attention, flash attention, the MoE
-   router, the selective scan) at sample shapes, each held against its plain PyTorch version on
+   router, the selective scan, the RG-LRU) at sample shapes, each held against its plain PyTorch version on
    the card (the router's ids exactly on rows without a near tie, ties to
-   the lowest index).
+   the lowest index), the RG-LRU recurrence).
 2. Ref-mode path: full-width qwen3-1.7b (random weights from a seed)
    answers 4 requests through ``Engine(stitch_execute=True)``: the stitched
    prefill and the stitched decode on every step.  Launch counts are zeroed
@@ -63,12 +63,29 @@ result line):
    block output against the eager ref-mode model over several weight
    seeds; then (with the float32 checks) the model cut to 4 layers in
    float32, with a fault planted in the scan kernel.
+7. Hybrid phase (after the ssm phase): the RG-LRU kernel, flash attention
+   at head width 256 on one kv head and RoPE on that head at sample shapes
+   (with phase 1's samples); full-width recurrentgemma-9b (38 layers: 26
+   RG-LRU and 12 local-attention layers, random weights from a seed) scored
+   in kernel mode through ``stitch(train_forward)`` at 4 x 256 tokens:
+   exactly 26 RG-LRU, 12 flash, 24 RoPE, 77 RMSNorm and 38 GLU launches a
+   call and no other hand-written kernel, the call's ms, tokens/s, device
+   busy and peak memory, every kernel of the path against its plain version
+   (flash beside ``F.scaled_dot_product_attention``); then
+   ``stitch(block_fn)`` on the first recurrent layer (1 RG-LRU, 2 RMSNorm
+   and 1 GLU launch a call); bf16 loss and block output against the eager
+   ref-mode model over several weight seeds; then (with the float32 checks)
+   the model cut to 4 layers in float32 on one sequence of 2560 tokens, so
+   that the 2048-token window masks keys: the loss, the recurrent block's
+   and the first attention block's output against eager ref mode, with
+   faults planted in the RG-LRU kernel and in flash attention's window.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 import functools
+import gc
 import json
 import re
 import shutil
@@ -116,6 +133,12 @@ LOGIT_TOL = 0.025
 # (4 layers, kernel mode, the scan kernel in every layer): loss 0 to 1.7e-7,
 # block_fn output 2.8e-7 to 4.5e-7 over 5 seeds; the scan fault (the state
 # restarts at every chunk of 16 steps) reads 0.105 in the block check.
+# recurrentgemma-9b (4 layers, kernel mode, 2560 tokens: flash masks keys
+# outside the 2048 window): loss 0 to 7.4e-8, block_fn output 5.6e-7 to
+# 6.6e-7, first attention block 4.8e-7 to 5.6e-7 over 5 seeds; the RG-LRU
+# fault (the state restarts at every chunk) reads 0.055 in the block check,
+# the flash fault (the window ignored) 0.0150 in the attention block and
+# only 5.1e-6 in the loss.
 F32_LOGIT_TOL = 1e-5
 # kernel mode (the hand-written kernels) against the eager ref-mode decode,
 # full width in bf16: besides the rounding noise above, the decode-attention
@@ -796,6 +819,8 @@ HAND = {
                        "src/repro/kernels/router.py:50"),
     "_mamba_kernel": ("mamba_scan", "cuda", "src/repro_torch/csrc/mamba_scan.cu",
                       "src/repro/kernels/mamba_scan.py:52"),
+    "_rglru_kernel": ("rg_lru", "cuda", "src/repro_torch/csrc/rg_lru.cu",
+                      "src/repro/kernels/rg_lru.py:44"),
 }
 # elementwise operations per output element (the bound's operation count)
 HAND_OPS = {"_rmsnorm_kernel": 4, "_glu_kernel": 5, "_rope_kernel": 6}
@@ -807,17 +832,27 @@ def expected_launches(cfg, bucket: int | None = None) -> tuple[dict, dict]:
     rotaries and 1 GLU a layer (the experts' GLU in a MoE layer), the router
     once a MoE layer, decode attention once a layer on decode only, flash
     attention once a layer on a prefill whose bucket is a multiple of 128.
-    The ssm family scores and does not serve: both are then one scoring
-    call's (``train_forward``), a norm and a scan a layer and the final
-    norm, nothing else."""
+    The ssm and hybrid families score and do not serve: both are then one
+    scoring call's (``train_forward``) at a sequence length of ``bucket``.
+    ssm: a norm and a scan a layer and the final norm.  hybrid: 2 norms and
+    a GLU a layer and the final norm, an RG-LRU a recurrent layer, 2
+    rotaries and flash attention (at a length that is a multiple of 128)
+    an attention layer.  Every other kernel 0."""
     L = cfg.n_layers
+    zero = {name: 0 for name, *_ in HAND.values()}
     if cfg.family == "ssm":
-        call = {name: 0 for name, *_ in HAND.values()}
-        call.update(rmsnorm=L + 1, mamba_scan=L)
+        call = dict(zero, rmsnorm=L + 1, mamba_scan=L)
         return call, call
-    step = {"rmsnorm": (4 if cfg.qk_norm else 2) * L + 1, "rope": 2 * L,
-            "glu": L, "decode_attention": L, "flash_attention": 0,
-            "router": L if cfg.family == "moe" else 0, "mamba_scan": 0}
+    if cfg.family == "hybrid":
+        pat = cfg.hybrid.pattern
+        n_attn = sum(pat[i % len(pat)] == "attn" for i in range(L))
+        call = dict(zero, rmsnorm=2 * L + 1, glu=L, rg_lru=L - n_attn,
+                    rope=2 * n_attn,
+                    flash_attention=n_attn if bucket % 128 == 0 else 0)
+        return call, call
+    step = dict(zero, rmsnorm=(4 if cfg.qk_norm else 2) * L + 1, rope=2 * L,
+                glu=L, decode_attention=L,
+                router=L if cfg.family == "moe" else 0)
     return step, dict(step, decode_attention=0,
                       flash_attention=L if bucket % 128 == 0 else 0)
 
@@ -826,22 +861,34 @@ def expected_launches(cfg, bucket: int | None = None) -> tuple[dict, dict]:
 # attention drops the row's own key (kpos < pos); flash attention leaves acc
 # unrescaled when a later kv tile raises the row max; the router does not
 # mask the column a round chose, so each row picks its top expert k times;
-# the selective scan's state restarts at every staged chunk of time steps
+# the selective scan's state restarts at every staged chunk of time steps;
+# the RG-LRU's state restarts at every chunk of steps loaded into registers;
+# flash attention ignores the window (every key up to the diagonal is
+# walked and valid).  Keyed by fault: (CUDA source stem, sound text,
+# planted text)
 FAULTS = {
-    "decode_attention": ("const int hi = min(p, smax - 1);",
+    "decode_attention": ("decode_attention",
+                         "const int hi = min(p, smax - 1);",
                          "const int hi = min(p - 1, smax - 1);"),
-    "flash_attention": ("#pragma unroll\n      for (int j = 0; j < DPT; ++j) "
+    "flash_attention": ("flash_attention",
+                        "#pragma unroll\n      for (int j = 0; j < DPT; ++j) "
                         "acc[i][j] *= alpha;\n", ""),
-    "router": ("if (lane + 32 * j == bi) p[j] = -1.0f;", ""),
-    "mamba_scan": ("const int steps = min(kChunk, L - t0);",
+    "flash_window": ("flash_attention",
+                     "  const int q0 = blockIdx.x * kBlockQ;\n",
+                     "  window = 0;\n  const int q0 = blockIdx.x * kBlockQ;\n"),
+    "router": ("router", "if (lane + 32 * j == bi) p[j] = -1.0f;", ""),
+    "mamba_scan": ("mamba_scan", "const int steps = min(kChunk, L - t0);",
                    "const int steps = min(kChunk, L - t0);\n"
                    "    for (int n = 0; n < kMaxState; ++n) h[n] = 0.f;"),
+    "rg_lru": ("rg_lru", "const int steps = min(kChunk, L - t0);",
+               "const int steps = min(kChunk, L - t0);\n    h = 0.f;"),
 }
 
 
-def fault_dir() -> Path:
+def fault_dir(fault: str) -> Path:
+    """The directory of one planted fault's source and library."""
     from repro_torch.kernels import build
-    return build.build_dir() / "planted_fault"
+    return build.build_dir() / "planted_fault" / fault
 
 
 def build_phase() -> float:
@@ -850,15 +897,16 @@ def build_phase() -> float:
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
     shutil.rmtree(build.build_dir(), ignore_errors=True)
-    fault_dir().mkdir(parents=True)
-    for stem, (sound, planted) in FAULTS.items():
+    for fault, (stem, sound, planted) in FAULTS.items():
         src = (build.CSRC / f"{stem}.cu").read_text()
         if src.count(sound) != 1:
-            fail(f"the {stem} source lost the text its fault is planted in")
-        (fault_dir() / f"{stem}.cu").write_text(src.replace(sound, planted))
+            fail(f"the {stem} source lost the text fault {fault} is planted in")
+        fault_dir(fault).mkdir(parents=True)
+        (fault_dir(fault) / f"{stem}.cu").write_text(src.replace(sound, planted))
     jobs = [(src.stem, build.CSRC, None)
             for src in sorted(build.CSRC.glob("*.cu"))]
-    jobs += [(stem, fault_dir(), fault_dir()) for stem in FAULTS]
+    jobs += [(stem, fault_dir(f), fault_dir(f))
+             for f, (stem, *_) in FAULTS.items()]
 
     def one(job):
         t = time.perf_counter()
@@ -873,7 +921,8 @@ def build_phase() -> float:
         info = [ln.split("info    : ")[-1].strip()
                 for ln in path.with_suffix(".log").read_text().splitlines()
                 if "registers" in ln or "spill" in ln]
-        what = "planted fault " if src_dir != build.CSRC else ""
+        what = (f"planted fault {src_dir.name} " if src_dir != build.CSRC
+                else "")
         print(f"cuda build {what}{stem}: {path.name} in {t:.2f}s ptxas {info}")
     print(f"cuda build: {len(jobs)} libraries ({len(FAULTS)} with a planted "
           f"fault) from an empty {build.build_dir().relative_to(ROOT)} in "
@@ -883,14 +932,15 @@ def build_phase() -> float:
 
 def hand_plain(tag):
     from repro_torch.kernels import activations, decode_attention, norms, rope
-    from repro_torch.kernels import flash_attention, mamba_scan, router
+    from repro_torch.kernels import flash_attention, mamba_scan, rg_lru, router
     return {"_rmsnorm_kernel": norms.rmsnorm_plain,
             "_glu_kernel": activations.glu_plain,
             "_rope_kernel": rope.rope_plain,
             "_decode_attn_kernel": decode_attention.decode_attention_plain,
             "_flash_kernel": flash_attention.flash_attention_plain,
             "_router_kernel": router.topk_router_plain,
-            "_mamba_kernel": mamba_scan.mamba_scan_plain}[tag]
+            "_mamba_kernel": mamba_scan.mamba_scan_plain,
+            "_rglru_kernel": rg_lru.rg_lru_plain}[tag]
 
 
 def router_compare(name, x, k, out, ref) -> dict:
@@ -955,6 +1005,12 @@ FLASH_SAMPLES = [
     ("mha_dh64", 2, 8, 8, 256, 256, 64, True, None, 0),
     ("causal_l384", 1, 16, 8, 384, 384, 128, True, None, 0),
     ("rows_without_a_valid_key", 1, 4, 2, 128, 128, 128, True, 16, 100),
+    # recurrentgemma's head width 256 on one kv head: its scoring shape (the
+    # 2048 window does not bite), a window of 256 over 1024 keys, and 8 q
+    # heads on 2 kv heads for a 200-row chunk after 56 cached tokens
+    ("dh256_g16_l256", 4, 16, 1, 256, 256, 256, True, 2048, 0),
+    ("dh256_g16_l1024_window256", 1, 16, 1, 1024, 1024, 256, True, 256, 0),
+    ("dh256_g4_lq200_lkv256_off56", 1, 8, 2, 200, 256, 256, True, None, 56),
 ]
 
 
@@ -984,6 +1040,11 @@ def hand_samples(dev):
                            device=dev)
         cases.append((f"rope_{t}_6x3x64", rope.rope_op, "_rope_kernel",
                       (rnd(6, 192, dtype=dt), pos, 1e4, 64)))
+        # k of recurrentgemma at its scoring shape: (4, 256, 1, 256), one
+        # head of width 256 (a block of one head and a half of 128)
+        kpos = torch.arange(256, dtype=torch.int32, device=dev).repeat(4)
+        cases.append((f"rope_{t}_1024x1x256", rope.rope_op, "_rope_kernel",
+                      (rnd(1024, 256, dtype=dt), kpos, 1e4, 256)))
         q, k, v = (rnd(3, 1, 8, 128, dtype=dt), rnd(3, 96, 2, 128, dtype=dt),
                    rnd(3, 96, 2, 128, dtype=dt))
         dpos = torch.tensor([[0], [47], [95]], dtype=torch.int32, device=dev)
@@ -1013,6 +1074,7 @@ def hand_samples(dev):
           + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
     router_samples(rnd)
     scan_samples(rnd)
+    rglru_samples(rnd)
     # RoPE in f32 against the rotation computed in f64 from exact angles:
     # how far the kernel and its plain version each are from exact
     x, pos, theta, hd = next(a for n, _, _, a in cases
@@ -1102,6 +1164,32 @@ def scan_samples(rnd):
           + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
 
 
+# RG-LRU samples (B, L, D): recurrentgemma-9b's scoring shape, one step, a
+# ragged L, many chunks of 16 steps (the f32 check's 2560 tokens)
+RGLRU_SAMPLES = [(4, 256, 4096), (1, 1, 4096), (2, 37, 256), (1, 2560, 512)]
+
+
+def rglru_samples(rnd):
+    """The RG-LRU kernel against its plain version at the sample shapes, x
+    and the gates in f32 and in bf16; Lambda around the model's 0.5."""
+    from repro_torch.kernels import rg_lru
+    errs = {}
+    for B, L, D in RGLRU_SAMPLES:
+        for dt in (torch.float32, torch.bfloat16):
+            x, ig, rg = (rnd(B, L, D, dtype=dt) for _ in range(3))
+            lam = 0.5 + 0.5 * rnd(D, dtype=torch.float32)
+            name = f"rg_lru_{str(dt).replace('torch.', '')}_{B}x{L}x{D}"
+            out = rg_lru.rg_lru_op(x, ig, rg, lam, 8.0)
+            torch.cuda.synchronize()
+            ref = rg_lru.rg_lru_plain(x, ig, rg, lam, 8.0)
+            errs[name] = max_err((out,), (ref,))
+            if not within((out,), (ref,)):
+                fail(f"RG-LRU kernel {name} disagrees with its plain version "
+                     f"(max err {errs[name]})")
+    print("rg_lru kernel samples vs plain (f32 2e-5, bf16 1.6e-2): "
+          + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
+
+
 def rope_f64(x, pos, theta, head_dim):
     """``rope_op``'s rotation in f64 from the exact angles."""
     half = head_dim // 2
@@ -1143,8 +1231,9 @@ def hand_library(tag, args):
             qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
     if tag == "_flash_kernel":
         qt, kt, vt, scale, causal, window, q_offset = args
-        if not (causal and window is None and q_offset == 0
-                and qt.shape[2] == kt.shape[2]):
+        # the same function when no causal pair falls outside the window
+        if not (causal and q_offset == 0 and qt.shape[2] == kt.shape[2]
+                and (window is None or qt.shape[2] - 1 < window)):
             return None
         return lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
@@ -1179,7 +1268,10 @@ def hand_bound(tag, args, out) -> tuple[float, str, str]:
     compare and a select per logit, at the f32 rate; the selective scan
     counts one exponential a state element a step at the SFU's rate
     (:func:`sfu_rate`) and 5 other f32 operations (two products, a fused
-    multiply-add for the update, one for the sum over n) at the f32 rate.
+    multiply-add for the update, one for the sum over n) at the f32 rate;
+    the RG-LRU counts 6 SFU results an element (3 exponentials, 2
+    reciprocals of the sigmoids' divisions, a square root) at the SFU's
+    rate and 14 other f32 operations an element at the f32 rate.
     Returns (ms, "bytes" or "operations", the bounding term)."""
     def nbytes(t):
         return t.numel() * t.element_size()
@@ -1220,11 +1312,16 @@ def hand_bound(tag, args, out) -> tuple[float, str, str]:
         b = sum(nbytes(a) for a in args) + nbytes(out)
         ops = 5 * elems
         extra = elems / sfu_rate()[0]
+    elif tag == "_rglru_kernel":
+        x, ig, rg, lam, c = args
+        b = sum(nbytes(a) for a in (x, ig, rg, lam)) + nbytes(out)
+        ops = 14 * x.numel()
+        extra = 6 * x.numel() / sfu_rate()[0]
     else:
         b = sum(nbytes(a) for a in args if isinstance(a, torch.Tensor)) \
             + nbytes(out)
         ops = HAND_OPS[tag] * out.numel()
-    terms = {"bytes": b / HBM_BW, kind: ops / rate, "exp (SFU)": extra}
+    terms = {"bytes": b / HBM_BW, kind: ops / rate, "SFU": extra}
     term = max(terms, key=terms.get)
     return (terms[term] * 1e3, "bytes" if term == "bytes" else "operations",
             term)
@@ -1235,11 +1332,11 @@ def launch_signature(name, node, tensors) -> tuple:
     (``build.signature`` of its arguments, defaults filled in)."""
     from repro_torch.kernels import activations, build, decode_attention
     from repro_torch.kernels import flash_attention, mamba_scan, norms, rope
-    from repro_torch.kernels import router
+    from repro_torch.kernels import rg_lru, router
     launcher = {"rmsnorm": norms, "glu": activations, "rope": rope,
                 "decode_attention": decode_attention,
                 "flash_attention": flash_attention, "router": router,
-                "mamba_scan": mamba_scan}[name]._launch
+                "mamba_scan": mamba_scan, "rg_lru": rg_lru}[name]._launch
     _, args, kwargs = op_call(node, tensors)
     return build.signature(*all_args(launcher, args, kwargs))
 
@@ -1602,6 +1699,7 @@ def moe_f32(dev):
 
 
 SSM_ARCH = "falcon-mamba-7b"
+HYBRID_ARCH = "recurrentgemma-9b"
 # the scoring batch: 4 windows of 256 tokens, as a log-likelihood task's
 # candidates, a reranker's passages or a perplexity filter's crawled text
 SCORE_BATCH = (4, 256)
@@ -1617,21 +1715,50 @@ BLOCK_CALLS = 3           # measured block_fn calls after the first
 # little under a wrong scan, so the block check, per element, and the f32
 # check below (where the planted scan fault reads 0.105) are the gates.
 SSM_TOL = {"loss": 5.5e-4, "block": 3.8e-3}
+# the hybrid phase in bf16 (38 layers), measured as the ssm phase's: the
+# same rounding noise (the flash kernel and the eager oracle both keep the
+# probabilities in f32).  Readings over 3 seeds on an H100: loss 1.8e-6 to
+# 5.0e-5, block 0, 0 and 2.8e-3 (0 where the kernel's f32 recurrence
+# rounds to the oracle's bf16 values everywhere, 2.8e-3 where one element
+# takes the neighbouring bf16 value); each limit is 1.35x its largest
+# reading, rounded up.
+HYBRID_TOL = {"loss": 6.8e-5, "block": 3.8e-3}
+# the hybrid f32 check: one sequence of 2560 tokens, so that the 2048-token
+# window masks keys in the flash kernel (the eager side takes the chunked
+# attention, 512 query rows a chunk)
+HYBRID_F32_BATCH = (1, 2560)
 
 
-def score_batch(cfg, seed, dev):
-    """Tokens and labels (B, S) from ``seed``."""
+def score_batch(cfg, seed, dev, shape=SCORE_BATCH):
+    """Tokens and labels ``shape`` (B, S) from ``seed``."""
     rng = np.random.default_rng(seed)
-    return {k: torch.as_tensor(rng.integers(0, cfg.vocab, SCORE_BATCH),
+    return {k: torch.as_tensor(rng.integers(0, cfg.vocab, shape),
                                device=dev) for k in ("tokens", "labels")}
 
 
-def block_input(cfg, seed, dev):
+def block_input(cfg, seed, dev, shape=SCORE_BATCH):
     """A block's input (B, S, d_model) in the compute dtype: unit normal, the
     scale of a normed hidden state."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn((*SCORE_BATCH, cfg.d_model), generator=gen, device=dev)
+    x = torch.randn((*shape, cfg.d_model), generator=gen, device=dev)
     return x.to(getattr(torch, cfg.dtype))
+
+
+def block_params(model, params):
+    """The ``block_fn`` operand: layer 0 (ssm), or the first recurrent layer
+    ``params["supers"][0]["l0"]`` (hybrid, which keeps no ``layers``)."""
+    if model.cfg.family == "hybrid":
+        return params["supers"][0]["l0"]
+    return model.layer_params(params, 0)
+
+
+def block_launches(cfg) -> dict:
+    """Hand-written kernel launches of one ``block_fn`` call: the scan
+    (ssm); the RG-LRU, 2 RMSNorms and the GeGLU (hybrid)."""
+    zero = {name: 0 for name, *_ in HAND.values()}
+    if cfg.family == "hybrid":
+        return dict(zero, rg_lru=1, rmsnorm=2, glu=1)
+    return dict(zero, mamba_scan=1)
 
 
 def measured_calls(sf, args, calls):
@@ -1673,32 +1800,46 @@ def stitched_call(tag, fn, args, dev):
     return sf
 
 
-def ssm_phase(dev, checked):
-    """Full-width falcon-mamba-7b (64 layers, random weights from a seed)
-    scored in kernel mode through ``stitch(train_forward)`` at 4 x 256
-    tokens: the scan kernel and the RMSNorm kernel in every layer, exactly
-    64 / 65 launches a call; every kernel of the path against its plain
-    version and timed.  Then ``stitch(block_fn)`` on layer 0 (one scan
-    launch a call).  Then, over several weight seeds, the bf16 loss and the
-    layer-0 block output against the eager ref-mode model."""
+def init_line(cfg, params, secs):
+    """The config and the measured parameter count (``ModelConfig.
+    param_count``, a verbatim copy of the reference's, leaves out the ssm
+    conv bias and undercounts a hybrid recurrent layer's projections)."""
     from torch.utils._pytree import tree_leaves
+    n = sum(t.numel() for t in tree_leaves(params))
+    if cfg.family == "ssm":
+        from repro_torch.models.mamba import _dims
+        s, dm, dtr = _dims(cfg)
+        shape = (f"d_inner={dm} d_state={s.d_state} d_conv={s.d_conv} "
+                 f"dt_rank={dtr}")
+    else:
+        h = cfg.hybrid
+        shape = (f"pattern={'/'.join(h.pattern)} heads={cfg.n_heads}/"
+                 f"{cfg.n_kv_heads} head_dim={cfg.dh} window={h.window} "
+                 f"d_ff={cfg.d_ff}")
+    print(f"init {cfg.name}: {cfg.n_layers}L d_model={cfg.d_model} {shape} "
+          f"vocab={cfg.vocab} params={n / 1e9:.4f}B measured "
+          f"({n * 4 / 1e9:.2f} GB f32; ModelConfig.param_count "
+          f"{cfg.param_count() / 1e9:.4f}B, {n - cfg.param_count()} short) "
+          f"in {secs:.1f}s")
+
+
+def scoring_phase(dev, checked, arch, name, tol):
+    """Full-width ``arch`` (random weights from a seed) scored in kernel
+    mode through ``stitch(train_forward)`` at 4 x 256 tokens: exactly the
+    config's launches a call (``expected_launches``); every kernel of the
+    path against its plain version and timed.  Then ``stitch(block_fn)``
+    on the first block (``block_launches`` a call).  Then, over several
+    weight seeds, the bf16 loss and the block output against the eager
+    ref-mode model, each under ``tol``."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    from repro_torch.models.mamba import _dims
-    cfg = get_config(SSM_ARCH)
+    cfg = get_config(arch)
     model = build_model(cfg)
-    s, dm, dtr = _dims(cfg)
     t0 = time.perf_counter()
     params = model.init(SEED, dev)
     torch.cuda.synchronize()
-    n = sum(t.numel() for t in tree_leaves(params))
-    print(f"init {cfg.name}: {cfg.n_layers}L d_model={cfg.d_model} "
-          f"d_inner={dm} d_state={s.d_state} d_conv={s.d_conv} dt_rank={dtr} "
-          f"vocab={cfg.vocab} params={n / 1e9:.4f}B measured "
-          f"({n * 4 / 1e9:.2f} GB f32; ModelConfig.param_count "
-          f"{cfg.param_count() / 1e9:.4f}B leaves out the conv bias, "
-          f"{n - cfg.param_count()}) in {time.perf_counter() - t0:.1f}s")
-    tag = "ssm score"
+    init_line(cfg, params, time.perf_counter() - t0)
+    tag = f"{name} score"
     batch = score_batch(cfg, SEED, dev)
     sf = stitched_call(tag, model.train_forward, (params, batch), dev)
     run = measured_calls(sf, (params, batch), SCORE_CALLS)
@@ -1718,15 +1859,22 @@ def ssm_phase(dev, checked):
         fail(f"{tag} loss malformed: {loss}")
     if sf.report()["calls"]["fallback"]:
         fail(f"{tag} fell back to eager")
-    per_call, _ = expected_launches(cfg)
+    per_call, _ = expected_launches(cfg, SCORE_BATCH[1])
     want = {k: v * SCORE_CALLS for k, v in per_call.items()}
     if run["hand"] != want:
         fail(f"{tag}: {SCORE_CALLS} calls launched {run['hand']}, expected {want}")
     res = group_inputs(sf.compiled, spec_inputs(sf, (params, batch)))
     kernels = stitched_rows([("scoring call", res)], run["counts"], tag, checked)
-    kernels += hand_rows([("scoring call", res, SCORE_CALLS, run["hand_sig"])],
-                         tag)
+    hand = hand_rows([("scoring call", res, SCORE_CALLS, run["hand_sig"])],
+                     tag)
+    kernels += hand
     del res
+    for r in hand:
+        print(f"{tag} {r['name']} per launch: " + " ".join(
+            f"{k}={r[k] * 1e3:.2f}us" for k in ("ms", "device_ms", "plain_ms",
+                                               "bound_ms", "library_ms",
+                                               "library_device_ms")
+            if r[k] is not None) + f" bound_term={r['bound_term']}")
     plan = sf.report()["plan"]
     print(f"score plan {tag}: " + json.dumps({
         "n_ops": plan["n_ops"], "n_kernels": plan["n_kernels"],
@@ -1737,13 +1885,13 @@ def ssm_phase(dev, checked):
         "call_ms": round(ms, 2), "tokens_per_s": round(tokens / ms * 1e3, 1),
         "device_busy_ms": busy, "peak_mem_gb": round(run["peak"] / 2**30, 2)}))
 
-    btag = "ssm block"
-    lp, x = model.layer_params(params, 0), block_input(cfg, SEED, dev)
+    btag = f"{name} block"
+    lp, x = block_params(model, params), block_input(cfg, SEED, dev)
     bf = stitched_call(btag, model.block_fn, (lp, x), dev)
     brun = measured_calls(bf, (lp, x), BLOCK_CALLS)
     print(f"{btag}: call_ms={float(np.median(brun['ms'])):.2f} (median of "
           f"{[round(t, 2) for t in brun['ms']]}) hand_launches={brun['hand']}")
-    want = {k: (BLOCK_CALLS if k == "mamba_scan" else 0) for k in brun["hand"]}
+    want = {k: v * BLOCK_CALLS for k, v in block_launches(cfg).items()}
     if brun["hand"] != want:
         fail(f"{btag}: {BLOCK_CALLS} calls launched {brun['hand']}, expected "
              f"{want}")
@@ -1757,12 +1905,12 @@ def ssm_phase(dev, checked):
     readings = {"loss": [], "block": []}
     for s in range(LOGIT_SEEDS):
         if s:
-            # the old weights go first: two 29 GB copies do not fit beside
-            # the activations
+            # the old weights go first: two full-width f32 copies do not
+            # fit beside the activations
             params = lp = None
             torch.cuda.empty_cache()
             params = model.init(SEED + s, dev)
-            lp = model.layer_params(params, 0)
+            lp = block_params(model, params)
         b, xs = score_batch(cfg, SEED + s, dev), block_input(cfg, SEED + s, dev)
         st, ea = float(sf(params, b)[0]), float(model.train_forward(params, b)[0])
         readings["loss"].append(abs(st - ea) / abs(ea))
@@ -1770,71 +1918,108 @@ def ssm_phase(dev, checked):
                                           model.block_fn(lp, xs).float()))
         print(f"{tag} bf16 vs ref-mode eager ({cfg.n_layers}L, seed "
               f"{SEED + s}): loss {st:.6f} vs {ea:.6f} rel={readings['loss'][-1]:.6g} "
-              f"block_fn layer 0 rel={readings['block'][-1]:.6g}")
-    print(f"{tag} bf16: tol={SSM_TOL} sound max loss="
+              f"block_fn rel={readings['block'][-1]:.6g}")
+    print(f"{tag} bf16: tol={tol} sound max loss="
           f"{max(readings['loss']):.6g} block={max(readings['block']):.6g}")
-    if not all(np.isfinite(r) and r <= SSM_TOL[what]
+    if not all(np.isfinite(r) and r <= tol[what]
                for what, rs in readings.items() for r in rs):
         fail(f"{tag} bf16 readings disagree with the ref-mode eager model")
     return kernels
 
 
-def ssm_f32(dev):
-    """falcon-mamba-7b at full width, cut to 4 layers, in float32: the
-    kernel-mode scoring loss and layer-0 block output against the eager
-    ref-mode model over several weight seeds; then the same with a fault
-    planted in the scan kernel (its state restarts at every staged chunk),
-    which the block check must see."""
+def attn_block(model, params, x):
+    """A hybrid model's first attention block (``params["supers"][0]
+    ["l2"]``) on ``x``, eagerly in the current kernel mode: the flash
+    kernel's output per element."""
+    from repro_torch.models import griffin
+    B, S, _ = x.shape
+    pos = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    return griffin._attn_block(params["supers"][0]["l2"], x, model.cfg, pos)
+
+
+def attn_block_launches(cfg) -> dict:
+    """Hand-written kernel launches of ``attn_block`` in kernel mode at a
+    length that is a multiple of 128."""
+    zero = {name: 0 for name, *_ in HAND.values()}
+    if cfg.family != "hybrid":
+        return zero
+    return dict(zero, rmsnorm=2, rope=2, flash_attention=1, glu=1)
+
+
+def scoring_f32(dev, arch, name, shape, faults):
+    """``arch`` at full width, cut to 4 layers, in float32, on ``shape``
+    tokens, against the eager ref-mode model over several weight seeds: the
+    kernel-mode scoring loss and first block's output (stitched), and, for
+    a hybrid, its first attention block's output (kernel mode, eagerly: the
+    loss is a mean over every token, and a fault in a few rows' attention
+    moves it little); then the same with each fault of ``faults`` planted,
+    ``(kernel module, FAULTS key, the reading that must see it, what the
+    fault is)``."""
     from dataclasses import replace
     from repro_torch.configs import get_config
-    from repro_torch.kernels import mamba_scan, ops
+    from repro_torch.kernels import ops
     from repro_torch.models import build_model
-    cfg = replace(get_config(SSM_ARCH), n_layers=4, dtype="float32")
+    cfg = replace(get_config(arch), n_layers=4, dtype="float32")
     model = build_model(cfg)
     params = model.init(SEED, dev)
     sf = bf = None
-    readings, ref0 = [], None
+    tag = f"{name} 4-layer f32"
+    readings, measure0 = [], None
     for s in range(F32_SEEDS):
         if s:
             params = model.init(SEED + s, dev)
-        b = score_batch(cfg, SEED + 1 + s, dev)
-        x = block_input(cfg, SEED + 1 + s, dev)
-        lp = model.layer_params(params, 0)
+        b = score_batch(cfg, SEED + 1 + s, dev, shape)
+        x = block_input(cfg, SEED + 1 + s, dev, shape)
+        lp = block_params(model, params)
         if sf is None:
-            sf = stitched_call("ssm 4-layer f32 score", model.train_forward,
+            sf = stitched_call(f"{tag} score", model.train_forward,
                                (params, b), dev)
-            bf = stitched_call("ssm 4-layer f32 block", model.block_fn,
-                               (lp, x), dev)
+            bf = stitched_call(f"{tag} block", model.block_fn, (lp, x), dev)
             ops.reset_launch_counts()
         ea, ey = float(model.train_forward(params, b)[0]), model.block_fn(lp, x)
-        readings.append((abs(float(sf(params, b)[0]) - ea) / abs(ea),
-                         rel_diff(bf(lp, x), ey)))
-        print(f"ssm 4-layer f32 kernel mode vs eager (seed {SEED + s}): loss "
-              f"rel={readings[-1][0]:.6g} block_fn rel={readings[-1][1]:.6g}")
+        hybrid = cfg.family == "hybrid"
+        eat = attn_block(model, params, x) if hybrid else None
+
+        def measure(params=params, b=b, x=x, ea=ea, ey=ey, eat=eat):
+            out = {"loss": abs(float(sf(params, b)[0]) - ea) / abs(ea),
+                   "block": rel_diff(bf(block_params(model, params), x), ey)}
+            if eat is not None:
+                with ops.kernel_mode("kernels"):
+                    out["attn"] = rel_diff(attn_block(model, params, x), eat)
+            return out
+
+        readings.append(measure())
+        print(f"{tag} kernel mode vs eager (seed {SEED + s}, {shape[0]} x "
+              f"{shape[1]} tokens): " + " ".join(
+                  f"{k} rel={v:.6g}" for k, v in readings[-1].items()))
         if s == 0:
-            ref0 = (params, b, x, ea, ey)
-    # one scoring call (a scan a layer) and one block call a seed
-    n = ops.launch_counts()["mamba_scan"]
-    if n != F32_SEEDS * (cfg.n_layers + 1):
-        fail(f"ssm 4-layer f32 launched the scan {n} times, expected "
-             f"{F32_SEEDS * (cfg.n_layers + 1)}")
-    params, b, x, ea, ey = ref0
-    mamba_scan._lib()
-    sound_lib, mamba_scan._LIB = mamba_scan._LIB, faulted_library(mamba_scan,
-                                                                  "mamba_scan")
-    try:
-        planted = (abs(float(sf(params, b)[0]) - ea) / abs(ea),
-                   rel_diff(bf(model.layer_params(params, 0), x), ey))
-    finally:
-        mamba_scan._LIB = sound_lib
-    print(f"ssm 4-layer f32: tol={F32_LOGIT_TOL} sound max loss="
-          f"{max(r[0] for r in readings):.6g} block={max(r[1] for r in readings):.6g}; "
-          f"planted scan fault (state restarts at each chunk) loss="
-          f"{planted[0]:.6g} block={planted[1]:.6g}")
-    if not all(r <= F32_LOGIT_TOL for rs in readings for r in rs):
-        fail("ssm 4-layer f32 kernel-mode readings disagree with eager")
-    if not planted[1] > F32_LOGIT_TOL:
-        fail("the f32 block check missed the planted scan fault")
+            measure0 = measure
+    # one scoring call, one block call and one attention block a seed
+    per_call, _ = expected_launches(cfg, shape[1])
+    want = {k: F32_SEEDS * (v + block_launches(cfg)[k]
+                            + attn_block_launches(cfg)[k])
+            for k, v in per_call.items()}
+    if ops.launch_counts() != want:
+        fail(f"{tag} launched {ops.launch_counts()}, expected {want}")
+    planted = {}
+    for mod, fault, _, _ in faults:
+        mod._lib()
+        sound_lib, mod._LIB = mod._LIB, faulted_library(mod, fault)
+        try:
+            planted[fault] = measure0()
+        finally:
+            mod._LIB = sound_lib
+    sound = {k: max(r[k] for r in readings) for k in readings[0]}
+    print(f"{tag}: tol={F32_LOGIT_TOL} sound max " + " ".join(
+        f"{k}={v:.6g}" for k, v in sound.items()) + "; " + "; ".join(
+        f"planted {fault} ({what}) " + " ".join(
+            f"{k}={v:.6g}" for k, v in planted[fault].items())
+        for _, fault, _, what in faults))
+    if not all(v <= F32_LOGIT_TOL for v in sound.values()):
+        fail(f"{tag} kernel-mode readings disagree with eager")
+    for _, fault, reading, _ in faults:
+        if not planted[fault][reading] > F32_LOGIT_TOL:
+            fail(f"the f32 {reading} check missed the planted {fault} fault")
 
 
 def prompts_for(cfg, lens, seed):
@@ -1910,13 +2095,14 @@ def fault_readings(eng, ref, lens, faults) -> dict:
     return out
 
 
-def faulted_library(mod, stem):
-    """``mod``'s CUDA library with its fault planted (``FAULTS``), built by
-    the build phase into ``fault_dir()``."""
+def faulted_library(mod, fault):
+    """``mod``'s CUDA library with ``fault`` planted (``FAULTS``), built by
+    the build phase into ``fault_dir(fault)``."""
     import ctypes
     from repro_torch.kernels import build
-    return mod.bind(ctypes.CDLL(str(build.library(stem, src_dir=fault_dir(),
-                                                  out_dir=fault_dir()))))
+    stem = FAULTS[fault][0]
+    return mod.bind(ctypes.CDLL(str(build.library(
+        stem, src_dir=fault_dir(fault), out_dir=fault_dir(fault)))))
 
 
 def full_width_f32(dev):
@@ -2139,16 +2325,29 @@ def main() -> int:
     kernels += rows
     print(f"moe phase: {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    kernels += ssm_phase(dev, checked)
-    torch.cuda.empty_cache()
-    print(f"ssm phase: {time.perf_counter() - t0:.1f}s")
+    for name, arch, tol in (("ssm", SSM_ARCH, SSM_TOL),
+                            ("hybrid", HYBRID_ARCH, HYBRID_TOL)):
+        t0 = time.perf_counter()
+        kernels += scoring_phase(dev, checked, arch, name, tol)
+        # the phase's weights go before the next one's are made
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"{name} phase: {time.perf_counter() - t0:.1f}s (device memory "
+              f"still allocated {torch.cuda.memory_allocated() / 2**30:.2f} GB)")
     for tag, summary in summaries.items():
         print(f"decode plan {tag}: {json.dumps(summary)}")
     t0 = time.perf_counter()
     full_width_f32(dev)
     moe_f32(dev)
-    ssm_f32(dev)
+    from repro_torch.kernels import flash_attention, mamba_scan, rg_lru
+    scoring_f32(dev, SSM_ARCH, "ssm", SCORE_BATCH, [
+        (mamba_scan, "mamba_scan", "block",
+         "the scan's state restarts at each chunk")])
+    scoring_f32(dev, HYBRID_ARCH, "hybrid", HYBRID_F32_BATCH, [
+        (rg_lru, "rg_lru", "block",
+         "the RG-LRU's state restarts at each chunk"),
+        (flash_attention, "flash_window", "attn",
+         "flash ignores the window")])
     reduced_reference(dev)
     print(f"f32 and reduced checks: {time.perf_counter() - t0:.1f}s")
     print(f"total {time.perf_counter() - t_start:.1f}s")

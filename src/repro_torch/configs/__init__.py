@@ -14,6 +14,7 @@ ARCHS = [
     "falcon_mamba_7b",
     "granite_moe_1b_a400m",
     "qwen3_1_7b",
+    "recurrentgemma_9b",
 ]
 
 def _module(name: str):

@@ -368,7 +368,9 @@ class _Translator:
         if node.kwargs.get("approximate", "none") != "tanh":
             return self.custom(node)
         v = _meta(node)
-        return self.ew("gelu", [node.args[0]], v.shape, dtype_name(v.dtype))
+        # one operand: no promotion to work out (result_type needs two)
+        return self.ew("gelu", [node.args[0]], v.shape, dtype_name(v.dtype),
+                       promote=dtype_name(v.dtype))
 
     def op__to_copy(self, node):
         v = _meta(node)

@@ -18,23 +18,34 @@
 // Bound on this card: at the prefill's (B=4, L=256, Hq/Hkv=16/8, Dh=128) in
 // bf16, q, k, v and the output are 12.6 MB, 3.8 us at 3.35 TB/s; the causal
 // QK^T and PV products are 1.08 GFLOP, 1.1 us at the bf16 tensor-core rate.
+// At recurrentgemma's (B=4, L=256, Hq/Hkv=16/1, Dh=256) in bf16: 17.8 MB,
+// 5.3 us; 2.16 GFLOP causal, 2.2 us on the tensor cores.
 // So the work is bound by bytes, but this kernel is not: it runs its
-// products as f32 FMAs on the CUDA cores (see below), where shared-memory
-// loads feeding the FMAs set its pace.
+// products as f32 FMAs on the CUDA cores (see below; 32 us for the Dh=256
+// products at the f32 rate), where shared-memory loads feeding the FMAs set
+// its pace.
 //
-// Design: one block of 128 threads per (tile of 64 q rows, q head, batch).
+// Design: one block of 128 threads per (tile of q rows, q head, batch): 64
+// rows at head widths up to 128, 32 rows at head widths 129..256.
 // A loop inside the block walks the kv tiles of 64 keys; it takes the place
 // of the TPU's sequential fourth grid axis, and the block keeps its own m, l
 // and acc in registers across it.  The q tile and each K and V tile are
 // staged in shared memory as f32 (rows padded to one more than the head
 // width, so neighbouring rows fall in other banks).  Thread (ty, tx) of a
-// 16 x 8 layout owns rows 4ty..4ty+3: it scores keys tx + 8j of the tile,
+// 16 x 8 layout owns rows R*ty..R*ty+R-1 (R = 4, or 2 above head width
+// 128): it scores keys tx + 8j of the tile,
 // the row's max and sum are reduced over its 8 lanes by warp shuffles, and
 // it accumulates output dims tx + 8j, reading the tile's probabilities back
 // from shared memory.  Scores and the PV product are f32 FMAs, and exp is
 // the accurate expf, as the reference keeps q, k, v and p in f32: tensor
 // cores would round p to bf16 (or f32 inputs to TF32).  Those, TMA and
 // splitting long kv ranges over blocks are later work.
+//
+// Head width 256 (recurrentgemma, 16 q heads on one kv head): the 64-row
+// tile would take 214 KB of shared memory and 128 f32 accumulators a
+// thread, where ptxas spills.  So above 128 a block holds 32 q rows, 2 a
+// thread: 172.8 KB of shared memory (one block an SM) and 64 accumulators
+// a thread.  The instances up to 128 keep their 64-row tile.
 //
 // Only the kv tiles that can hold a valid key of the block's rows are
 // walked: from the window's first key of the block's first row to the
@@ -56,13 +67,22 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;            // q rows per block
 constexpr int kBlockK = 64;            // keys per kv tile
 constexpr int kLanes = 8;              // threads sharing one group of rows
-constexpr int kRows = 4;               // rows per thread
+constexpr int kThreads = 128;
+constexpr int kGroups = kThreads / kLanes;  // 16 groups of rows
 constexpr int kKeys = kBlockK / kLanes;  // keys per thread and tile
-constexpr int kThreads = kBlockQ / kRows * kLanes;  // 128
-constexpr int kMaxHeadDim = 128;
+constexpr int kMaxHeadDim = 256;
+
+// rows per thread, and q rows per block, at padded head width DH
+template <int DH>
+__host__ __device__ constexpr int rows_per_thread() {
+  return DH <= 128 ? 4 : 2;
+}
+template <int DH>
+__host__ __device__ constexpr int block_q() {
+  return rows_per_thread<DH>() * kGroups;
+}
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -91,8 +111,8 @@ __device__ __forceinline__ float lanes_sum(float x) {
 // probabilities at row stride kBlockK + 1
 template <int DH>
 constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         ((kBlockQ + 2 * kBlockK) * (DH + 1) + kBlockQ * (kBlockK + 1));
+  return sizeof(float) * ((block_q<DH>() + 2 * kBlockK) * (DH + 1) +
+                          block_q<DH>() * (kBlockK + 1));
 }
 
 // DH: the head width padded up to a multiple of kLanes (dims dh..DH-1 are
@@ -106,6 +126,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   long long k_sh, long long k_ss, long long v_sb,
                   long long v_sh, long long v_ss, float scale, int causal,
                   int window, int q_offset) {
+  constexpr int kRows = rows_per_thread<DH>();
+  constexpr int kBlockQ = block_q<DH>();
   constexpr int SD = DH + 1;
   constexpr int SP = kBlockK + 1;
   constexpr int DPT = DH / kLanes;     // output dims per thread
@@ -238,7 +260,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DH>
-cudaError_t launch(dim3 grid, cudaStream_t stream, const void* q,
+cudaError_t launch(int batch, cudaStream_t stream, const void* q,
                    const void* k, const void* v, void* out, int hq, int lq,
                    int lkv, int dh, int group, long long q_sb, long long q_sh,
                    long long q_ss, long long k_sb, long long k_sh,
@@ -246,6 +268,8 @@ cudaError_t launch(dim3 grid, cudaStream_t stream, const void* q,
                    long long v_ss, float scale, int causal, int window,
                    int q_offset) {
   constexpr size_t shmem = smem_bytes<DH>();
+  static_assert(shmem <= 232448, "a block's shared memory exceeds the card's");
+  const dim3 grid((lq + block_q<DH>() - 1) / block_q<DH>(), hq, batch);
   cudaError_t err = cudaFuncSetAttribute(
       flash_attn_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(shmem));
@@ -259,7 +283,7 @@ cudaError_t launch(dim3 grid, cudaStream_t stream, const void* q,
 }
 
 template <typename T>
-cudaError_t dispatch(int dh, dim3 grid, cudaStream_t stream, const void* q,
+cudaError_t dispatch(int dh, int batch, cudaStream_t stream, const void* q,
                      const void* k, const void* v, void* out, int hq, int lq,
                      int lkv, int group, long long q_sb, long long q_sh,
                      long long q_ss, long long k_sb, long long k_sh,
@@ -267,13 +291,14 @@ cudaError_t dispatch(int dh, dim3 grid, cudaStream_t stream, const void* q,
                      long long v_ss, float scale, int causal, int window,
                      int q_offset) {
 #define REPRO_LAUNCH(D)                                                      \
-  return launch<T, D>(grid, stream, q, k, v, out, hq, lq, lkv, dh, group,    \
+  return launch<T, D>(batch, stream, q, k, v, out, hq, lq, lkv, dh, group,    \
                       q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,  \
                       scale, causal, window, q_offset)
   if (dh <= 16) REPRO_LAUNCH(16);
   if (dh <= 32) REPRO_LAUNCH(32);
   if (dh <= 64) REPRO_LAUNCH(64);
-  REPRO_LAUNCH(128);
+  if (dh <= 128) REPRO_LAUNCH(128);
+  REPRO_LAUNCH(256);
 #undef REPRO_LAUNCH
 }
 
@@ -294,15 +319,14 @@ extern "C" int repro_flash_attention(
       hq % hkv != 0 || lq <= 0 || lkv <= 0 || dh <= 0 || dh > kMaxHeadDim ||
       q_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((lq + kBlockQ - 1) / kBlockQ, hq, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch<float>(dh, grid, s, q, k, v, out, hq, lq, lkv, hq / hkv,
+    err = dispatch<float>(dh, batch, s, q, k, v, out, hq, lq, lkv, hq / hkv,
                           q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
                           v_ss, scale, causal, window, q_offset);
   else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(dh, grid, s, q, k, v, out, hq, lq, lkv,
+    err = dispatch<__nv_bfloat16>(dh, batch, s, q, k, v, out, hq, lq, lkv,
                                   hq / hkv, q_sb, q_sh, q_ss, k_sb, k_sh,
                                   k_ss, v_sb, v_sh, v_ss, scale, causal,
                                   window, q_offset);

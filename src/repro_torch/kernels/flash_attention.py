@@ -30,7 +30,7 @@ from . import build
 __all__ = ["bind", "flash_attention", "flash_attention_plain", "launches"]
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_LIMIT = 65535       # the kernel's grid: (q tiles, Hq, B)
 
@@ -154,7 +154,8 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
     ``q_offset``: absolute position of q[0] (for chunked prefill).
     ``block_q`` / ``block_k`` are the reference's TPU tile sizes, taken so
     that callers of either package pass the same arguments; the result
-    does not depend on them, and the kernel keeps its own 64 x 64 tiles."""
+    does not depend on them, and the kernel keeps its own tiles (64 q rows
+    by 64 keys, 32 q rows above head width 128)."""
     del block_q, block_k
     Dh = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(Dh)

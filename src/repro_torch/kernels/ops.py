@@ -6,12 +6,12 @@ kernels and the plain oracles.
 
 * ``"kernels"`` — the hand-written kernels, the counterpart of the
   reference's ``"pallas"`` mode: RMSNorm, RoPE and SwiGLU/GeGLU in Triton,
-  decode attention, flash attention, the MoE router and the Mamba-1
-  selective scan in CUDA C++.  Each is a ``torch.library`` custom op, so
-  the tracer sees one node (with a projection per output) and tags it with
-  the reference kernel's name; the planner's registry prices the tags it
-  knows and cuts the graph at the others (the scan), as the reference's
-  does.  On the CPU the op runs its plain version.
+  decode attention, flash attention, the MoE router, the Mamba-1
+  selective scan and the RG-LRU recurrence in CUDA C++.  Each is a
+  ``torch.library`` custom op, so the tracer sees one node (with a
+  projection per output) and tags it with the reference kernel's name; the
+  planner's registry prices the tags it knows and cuts the graph at the
+  others (the two recurrences), as the reference's does.  On the CPU the op runs its plain version.
 * ``"ref"`` — the plain-PyTorch oracles of :mod:`.ref`; the default.
 
 The switch is a context variable, read when the model function runs: at
@@ -33,12 +33,13 @@ from . import flash_attention as _flash
 from . import mamba_scan as _mamba
 from . import norms as _norms
 from . import ref as _ref
+from . import rg_lru as _rglru
 from . import rope as _rope
 from . import router as _router
 
 __all__ = ["KernelMode", "get_mode", "kernel_mode", "rmsnorm", "swiglu",
            "geglu", "rope", "attention", "decode_attention", "topk_router",
-           "mamba_scan", "KERNEL_TAGS",
+           "mamba_scan", "rg_lru", "KERNEL_TAGS",
            "launch_counts", "launch_counts_by_signature", "reset_launch_counts"]
 
 KernelMode = Literal["kernels", "ref"]
@@ -48,11 +49,12 @@ _mode: contextvars.ContextVar[str] = contextvars.ContextVar("kernel_mode",
 # kernel modules by the name their launches are counted under
 _KERNELS = {"rmsnorm": _norms, "glu": _act, "rope": _rope,
             "decode_attention": _decode, "flash_attention": _flash,
-            "router": _router, "mamba_scan": _mamba}
+            "router": _router, "mamba_scan": _mamba, "rg_lru": _rglru}
 
 # each custom op -> the reference kernel body it ports, the name the
-# planner's registry (kernels/registry.py) knows it by; ``_mamba_kernel`` is
-# not in the registry (nor in the reference's), so its node cuts the graph
+# planner's registry (kernels/registry.py) knows it by; ``_mamba_kernel`` and
+# ``_rglru_kernel`` are not in the registry (nor in the reference's), so
+# their nodes cut the graph
 KERNEL_TAGS = {
     torch.ops.repro_torch.rmsnorm.default: "_rmsnorm_kernel",
     torch.ops.repro_torch.glu.default: "_glu_kernel",
@@ -61,6 +63,7 @@ KERNEL_TAGS = {
     torch.ops.repro_torch.flash_attention.default: "_flash_kernel",
     torch.ops.repro_torch.topk_router.default: "_router_kernel",
     torch.ops.repro_torch.mamba_scan.default: "_mamba_kernel",
+    torch.ops.repro_torch.rg_lru.default: "_rglru_kernel",
 }
 
 
@@ -160,3 +163,14 @@ def mamba_scan(x, delta, A, B, C, D, return_state: bool = False):
     if _use_kernels() and not return_state:
         return _mamba.mamba_scan(x, delta, A, B, C, D)
     return _ref.mamba_scan(x, delta, A, B, C, D, return_state=return_state)
+
+
+def rg_lru(x, input_gate, rec_gate, Lambda, c: float = 8.0,
+           return_state: bool = False):
+    """x, input_gate, rec_gate (B, L, D); Lambda (D,) -> every h_t (B, L, D)
+    [, the last h (B, D) f32].  The kernel takes no state out, so a call
+    that asks for it runs the oracle, as in the reference."""
+    if _use_kernels() and not return_state:
+        return _rglru.rg_lru(x, input_gate, rec_gate, Lambda, c)
+    return _ref.rg_lru(x, input_gate, rec_gate, Lambda, c,
+                       return_state=return_state)

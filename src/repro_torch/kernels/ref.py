@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["rmsnorm", "swiglu", "geglu", "rope", "attention", "topk_router",
-           "mamba_scan"]
+           "mamba_scan", "softplus", "rg_lru"]
 
 
 def rmsnorm(x, gamma, eps: float = 1e-6):
@@ -148,3 +148,71 @@ def mamba_scan(x, delta, A, B, C, D, return_state: bool = False):
     if return_state:
         return _mamba_scan_ref_state(x, delta, A, B, C, D)
     return _mamba_scan_ref(x, delta, A, B, C, D)
+
+
+def softplus(x):
+    """``jax.nn.softplus`` = ``logaddexp(x, 0)`` in the reference's own
+    steps, each in x's dtype: ``max(x, 0) + log1p(exp(-|x - 0|))``, and
+    ``x + 0`` where ``x - 0`` is NaN.  (``F.softplus`` has a threshold and
+    is one node.)"""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    d = x - zero
+    out = torch.maximum(x, zero) + torch.log1p(torch.exp(-torch.abs(d)))
+    return torch.where(d != d, x + zero, out)
+
+
+def _linear_scan(a, gx):
+    """``h_t = a_t * h_{t-1} + gx_t`` from ``h = 0``, f32: a, gx (B, L, D)
+    -> (every h_t (B, L, D), the last h (B, D))."""
+    h = a.new_zeros((a.shape[0], a.shape[2]))
+    hs = torch.empty_like(a)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + gx[:, t]
+        hs[:, t] = h
+    return hs, h
+
+
+# Only the recurrence is a custom op, so a trace holds the gate chain as
+# ordinary nodes and the loop as one untagged CUSTOM node, as the
+# reference's jaxpr holds its lax.scan; the planner cuts the graph there.
+@torch.library.custom_op("repro_torch::linear_scan_ref", mutates_args=())
+def _linear_scan_ref(a: torch.Tensor, gx: torch.Tensor) -> torch.Tensor:
+    return _linear_scan(a, gx)[0]
+
+
+@_linear_scan_ref.register_fake
+def _(a, gx):
+    return a.new_empty(a.shape)
+
+
+@torch.library.custom_op("repro_torch::linear_scan_ref_state", mutates_args=())
+def _linear_scan_ref_state(a: torch.Tensor,
+                           gx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return _linear_scan(a, gx)
+
+
+@_linear_scan_ref_state.register_fake
+def _(a, gx):
+    return a.new_empty(a.shape), a.new_empty((a.shape[0], a.shape[2]))
+
+
+def rg_lru(x, input_gate, rec_gate, Lambda, c: float = 8.0,
+           return_state: bool = False):
+    """RG-LRU (RecurrentGemma) oracle.  x, input_gate, rec_gate (B, L, D);
+    Lambda (D,).  ``a_t = exp(-c * softplus(Lambda) * sigmoid(rec_gate))``,
+    ``h_t = a_t * h_{t-1} + sqrt(max(1 - a_t^2, 1e-12)) * (sigmoid(input_gate)
+    * x_t)``, in f32.  Returns every h_t in x's dtype (B, L, D) [, the last
+    h (B, D) f32]."""
+    xf = x.to(torch.float32)
+    log_a = -c * softplus(Lambda.to(torch.float32)) * torch.sigmoid(
+        rec_gate.to(torch.float32))
+    a = torch.exp(log_a)
+    gated = torch.sigmoid(input_gate.to(torch.float32)) * xf
+    # jnp.maximum's spelling: a max node against a scalar (clamp_min traces
+    # to an opaque clamp)
+    floor = torch.full((), 1e-12, dtype=torch.float32, device=a.device)
+    gx = torch.sqrt(torch.maximum(1.0 - a * a, floor)) * gated
+    if return_state:
+        hs, h = _linear_scan_ref_state(a, gx)
+        return hs.to(x.dtype), h
+    return _linear_scan_ref(a, gx).to(x.dtype)

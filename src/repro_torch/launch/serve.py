@@ -10,7 +10,8 @@ without it the model runs eagerly.  ``--reduced`` selects the tiny
 same-family config; ``--device cpu`` runs on the CPU (the default is the
 card, and the launcher refuses to run without one).  Continuous batching
 needs the scheduler, which is not ported yet, and so is serving the ssm
-family (``--arch falcon-mamba-7b`` raises ``NotImplementedError``).
+and hybrid families (``--arch falcon-mamba-7b`` and ``--arch
+recurrentgemma-9b`` raise ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -61,10 +62,10 @@ def main(argv=None) -> dict:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
-            f"ssm serving is not ported yet ({cfg.name}); the model scores "
-            f"through Model.train_forward and Model.block_fn")
+            f"{cfg.family} serving is not ported yet ({cfg.name}); the model "
+            f"scores through Model.train_forward and Model.block_fn")
     model = build_model(cfg)
     params = model.init(args.seed, device)
     scfg = ServeConfig(batch=args.slots, max_len=args.max_len,

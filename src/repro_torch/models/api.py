@@ -1,14 +1,14 @@
 """Unified model interface: build a ported architecture from its config and
 get its callables.  Dense and MoE families serve (init / prefill / decode);
-the ssm family (falcon-mamba) scores (``train_forward``, ``block_fn``) and
-does not serve yet."""
+the ssm family (falcon-mamba) and the hybrid family (recurrentgemma) score
+(``train_forward``, ``block_fn``) and do not serve yet."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Callable
 
-from . import lm, mamba
+from . import griffin, lm, mamba
 from .config import ModelConfig
 
 Params = dict[str, Any]
@@ -31,7 +31,11 @@ class Model:
 
     def layer_params(self, params: Params, index: int = 0) -> Params:
         """One layer's params, the ``block_fn`` operand for layer
-        ``index``."""
+        ``index``.  The hybrid family keeps no ``layers`` list: its
+        ``block_fn`` operand is ``params["supers"][i]["l0"]``."""
+        if "layers" not in params:
+            raise ValueError(f"{self.cfg.family!r} params carry no stacked "
+                             f"'layers' tree")
         return params["layers"][index]
 
 
@@ -44,10 +48,18 @@ def build_model(cfg: ModelConfig) -> Model:
             train_forward=lambda p, batch: mamba.train_forward(p, batch, cfg),
             block_fn=lambda lp, x: mamba._block(lp, x, cfg),
         )
+    if cfg.family == "hybrid":
+        return Model(
+            cfg=cfg,
+            init=lambda seed, device: griffin.init_params(cfg, seed, device),
+            prefill=None, decode_step=None, init_cache=None,
+            train_forward=lambda p, batch: griffin.train_forward(p, batch, cfg),
+            block_fn=lambda lp, x: griffin._rec_block(lp, x, cfg),
+        )
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, moe and ssm "
-            f"only)")
+            f"family {cfg.family!r} is not ported yet (dense, moe, ssm and "
+            f"hybrid only)")
     return Model(
         cfg=cfg,
         init=lambda seed, device: lm.init_params(cfg, seed, device),

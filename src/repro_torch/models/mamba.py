@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import softplus as _softplus
 from .config import ModelConfig, SSMConfig
 from .layers import Params, _normal, apply_norm, init_norm, torch_dtype
 from .lm import embed_tokens, lm_loss
@@ -81,17 +82,6 @@ def init_params(cfg: ModelConfig, seed: int, device) -> Params:
 def _silu(x):
     """``jax.nn.silu``'s spelling: ``x * logistic(x)``."""
     return x * torch.sigmoid(x)
-
-
-def _softplus(x):
-    """``jax.nn.softplus`` = ``logaddexp(x, 0)`` in the reference's own
-    steps, each in x's dtype: ``max(x, 0) + log1p(exp(-|x - 0|))``, and
-    ``x + 0`` where ``x - 0`` is NaN.  (``F.softplus`` has a threshold and
-    is one node.)"""
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    d = x - zero
-    out = torch.maximum(x, zero) + torch.log1p(torch.exp(-torch.abs(d)))
-    return torch.where(d != d, x + zero, out)
 
 
 def _causal_conv(x, w, b):

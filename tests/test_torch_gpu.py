@@ -234,11 +234,15 @@ def test_decode_attention_kernel_on_card(window, dtype, tol):
 
 # (B, Hq, Hkv, Lq, Lkv, Dh, causal, window, q_offset): the prefill's shape
 # at bucket 256; a chunk after 256 cached tokens with a window; MHA at Dh 64
-# off the tile grid; rows without a valid key (qpos >= Lkv - 1 + window)
+# off the tile grid; rows without a valid key (qpos >= Lkv - 1 + window);
+# recurrentgemma's head width 256 on one kv head (a group of 16) at its
+# scoring shape, and off the 32-row tile with a window below L
 FLASH_CASES = [(4, 16, 8, 256, 256, 128, True, None, 0),
                (2, 8, 4, 128, 384, 128, True, 64, 256),
                (2, 4, 4, 200, 200, 64, False, 48, 0),
-               (1, 4, 2, 128, 128, 128, True, 16, 100)]
+               (1, 4, 2, 128, 128, 128, True, 16, 100),
+               (4, 16, 1, 256, 256, 256, True, None, 0),
+               (1, 16, 1, 300, 300, 256, True, 64, 0)]
 
 
 @pytest.mark.gpu
@@ -416,6 +420,83 @@ def test_reduced_falcon_mamba_kernel_mode_on_card():
     torch.testing.assert_close(y, model.block_fn(lp, x), rtol=2e-5, atol=2e-5)
 
 
+# (B, L, D): recurrentgemma-9b's scoring shape, one step, a ragged L, many
+# chunks of 16 steps, D off the 128-channel block
+RGLRU_CASES = [(4, 256, 4096), (1, 1, 4096), (2, 37, 256), (1, 2560, 512),
+               (3, 20, 100)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
+def test_rg_lru_kernel_on_card(dtype, tol):
+    """The RG-LRU kernel against its plain version; the C entry point
+    refuses what the kernel does not take."""
+    _need_card()
+    from repro_torch.kernels import rg_lru
+    for i, (B, L, D) in enumerate(RGLRU_CASES):
+        x, ig, rg = (_rand((B, L, D), dtype, 40 + 4 * i + j) for j in range(3))
+        lam = _rand((D,), "float32", 43 + 4 * i)
+        before = sum(rg_lru.launches.values())
+        y = rg_lru.rg_lru(x, ig, rg, lam)
+        torch.cuda.synchronize()
+        assert sum(rg_lru.launches.values()) == before + 1
+        assert y.dtype == x.dtype and y.is_contiguous()
+        torch.testing.assert_close(
+            y.float(), rg_lru.rg_lru_plain(x, ig, rg, lam).float(),
+            rtol=tol, atol=tol)
+    x, ig, rg = (_rand((2, 8, 64), dtype, j) for j in range(3))
+    lam = _rand((64,), "float32", 3)
+    other = torch.bfloat16 if dtype == "float32" else torch.float32
+    with pytest.raises(ValueError, match="differ in dtype"):
+        rg_lru.rg_lru(x, ig.to(other), rg, lam)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        rg_lru.rg_lru(x.half(), ig.half(), rg.half(), lam)
+    with pytest.raises(ValueError, match="empty"):
+        rg_lru.rg_lru(x[:, :0], ig[:, :0], rg[:, :0], lam)
+    # channel-major: the same values with a channel stride of 8
+    xs, igs, rgs = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                    for t in (x, ig, rg))
+    with pytest.raises(ValueError, match="contiguous"):
+        rg_lru.rg_lru(xs, igs, rgs, lam)
+
+
+@pytest.mark.gpu
+def test_reduced_recurrentgemma_kernel_mode_on_card():
+    """Reduced recurrentgemma in float32, scored through stitch() in kernel
+    mode at S = 128 (flash in the attention layer, window 16): the loss and
+    a recurrent block's output equal eager ref mode, with one RG-LRU launch a
+    recurrent layer and one flash launch an attention layer a call."""
+    _need_card()
+    from repro_torch.configs import get_reduced
+    from repro_torch.exec import stitch
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    cfg = replace(get_reduced("recurrentgemma-9b"), dtype="float32")
+    model = build_model(cfg)
+    params = model.init(0, "cuda")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (2, 128)),
+                                device="cuda") for k in ("tokens", "labels")}
+    x = torch.as_tensor(rng.standard_normal((2, 128, cfg.d_model)),
+                        dtype=torch.float32, device="cuda")
+    lp = params["supers"][0]["l0"]
+    ops.reset_launch_counts()
+    with ops.kernel_mode("kernels"):
+        score = stitch(model.train_forward, device="cuda")
+        block = stitch(model.block_fn, device="cuda")
+        loss, _ = score(params, batch)
+        y = block(lp, x)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["rg_lru"] == 4 + 1
+    assert counts["flash_attention"] == 1 and counts["rope"] == 2
+    assert counts["rmsnorm"] == 2 * cfg.n_layers + 1 + 2
+    assert counts["glu"] == cfg.n_layers + 1
+    eager_loss, _ = model.train_forward(params, batch)
+    torch.testing.assert_close(loss, eager_loss, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(y, model.block_fn(lp, x), rtol=2e-5, atol=2e-5)
+
+
 @pytest.mark.gpu
 def test_cuda_library_builds_from_an_empty_directory(tmp_path):
     _need_card()
@@ -427,7 +508,8 @@ def test_cuda_library_builds_from_an_empty_directory(tmp_path):
     for stem, fn in (("decode_attention", "repro_decode_attention"),
                      ("flash_attention", "repro_flash_attention"),
                      ("router", "repro_topk_router"),
-                     ("mamba_scan", "repro_mamba_scan")):
+                     ("mamba_scan", "repro_mamba_scan"),
+                     ("rg_lru", "repro_rg_lru")):
         lib = ctypes.CDLL(str(libs[stem]))
         assert hasattr(lib, fn)
         assert "registers" in libs[stem].with_suffix(".log").read_text()

@@ -6,10 +6,11 @@ hold the plain versions against the reference kernels run in interpret
 mode, on the same numpy inputs: RMSNorm, SwiGLU/GeGLU, RoPE, decode
 attention and flash attention (the MoE router's are in
 ``tests/test_torch_moe.py``, the selective scan's in
-``tests/test_torch_mamba.py``), in float32 (rtol/atol 2e-4, the reference's
+``tests/test_torch_mamba.py``, the RG-LRU's in
+``tests/test_torch_griffin.py``), in float32 (rtol/atol 2e-4, the reference's
 own tolerance) and bfloat16 (1.6e-2: one bf16 rounding step of the outputs, which both sides
 cast from f32).  They also run ``torch.library.opcheck`` on the custom
-ops (the selective scan's oracle ops too), check the mode switch, and drive the CUDA build with a stand-in
+ops (the selective scan's and the RG-LRU's oracle ops too), check the mode switch, and drive the CUDA build with a stand-in
 compiler.  The kernels themselves run only on the card
 (``tests/test_torch_gpu.py``).
 """
@@ -32,7 +33,7 @@ from repro.kernels import norms as ref_norms
 from repro.kernels import rope as ref_rope
 from repro_torch.kernels import activations, build, decode_attention, norms, ops
 from repro_torch.kernels import flash_attention, mamba_scan
-from repro_torch.kernels import ref, rope, router
+from repro_torch.kernels import ref, rg_lru, rope, router
 
 DTYPES = [("float32", 2e-4), ("bfloat16", 1.6e-2)]
 
@@ -137,6 +138,10 @@ FLASH_CASES = {
     # no valid key and come out as the mean of V
     "rows_without_a_valid_key": (1, 4, 2, 64, 128, 16, True, 16, 100),
     "window24_not_causal": (1, 2, 1, 64, 64, 16, False, 24, 0),
+    # recurrentgemma's head width, one kv head: a window below L, and a
+    # group of 16 as in the full config
+    "mqa_dh256_window40": (1, 4, 1, 128, 128, 256, True, 40, 0),
+    "mqa_g16_dh256": (1, 16, 1, 64, 64, 256, True, None, 0),
 }
 
 
@@ -210,6 +215,18 @@ def _op_cases():
          _scan_args(t, torch.float32, strided=True)),
         ("mamba_scan_ref_state", torch.ops.repro_torch.mamba_scan_ref_state.default,
          _scan_args(t, torch.bfloat16)),
+        ("flash_attention_dh256_mqa", flash_attention.flash_attention_op,
+         (t(1, 8, 4, 256).transpose(1, 2), t(1, 8, 1, 256).transpose(1, 2),
+          t(1, 8, 1, 256).transpose(1, 2), 0.0625, True, 4, 0)),
+        ("rg_lru", rg_lru.rg_lru_op, (t(2, 5, 6), t(2, 5, 6), t(2, 5, 6),
+                                      t(6), 8.0)),
+        ("rg_lru_bf16", rg_lru.rg_lru_op,
+         (*(t(2, 5, 6, dtype=torch.bfloat16) for _ in range(3)), t(6), 4.0)),
+        ("linear_scan_ref", torch.ops.repro_torch.linear_scan_ref.default,
+         (t(2, 5, 6).sigmoid(), t(2, 5, 6))),
+        ("linear_scan_ref_state",
+         torch.ops.repro_torch.linear_scan_ref_state.default,
+         (t(2, 5, 6).sigmoid(), t(2, 5, 6))),
     ]
 
 
@@ -236,8 +253,9 @@ def test_custom_op_opcheck(case):
     (rope, rope.rope_op), (decode_attention, decode_attention.decode_attention_op),
     (flash_attention, flash_attention.flash_attention_op),
     (router, router.topk_router_op), (mamba_scan, mamba_scan.mamba_scan_op),
+    (rg_lru, rg_lru.rg_lru_op),
 ], ids=["rmsnorm", "glu", "rope", "decode_attention", "flash_attention",
-        "topk_router", "mamba_scan"])
+        "topk_router", "mamba_scan", "rg_lru"])
 def test_cuda_launcher_takes_the_op_signature(mod, op):
     """The dispatcher drops an argument left at its default, so the CUDA
     implementation must declare the op's parameters with the same
@@ -283,12 +301,13 @@ def test_cpu_tensors_never_count_launches():
         ops.topk_router(torch.randn(4, 8), 2)
         ops.mamba_scan(x[:, 0], x[:, 0].abs(), -torch.ones(16, 3),
                        torch.randn(4, 2, 3), torch.randn(4, 2, 3), torch.ones(16))
+        ops.rg_lru(x[:, 0], x[:, 0], x[:, 0], torch.ones(16))
     assert ops.launch_counts() == {"rmsnorm": 0, "glu": 0, "rope": 0,
                                    "decode_attention": 0, "flash_attention": 0,
-                                   "router": 0, "mamba_scan": 0}
+                                   "router": 0, "mamba_scan": 0, "rg_lru": 0}
     assert ops.launch_counts_by_signature() == {
         "rmsnorm": {}, "glu": {}, "rope": {}, "decode_attention": {},
-        "flash_attention": {}, "router": {}, "mamba_scan": {}}
+        "flash_attention": {}, "router": {}, "mamba_scan": {}, "rg_lru": {}}
 
 
 def test_launch_signature_keys_shapes_dtypes_and_arguments():
@@ -350,6 +369,6 @@ def test_build_failure_raises_with_nvcc_output(tmp_path, monkeypatch):
 def test_csrc_sources_are_found():
     stems = {p.stem for p in build.CSRC.glob("*.cu")}
     assert {"decode_attention", "flash_attention", "router",
-            "mamba_scan"} <= stems
+            "mamba_scan", "rg_lru"} <= stems
     assert build.build_dir().parts[-2:] == ("build", "kernels")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
