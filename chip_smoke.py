@@ -7,13 +7,15 @@ result line):
 
 0. Build: the CUDA C++ libraries (``src/repro_torch/csrc``) and their
    planted-fault copies from an empty ``build/kernels``, one nvcc each, all
-   started together, with each one's build seconds and ptxas report.
+   started together, with each one's build seconds and ptxas report; the
+   Triton kernels' planted-fault sources.
 1. Sample kernels: generated Triton stitched kernels for a softmax, an
-   RMSNorm chain and a SwiGLU chain, and the eight hand-written kernels
-   (RMSNorm, SwiGLU/GeGLU, RoPE, decode attention, flash attention, the MoE
-   router, the selective scan, the RG-LRU) at sample shapes, each held against its plain PyTorch version on
-   the card (the router's ids exactly on rows without a near tie, ties to
-   the lowest index), the RG-LRU recurrence).
+   RMSNorm chain and a SwiGLU chain, and the ten hand-written kernels
+   (RMSNorm, LayerNorm, SwiGLU/GeGLU, squared ReLU, RoPE, decode attention,
+   flash attention, the MoE router, the selective scan, the RG-LRU) at
+   sample shapes, each held against its plain PyTorch version on the card
+   (the router's ids exactly on rows without a near tie, ties to the
+   lowest index).
 2. Ref-mode path: full-width qwen3-1.7b (random weights from a seed)
    answers 4 requests through ``Engine(stitch_execute=True)``: the stitched
    prefill and the stitched decode on every step.  Launch counts are zeroed
@@ -79,6 +81,23 @@ result line):
    that the 2048-token window masks keys: the loss, the recurrent block's
    and the first attention block's output against eager ref mode, with
    faults planted in the RG-LRU kernel and in flash attention's window.
+
+8. Dense LayerNorm phase (after the hybrid phase): LayerNorm and squared
+   ReLU at nemotron-4-15b's shapes, decode attention and flash at its GQA
+   group of 6 (48 / 8 heads), with phase 1's samples; full-width
+   nemotron-4-15b (32 layers, d_model 6144, d_ff 24576, vocab 256000, bf16
+   parameters: 62.5 GB in f32 would leave the plans no room on one card;
+   random weights, every norm's gamma and beta seeded away from 1 and 0)
+   served in kernel mode at the long prompts (bucket 256): exactly 65
+   LayerNorm, 64 RoPE and 32 squared-ReLU launches a prefill call and a
+   decode step, with 32 flash launches a prefill and 32 decode-attention
+   launches a step; every kernel of the path against its plain version,
+   LayerNorm beside ``F.layer_norm``, squared ReLU beside the ``relu ->
+   square`` chain; bf16 prefill and first-step logits against the eager
+   ref-mode engine over several weight seeds; then (with the float32
+   checks) the model cut to 4 layers in float32, with faults planted in
+   the two Triton kernels (LayerNorm without beta, squared ReLU squaring
+   before the max).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -821,15 +840,27 @@ HAND = {
                       "src/repro/kernels/mamba_scan.py:52"),
     "_rglru_kernel": ("rg_lru", "cuda", "src/repro_torch/csrc/rg_lru.cu",
                       "src/repro/kernels/rg_lru.py:44"),
+    "_layernorm_kernel": ("layernorm", "triton",
+                          "src/repro_torch/kernels/norms.py",
+                          "src/repro/kernels/norms.py:105"),
+    "_sqrelu_kernel": ("squared_relu", "triton",
+                       "src/repro_torch/kernels/activations.py",
+                       "src/repro/kernels/activations.py:65"),
 }
-# elementwise operations per output element (the bound's operation count)
-HAND_OPS = {"_rmsnorm_kernel": 4, "_glu_kernel": 5, "_rope_kernel": 6}
+# elementwise operations per output element (the bound's operation count):
+# LayerNorm's two sums, x - mu, its square, the products by rsqrt and gamma
+# and the sum with beta; squared ReLU's max and product
+HAND_OPS = {"_rmsnorm_kernel": 4, "_glu_kernel": 5, "_rope_kernel": 6,
+            "_layernorm_kernel": 7, "_sqrelu_kernel": 2}
 
 
 def expected_launches(cfg, bucket: int | None = None) -> tuple[dict, dict]:
     """Hand-written kernel launches per decode step and per prefill call,
-    from the config: 2 norms a layer (4 with qk-norm) + the final one, 2
-    rotaries and 1 GLU a layer (the experts' GLU in a MoE layer), the router
+    from the config: 2 norms a layer + the final one (LayerNorm where
+    ``cfg.norm`` is ``ln``, else RMSNorm), 2 more RMSNorms a layer with
+    qk-norm, 2 rotaries and 1 activation a layer (squared ReLU where
+    ``cfg.act`` is ``sqrelu``, else the GLU; the experts' GLU in a MoE
+    layer), the router
     once a MoE layer, decode attention once a layer on decode only, flash
     attention once a layer on a prefill whose bucket is a multiple of 128.
     The ssm and hybrid families score and do not serve: both are then one
@@ -850,9 +881,11 @@ def expected_launches(cfg, bucket: int | None = None) -> tuple[dict, dict]:
                     rope=2 * n_attn,
                     flash_attention=n_attn if bucket % 128 == 0 else 0)
         return call, call
-    step = dict(zero, rmsnorm=(4 if cfg.qk_norm else 2) * L + 1, rope=2 * L,
-                glu=L, decode_attention=L,
+    step = dict(zero, rope=2 * L, decode_attention=L,
                 router=L if cfg.family == "moe" else 0)
+    step["layernorm" if cfg.norm == "ln" else "rmsnorm"] += 2 * L + 1
+    step["rmsnorm"] += 2 * L if cfg.qk_norm else 0
+    step["squared_relu" if cfg.act == "sqrelu" else "glu"] += L
     return step, dict(step, decode_attention=0,
                       flash_attention=L if bucket % 128 == 0 else 0)
 
@@ -885,6 +918,25 @@ FAULTS = {
 }
 
 
+# planted faults in the Triton kernels, the same plan as ``FAULTS``: keyed by
+# fault, (kernel module, kernel function, sound text, planted text).
+# LayerNorm drops beta; squared ReLU squares before the max, so negative
+# inputs come out as their squares
+TRITON_FAULTS = {
+    "layernorm_no_beta": ("norms", "_layernorm_kernel",
+                          "y = xc * tl.rsqrt(var + eps) * g + b",
+                          "y = xc * tl.rsqrt(var + eps) * g"),
+    "sqrelu_square_first": (
+        "activations", "_sqrelu_kernel",
+        "r = tl.maximum(x, 0.0, propagate_nan=tl.PropagateNan.ALL)\n"
+        "    tl.store(o_ptr + off, (r * r)",
+        "r = tl.maximum(x * x, 0.0, propagate_nan=tl.PropagateNan.ALL)\n"
+        "    tl.store(o_ptr + off, (r)"),
+}
+# the module global each Triton kernel's jitted function is kept in
+TRITON_JIT = {"_layernorm_kernel": "_LN_JIT", "_sqrelu_kernel": "_SQ_JIT"}
+
+
 def fault_dir(fault: str) -> Path:
     """The directory of one planted fault's source and library."""
     from repro_torch.kernels import build
@@ -893,7 +945,11 @@ def fault_dir(fault: str) -> Path:
 
 def build_phase() -> float:
     """Build every CUDA library, and a copy of each with its fault planted,
-    from an empty ``build/kernels``: one nvcc each, all started together."""
+    from an empty ``build/kernels``: one nvcc each, all started together.
+    Also write each Triton kernel's source with its fault planted
+    (``TRITON_FAULTS``), jitted when the f32 check plants it."""
+    import importlib
+    import inspect
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
     shutil.rmtree(build.build_dir(), ignore_errors=True)
@@ -903,6 +959,16 @@ def build_phase() -> float:
             fail(f"the {stem} source lost the text fault {fault} is planted in")
         fault_dir(fault).mkdir(parents=True)
         (fault_dir(fault) / f"{stem}.cu").write_text(src.replace(sound, planted))
+    for fault, (stem, fn, sound, planted) in TRITON_FAULTS.items():
+        src = inspect.getsource(getattr(importlib.import_module(
+            f"repro_torch.kernels.{stem}"), fn))
+        if src.count(sound) != 1:
+            fail(f"the {fn} source lost the text fault {fault} is planted in")
+        fault_dir(fault).mkdir(parents=True)
+        (fault_dir(fault) / f"{fn}.py").write_text(
+            f'"""{fn} with the fault {fault} planted."""\n'
+            "from __future__ import annotations\n\ntl = libdevice = None\n\n\n"
+            + src.replace(sound, planted))
     jobs = [(src.stem, build.CSRC, None)
             for src in sorted(build.CSRC.glob("*.cu"))]
     jobs += [(stem, fault_dir(f), fault_dir(f))
@@ -934,7 +1000,9 @@ def hand_plain(tag):
     from repro_torch.kernels import activations, decode_attention, norms, rope
     from repro_torch.kernels import flash_attention, mamba_scan, rg_lru, router
     return {"_rmsnorm_kernel": norms.rmsnorm_plain,
+            "_layernorm_kernel": norms.layernorm_plain,
             "_glu_kernel": activations.glu_plain,
+            "_sqrelu_kernel": activations.squared_relu_plain,
             "_rope_kernel": rope.rope_plain,
             "_decode_attn_kernel": decode_attention.decode_attention_plain,
             "_flash_kernel": flash_attention.flash_attention_plain,
@@ -1011,14 +1079,17 @@ FLASH_SAMPLES = [
     ("dh256_g16_l256", 4, 16, 1, 256, 256, 256, True, 2048, 0),
     ("dh256_g16_l1024_window256", 1, 16, 1, 1024, 1024, 256, True, 256, 0),
     ("dh256_g4_lq200_lkv256_off56", 1, 8, 2, 200, 256, 256, True, None, 56),
+    # nemotron-4-15b's prefill at bucket 256: 48 q heads on 8 kv heads
+    ("nemotron_g6_l256", 4, 48, 8, 256, 256, 128, True, None, 0),
 ]
 
 
 def hand_samples(dev):
     """Each hand-written kernel against its plain version at sample shapes
-    (ragged widths, a GQA group of 4, decode positions at 0, in the middle
-    and at Smax-1, with and without a window; the flash cases above), in
-    f32 and bf16."""
+    (ragged widths, GQA groups of 4 and 6, decode positions at 0, in the
+    middle and at Smax-1, with and without a window; the flash cases above;
+    LayerNorm and squared ReLU at nemotron-4-15b's rows and a ragged width),
+    in f32 and bf16."""
     from repro_torch.kernels import activations, decode_attention, norms, rope
     from repro_torch.kernels import flash_attention
     gen = torch.Generator().manual_seed(SEED)
@@ -1054,6 +1125,29 @@ def hand_samples(dev):
                           "_decode_attn_kernel",
                           (dpos, q.transpose(1, 2), k.transpose(1, 2),
                            v.transpose(1, 2), 128 ** -0.5, window)))
+        # nemotron-4-15b's decode step: a GQA group of 6 over 512 keys
+        q, k, v = (rnd(4, 1, 48, 128, dtype=dt), rnd(4, 512, 8, 128, dtype=dt),
+                   rnd(4, 512, 8, 128, dtype=dt))
+        dpos = torch.tensor([[0], [255], [511], [300]], dtype=torch.int32,
+                            device=dev)
+        cases.append((f"decode_attention_{t}_g6_s512",
+                      decode_attention.decode_attention_op,
+                      "_decode_attn_kernel",
+                      (dpos, q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), 128 ** -0.5, None)))
+        # nemotron-4-15b's prefill and decode rows and a ragged width;
+        # seeded gamma and beta, squared ReLU's inputs with exact zeros
+        for rows, d in ((1024, 6144), (4, 6144), (37, 96)):
+            g = (1 + 0.1 * rnd(d, dtype=torch.float32)).to(dt)
+            b = (0.1 * rnd(d, dtype=torch.float32)).to(dt)
+            cases.append((f"layernorm_{t}_{rows}x{d}", norms.layernorm_op,
+                          "_layernorm_kernel",
+                          (2.0 * rnd(rows, d, dtype=dt) + 0.5, g, b, 1e-5)))
+        for rows, d in ((1024, 24576), (4, 24576), (37, 96)):
+            x = rnd(rows, d, dtype=dt)
+            x.view(-1)[::5] = 0.0
+            cases.append((f"squared_relu_{t}_{rows}x{d}",
+                          activations.squared_relu_op, "_sqrelu_kernel", (x,)))
         for name, B, hq, hkv, lq, lkv, dh, causal, window, off in FLASH_SAMPLES:
             q = rnd(B, lq, hq, dh, dtype=dt)
             k, v = rnd(B, lkv, hkv, dh, dtype=dt), rnd(B, lkv, hkv, dh, dtype=dt)
@@ -1219,6 +1313,9 @@ def hand_library(tag, args):
     if tag == "_rmsnorm_kernel":
         x, g, eps = args
         return lambda: F.rms_norm(x, (x.shape[-1],), g, eps)
+    if tag == "_layernorm_kernel":
+        x, g, b, eps = args
+        return lambda: F.layer_norm(x, (x.shape[-1],), g, b, eps)
     if tag == "_decode_attn_kernel":
         pos, qt, kt, vt, scale, *rest = args    # window defaults to None
         window = rest[0] if rest else None
@@ -1333,10 +1430,14 @@ def launch_signature(name, node, tensors) -> tuple:
     from repro_torch.kernels import activations, build, decode_attention
     from repro_torch.kernels import flash_attention, mamba_scan, norms, rope
     from repro_torch.kernels import rg_lru, router
-    launcher = {"rmsnorm": norms, "glu": activations, "rope": rope,
-                "decode_attention": decode_attention,
-                "flash_attention": flash_attention, "router": router,
-                "mamba_scan": mamba_scan, "rg_lru": rg_lru}[name]._launch
+    launcher = {"rmsnorm": norms._launch,
+                "layernorm": norms._launch_layernorm,
+                "glu": activations._launch,
+                "squared_relu": activations._launch_sqrelu,
+                "rope": rope._launch, "decode_attention": decode_attention._launch,
+                "flash_attention": flash_attention._launch,
+                "router": router._launch, "mamba_scan": mamba_scan._launch,
+                "rg_lru": rg_lru._launch}[name]
     _, args, kwargs = op_call(node, tensors)
     return build.signature(*all_args(launcher, args, kwargs))
 
@@ -1413,6 +1514,18 @@ def hand_rows(parts, path):
             if not within((out,), (ref,)):
                 fail(f"{name} at {sig} disagrees with its plain version "
                      f"(max err {err})")
+        if tag == "_sqrelu_kernel":
+            # no single call computes it: the two-call chain is the yardstick
+            x = full[0]
+
+            def chain():
+                return torch.relu(x).square()
+            if not within((chain(),), (ref,)):
+                fail(f"the relu -> square chain disagrees with {name}'s plain "
+                     f"version")
+            extra = {"chain": "relu -> square, two calls",
+                     "chain_ms": timed(chain, 50),
+                     "chain_device_ms": device_ms(chain)}
         lib = hand_library(tag, full)
         lib_ms = lib_dev_ms = lib_err = None
         if lib is not None:
@@ -2022,6 +2135,179 @@ def scoring_f32(dev, arch, name, shape, faults):
             fail(f"the f32 {reading} check missed the planted {fault} fault")
 
 
+NEMOTRON_ARCH = "nemotron-4-15b"
+# the dense LayerNorm phase (32 layers, bf16 params and compute): kernel mode
+# against the eager ref-mode engine at the long prompts, prefill (last true
+# position) and first decode step, as rel_diff; the same rounding noise as
+# the qwen3 long phase (the stitched plan computes the dots in f32 where
+# eager rounds them to bf16), over 32 layers.  Readings over 3 seeds on an
+# H100: prefill 0.0164 to 0.0195, first step 0.0192 to 0.0219 (argmax
+# agreement 1.0); each limit is 1.35x its largest reading, rounded up.  The
+# float32 check (nemotron_f32) is the tight gate.
+NEMOTRON_LOGIT_TOL = {"prefill": 0.027, "decode": 0.030}
+
+
+def seed_norms(params, seed: int) -> None:
+    """Every norm's g to ``1 + 0.1 N(0, 1)`` and b to ``0.1 N(0, 1)``, from
+    ``seed``, in place: random init makes them 1 and 0, where a LayerNorm
+    that dropped either would still be right."""
+    norms = [lp[k] for lp in params["layers"] for k in ("norm1", "norm2")]
+    gen = torch.Generator(device=params["final_norm"]["g"].device)
+    gen.manual_seed(seed)
+    for p in norms + [params["final_norm"]]:
+        for k, mean in (("g", 1.0), ("b", 0.0)):
+            t = p[k]
+            p[k] = (mean + 0.1 * torch.randn(t.shape, generator=gen,
+                                             device=t.device)).to(t.dtype)
+
+
+def nemotron_phase(dev, checked):
+    """Full-width nemotron-4-15b (32 layers, bf16 parameters: 62.5 GB in
+    f32 would not leave the plans room on one card; random weights and
+    seeded norms) served in kernel mode at the long prompts
+    (``serve_kernel_mode``: LayerNorm twice a layer and at the end, squared
+    ReLU once a layer, beside RoPE, flash and decode attention at a GQA
+    group of 6); then its bf16 prefill and first-step logits against the
+    eager ref-mode engine over several weight seeds, the old weights freed
+    before the next seed's are made."""
+    from dataclasses import replace
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = replace(get_config(NEMOTRON_ARCH), param_dtype="bfloat16")
+    model = build_model(cfg)
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(SEED, dev)
+    seed_norms(params, SEED)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    print(f"init {cfg.name}: {cfg.n_layers}L d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} head_dim={cfg.dh} "
+          f"d_ff={cfg.d_ff} act={cfg.act} norm={cfg.norm} vocab={cfg.vocab} "
+          f"params={n / 1e9:.4f}B ({n * 2 / 1e9:.2f} GB bf16, "
+          f"{n * 4 / 1e9:.2f} GB in f32; ModelConfig.param_count "
+          f"{cfg.param_count() / 1e9:.4f}B) in {time.perf_counter() - t0:.1f}s; "
+          f"device memory allocated before init {before / 2**30:.2f} GB, "
+          f"after {torch.cuda.memory_allocated() / 2**30:.2f} GB")
+    tag = "nemotron kernel-mode long"
+    prompts = prompts_for(cfg, LONG_LENS, SEED)
+    eng, kernels, summary = serve_kernel_mode(
+        dev, model, params, LONG_LENS, prompts, LONG_MAX_LEN, tag, checked)
+    eager = Engine(model, params, ServeConfig(batch=4, max_len=LONG_MAX_LEN,
+                                              max_new_tokens=2), device=dev)
+    readings = {"prefill": [], "decode": []}
+    for s in range(LOGIT_SEEDS):
+        if s:
+            # the old weights go first: two bf16 copies are 62.6 GB
+            eng.params = eager.params = params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            params = model.init(SEED + s, dev)
+            seed_norms(params, SEED + s)
+            eng.params = eager.params = params
+        ps = prompts_for(cfg, LONG_LENS, SEED + s)
+        with ops.kernel_mode("kernels"):
+            km = prefill_and_step_logits(eng, ps, LONG_LENS)
+        ea = prefill_and_step_logits(eager, ps, LONG_LENS)
+        for what, a, b in zip(("prefill", "decode"), km, ea):
+            readings[what].append(rel_diff(a, b))
+            agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+            print(f"{tag} {what} logits vs ref-mode eager (bf16, "
+                  f"{cfg.n_layers}L, seed {SEED + s}): "
+                  f"rel={readings[what][-1]:.6g} argmax_agree={agree}")
+    print(f"{tag} logits bf16: tol={NEMOTRON_LOGIT_TOL} sound max prefill="
+          f"{max(readings['prefill']):.6g} decode={max(readings['decode']):.6g}")
+    if not all(np.isfinite(r) and r <= NEMOTRON_LOGIT_TOL[what]
+               for what, rs in readings.items() for r in rs):
+        fail(f"{tag} logits disagree with the ref-mode eager engine")
+    return kernels, summary
+
+
+def faulted_triton(fault):
+    """The Triton kernel with ``fault`` planted (``TRITON_FAULTS``), from
+    the source the build phase wrote into ``fault_dir(fault)``, jitted."""
+    import importlib.util
+    from repro_torch.kernels import build
+    fn = TRITON_FAULTS[fault][1]
+    spec = importlib.util.spec_from_file_location(
+        f"planted_{fault}", fault_dir(fault) / f"{fn}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return build.triton_jit(getattr(mod, fn))
+
+
+def nemotron_f32(dev):
+    """nemotron-4-15b at full width, cut to 4 layers, in float32 (params
+    too), norms seeded: the kernel-mode prefill at the 256 bucket and its
+    first decode step against the eager ref-mode engine over several weight
+    seeds; at the first seed, the same with each fault of
+    ``TRITON_FAULTS`` planted."""
+    import importlib
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.core import StitchCompiler
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = replace(get_config(NEMOTRON_ARCH), n_layers=4, dtype="float32")
+    model = build_model(cfg)
+    long = dict(batch=4, max_len=LONG_MAX_LEN, max_new_tokens=2)
+    km = eager = None
+    tag = "nemotron 4-layer f32 kernel-mode bucket 256"
+    readings, planted = [], {}
+    ops.reset_launch_counts()
+    for s in range(F32_SEEDS):
+        if km is not None:
+            km.params = eager.params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        params = model.init(SEED + s, dev)
+        seed_norms(params, SEED + s)
+        if km is None:
+            km = Engine(model, params, ServeConfig(**long, stitch_execute=True),
+                        device=dev, compiler=StitchCompiler(plan_budget=10.0))
+            eager = Engine(model, params, ServeConfig(**long), device=dev)
+        km.params = eager.params = params
+        ps = prompts_for(cfg, LONG_LENS, SEED + 1 + s)
+        ea = prefill_and_step_logits(eager, ps, LONG_LENS)
+        with ops.kernel_mode("kernels"):
+            kl = prefill_and_step_logits(km, ps, LONG_LENS)
+        readings.append([rel_diff(a, b) for a, b in zip(kl, ea)])
+        print(f"{tag} vs eager (seed {SEED + s}): prefill "
+              f"rel={readings[-1][0]:.6g} decode rel={readings[-1][1]:.6g}")
+        if s:
+            continue
+        # per seed two prefills and one decode step (prefill_and_step_logits)
+        step, prefill = expected_launches(cfg, 256)
+        want = {k: 2 * prefill[k] + step[k] for k in step}
+        if ops.launch_counts() != want:
+            fail(f"{tag} launched {ops.launch_counts()}, expected {want}")
+        for fault, (stem, fn, _, _) in TRITON_FAULTS.items():
+            mod = importlib.import_module(f"repro_torch.kernels.{stem}")
+            attr = TRITON_JIT[fn]
+            sound = getattr(mod, attr)
+            setattr(mod, attr, faulted_triton(fault))
+            try:
+                with ops.kernel_mode("kernels"):
+                    planted[fault] = [rel_diff(a, b) for a, b in zip(
+                        prefill_and_step_logits(km, ps, LONG_LENS), ea)]
+            finally:
+                setattr(mod, attr, sound)
+    print(f"{tag} logits: tol={F32_LOGIT_TOL} sound max prefill="
+          f"{max(r[0] for r in readings):.6g} decode="
+          f"{max(r[1] for r in readings):.6g}; " + "; ".join(
+              f"planted {fault} prefill={v[0]:.6g} decode={v[1]:.6g}"
+              for fault, v in planted.items()))
+    if not all(r <= F32_LOGIT_TOL for rs in readings for r in rs):
+        fail(f"{tag} logits disagree with eager")
+    for fault, v in planted.items():
+        if not min(v) > F32_LOGIT_TOL:
+            fail(f"the f32 logit check missed the planted {fault} fault")
+
+
 def prompts_for(cfg, lens, seed):
     rng = np.random.default_rng(seed)
     prompts = np.zeros((len(lens), int(lens.max())), np.int64)
@@ -2334,6 +2620,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         print(f"{name} phase: {time.perf_counter() - t0:.1f}s (device memory "
               f"still allocated {torch.cuda.memory_allocated() / 2**30:.2f} GB)")
+    t0 = time.perf_counter()
+    rows, summaries["nemotron kernel-mode long"] = nemotron_phase(dev, checked)
+    kernels += rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"nemotron phase: {time.perf_counter() - t0:.1f}s (device memory "
+          f"still allocated {torch.cuda.memory_allocated() / 2**30:.2f} GB)")
     for tag, summary in summaries.items():
         print(f"decode plan {tag}: {json.dumps(summary)}")
     t0 = time.perf_counter()
@@ -2348,6 +2641,7 @@ def main() -> int:
          "the RG-LRU's state restarts at each chunk"),
         (flash_attention, "flash_window", "attn",
          "flash ignores the window")])
+    nemotron_f32(dev)
     reduced_reference(dev)
     print(f"f32 and reduced checks: {time.perf_counter() - t0:.1f}s")
     print(f"total {time.perf_counter() - t_start:.1f}s")

@@ -13,6 +13,7 @@ from repro_torch.models.config import ModelConfig
 ARCHS = [
     "falcon_mamba_7b",
     "granite_moe_1b_a400m",
+    "nemotron_4_15b",
     "qwen3_1_7b",
     "recurrentgemma_9b",
 ]

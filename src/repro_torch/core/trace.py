@@ -356,13 +356,21 @@ class _Translator:
         return self.add("select", OpKind.ELEMENTWISE, v.shape, dt, ops,
                         {"op": "select"})
 
-    def op_clamp_min(self, node):
+    def op_clamp(self, node):
+        """``clamp`` with one scalar bound, what ``clamp_min`` and
+        ``clamp_max`` decompose to: a ``max`` (``min``) node against a
+        scalar literal, as ``jnp.maximum(x, 0.0)`` traces.  Any other clamp
+        falls through to a CUSTOM node."""
+        x, lo, hi = (list(node.args) + [None, None])[:3]
+        lo = node.kwargs.get("min", lo)
+        hi = node.kwargs.get("max", hi)
+        bound = lo if hi is None else hi
+        if (lo is None) == (hi is None) or isinstance(bound, bool) \
+                or not isinstance(bound, (int, float)):
+            return None
         v = _meta(node)
-        return self.ew("max", list(node.args[:2]), v.shape, dtype_name(v.dtype))
-
-    def op_clamp_max(self, node):
-        v = _meta(node)
-        return self.ew("min", list(node.args[:2]), v.shape, dtype_name(v.dtype))
+        return self.ew("max" if hi is None else "min", [x, bound], v.shape,
+                       dtype_name(v.dtype))
 
     def op_gelu(self, node):
         if node.kwargs.get("approximate", "none") != "tanh":

@@ -1,5 +1,6 @@
-"""Gated MLP activations, SwiGLU and GeGLU: the port of the reference's
-``_glu_kernel`` (``src/repro/kernels/activations.py:17``), a Triton kernel.
+"""MLP activations: SwiGLU and GeGLU, the port of the reference's
+``_glu_kernel`` (``src/repro/kernels/activations.py:17``), and squared
+ReLU, the port of its ``_sqrelu_kernel`` (``:54``); Triton kernels.
 
 Bound on this card: bytes.  One elementwise pass reads gate and up once
 and writes the product once, where the unfused chain makes four or five
@@ -10,9 +11,16 @@ compile-time switch: 0 is SiLU (``g * sigmoid(g)``), 1 is the tanh form of
 GELU, which is what ``jax.nn.gelu`` computes by default and
 ``F.gelu(approximate="tanh")`` in the plain version.
 
-It is the custom op ``repro_torch::glu(gate, up, act)``: the CPU
-implementation is the plain version, the CUDA implementation launches the
-kernel.  :func:`swiglu` and :func:`geglu` reshape to ``(rows, F)`` outside
+Squared ReLU is bound by bytes too: 100.7 MB a launch at nemotron-4-15b's
+prefill, (1024, 24576) bf16, 30.0 us at 3.35 TB/s.  Design: one flat
+elementwise pass over the contiguous operand, ``BLOCK`` elements a
+program: ``r = max(x, 0)`` in f32 (NaN stays NaN, as in ``jnp.maximum``),
+``r * r``, one cast out.
+
+They are the custom ops ``repro_torch::glu(gate, up, act)`` and
+``repro_torch::squared_relu(x)``: the CPU implementation is the plain
+version, the CUDA implementation launches the kernel.  :func:`swiglu`,
+:func:`geglu` and :func:`squared_relu` reshape to ``(rows, F)`` outside
 the op, as the reference wrappers do.
 """
 
@@ -25,15 +33,17 @@ import torch
 from . import build
 from . import ref as _ref
 
-__all__ = ["swiglu", "geglu", "glu_plain", "launches"]
+__all__ = ["swiglu", "geglu", "glu_plain", "launches", "squared_relu",
+           "squared_relu_plain", "sqrelu_launches"]
 
 _ACTS = {"silu": 0, "gelu": 1}
 _FLOAT = (torch.float32, torch.bfloat16)
 BLOCK = 1024
 
 # kernel launches since the last reset, by build.signature of the arguments
-launches: Counter = Counter()
-_JIT = None
+launches: Counter = Counter()               # _glu_kernel
+sqrelu_launches: Counter = Counter()        # _sqrelu_kernel
+_JIT = _SQ_JIT = None
 tl = libdevice = None  # bound by build.triton_jit at the first launch
 
 
@@ -50,6 +60,14 @@ def _glu_kernel(g_ptr, u_ptr, o_ptr, F, stride_g, stride_u,
         a = 0.5 * g * (1.0 + libdevice.tanh(
             0.7978845608028654 * (g + 0.044715 * g * g * g)))
     tl.store(o_ptr + row * F + col, (a * u).to(o_ptr.dtype.element_ty), mask=mask)
+
+
+def _sqrelu_kernel(x_ptr, o_ptr, n, BLOCK: tl.constexpr):
+    off = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    mask = off < n
+    x = tl.load(x_ptr + off, mask=mask, other=0.0).to(tl.float32)
+    r = tl.maximum(x, 0.0, propagate_nan=tl.PropagateNan.ALL)
+    tl.store(o_ptr + off, (r * r).to(o_ptr.dtype.element_ty), mask=mask)
 
 
 def glu_plain(gate, up, act: str):
@@ -82,6 +100,27 @@ def _launch(gate, up, act: str):
     return out
 
 
+def squared_relu_plain(x):
+    """The plain version: the reference's ``ref`` oracle."""
+    return _ref.squared_relu(x)
+
+
+def _launch_sqrelu(x):
+    global _SQ_JIT
+    if x.dtype not in _FLOAT:
+        raise TypeError(f"squared_relu: dtype {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"squared_relu: x strides {x.stride()}: must be "
+                         f"contiguous")
+    out = torch.empty_like(x)
+    n = x.numel()
+    if _SQ_JIT is None:
+        _SQ_JIT = build.triton_jit(_sqrelu_kernel)
+    _SQ_JIT[(max(1, -(-n // BLOCK)),)](x, out, n, BLOCK=BLOCK, num_warps=4)
+    sqrelu_launches[build.signature(x)] += 1
+    return out
+
+
 @torch.library.custom_op("repro_torch::glu", mutates_args=(), device_types="cpu")
 def glu_op(gate: torch.Tensor, up: torch.Tensor, act: str) -> torch.Tensor:
     return glu_plain(gate, up, act)
@@ -107,3 +146,22 @@ def swiglu(gate, up):
 
 def geglu(gate, up):
     return _glu(gate, up, "gelu")
+
+
+@torch.library.custom_op("repro_torch::squared_relu", mutates_args=(),
+                         device_types="cpu")
+def squared_relu_op(x: torch.Tensor) -> torch.Tensor:
+    return squared_relu_plain(x)
+
+
+squared_relu_op.register_kernel("cuda")(_launch_sqrelu)
+
+
+@squared_relu_op.register_fake
+def _(x):
+    return x.new_empty(x.shape)
+
+
+def squared_relu(x):
+    F = x.shape[-1]
+    return squared_relu_op(x.reshape(-1, F)).reshape(x.shape)

@@ -5,13 +5,14 @@ kernels and the plain oracles.
 (``repro/kernels/ops.py``):
 
 * ``"kernels"`` — the hand-written kernels, the counterpart of the
-  reference's ``"pallas"`` mode: RMSNorm, RoPE and SwiGLU/GeGLU in Triton,
-  decode attention, flash attention, the MoE router, the Mamba-1
-  selective scan and the RG-LRU recurrence in CUDA C++.  Each is a
-  ``torch.library`` custom op, so the tracer sees one node (with a
-  projection per output) and tags it with the reference kernel's name; the
-  planner's registry prices the tags it knows and cuts the graph at the
-  others (the two recurrences), as the reference's does.  On the CPU the op runs its plain version.
+  reference's ``"pallas"`` mode: RMSNorm, LayerNorm, RoPE, SwiGLU/GeGLU
+  and squared ReLU in Triton, decode attention, flash attention, the MoE
+  router, the Mamba-1 selective scan and the RG-LRU recurrence in CUDA
+  C++.  Each is a ``torch.library`` custom op, so the tracer sees one node
+  (with a projection per output) and tags it with the reference kernel's
+  name; the planner's registry prices the tags it knows and cuts the graph
+  at the others (squared ReLU and the two recurrences), as the
+  reference's does.  On the CPU the op runs its plain version.
 * ``"ref"`` — the plain-PyTorch oracles of :mod:`.ref`; the default.
 
 The switch is a context variable, read when the model function runs: at
@@ -37,27 +38,33 @@ from . import rg_lru as _rglru
 from . import rope as _rope
 from . import router as _router
 
-__all__ = ["KernelMode", "get_mode", "kernel_mode", "rmsnorm", "swiglu",
-           "geglu", "rope", "attention", "decode_attention", "topk_router",
-           "mamba_scan", "rg_lru", "KERNEL_TAGS",
+__all__ = ["KernelMode", "get_mode", "kernel_mode", "rmsnorm", "layernorm",
+           "swiglu", "geglu", "squared_relu", "rope", "attention",
+           "decode_attention", "topk_router", "mamba_scan", "rg_lru",
+           "KERNEL_TAGS",
            "launch_counts", "launch_counts_by_signature", "reset_launch_counts"]
 
 KernelMode = Literal["kernels", "ref"]
 _mode: contextvars.ContextVar[str] = contextvars.ContextVar("kernel_mode",
                                                             default="ref")
 
-# kernel modules by the name their launches are counted under
-_KERNELS = {"rmsnorm": _norms, "glu": _act, "rope": _rope,
-            "decode_attention": _decode, "flash_attention": _flash,
-            "router": _router, "mamba_scan": _mamba, "rg_lru": _rglru}
+# each kernel's launch counter (by build.signature of the arguments), by the
+# name its launches are counted under
+_KERNELS = {"rmsnorm": _norms.launches, "layernorm": _norms.layernorm_launches,
+            "glu": _act.launches, "squared_relu": _act.sqrelu_launches,
+            "rope": _rope.launches, "decode_attention": _decode.launches,
+            "flash_attention": _flash.launches, "router": _router.launches,
+            "mamba_scan": _mamba.launches, "rg_lru": _rglru.launches}
 
 # each custom op -> the reference kernel body it ports, the name the
-# planner's registry (kernels/registry.py) knows it by; ``_mamba_kernel`` and
-# ``_rglru_kernel`` are not in the registry (nor in the reference's), so
-# their nodes cut the graph
+# planner's registry (kernels/registry.py) knows it by; ``_sqrelu_kernel``,
+# ``_mamba_kernel`` and ``_rglru_kernel`` are not in the registry (nor in
+# the reference's), so their nodes cut the graph
 KERNEL_TAGS = {
     torch.ops.repro_torch.rmsnorm.default: "_rmsnorm_kernel",
+    torch.ops.repro_torch.layernorm.default: "_layernorm_kernel",
     torch.ops.repro_torch.glu.default: "_glu_kernel",
+    torch.ops.repro_torch.squared_relu.default: "_sqrelu_kernel",
     torch.ops.repro_torch.rope.default: "_rope_kernel",
     torch.ops.repro_torch.decode_attention.default: "_decode_attn_kernel",
     torch.ops.repro_torch.flash_attention.default: "_flash_kernel",
@@ -88,18 +95,18 @@ def _use_kernels() -> bool:
 
 def launch_counts() -> dict[str, int]:
     """Launches of each hand-written kernel since the last reset."""
-    return {name: sum(mod.launches.values()) for name, mod in _KERNELS.items()}
+    return {name: sum(c.values()) for name, c in _KERNELS.items()}
 
 
 def launch_counts_by_signature() -> dict[str, dict[tuple, int]]:
     """The same, per kernel by :func:`.build.signature` of its arguments:
     each tensor's shape and dtype, the other arguments as they are."""
-    return {name: dict(mod.launches) for name, mod in _KERNELS.items()}
+    return {name: dict(c) for name, c in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _KERNELS.values():
-        mod.launches.clear()
+    for c in _KERNELS.values():
+        c.clear()
 
 
 # -- wrappers -----------------------------------------------------------------
@@ -108,6 +115,12 @@ def rmsnorm(x, gamma, eps: float = 1e-6):
     if _use_kernels():
         return _norms.rmsnorm(x, gamma, eps)
     return _ref.rmsnorm(x, gamma, eps)
+
+
+def layernorm(x, gamma, beta, eps: float = 1e-5):
+    if _use_kernels():
+        return _norms.layernorm(x, gamma, beta, eps)
+    return _ref.layernorm(x, gamma, beta, eps)
 
 
 def swiglu(gate, up):
@@ -120,6 +133,12 @@ def geglu(gate, up):
     if _use_kernels():
         return _act.geglu(gate, up)
     return _ref.geglu(gate, up)
+
+
+def squared_relu(x):
+    if _use_kernels():
+        return _act.squared_relu(x)
+    return _ref.squared_relu(x)
 
 
 def rope(x, positions, theta: float = 10000.0):

@@ -12,8 +12,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rmsnorm", "swiglu", "geglu", "rope", "attention", "topk_router",
-           "mamba_scan", "softplus", "rg_lru"]
+__all__ = ["rmsnorm", "layernorm", "swiglu", "geglu", "squared_relu", "rope",
+           "attention", "topk_router", "mamba_scan", "softplus", "rg_lru"]
 
 
 def rmsnorm(x, gamma, eps: float = 1e-6):
@@ -21,6 +21,15 @@ def rmsnorm(x, gamma, eps: float = 1e-6):
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * gamma.to(torch.float32)).to(x.dtype)
+
+
+def layernorm(x, gamma, beta, eps: float = 1e-5):
+    """Mean, then the variance as the mean of ``(x - mu)^2`` (``square``,
+    as ``jnp.square`` traces), in f32; gamma and beta promote to f32."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * gamma + beta).to(x.dtype)
 
 
 def swiglu(gate, up):
@@ -31,6 +40,14 @@ def geglu(gate, up):
     """GELU in its tanh form, which is ``jax.nn.gelu``'s default."""
     return (F.gelu(gate.to(torch.float32), approximate="tanh")
             * up.to(torch.float32)).to(gate.dtype)
+
+
+def squared_relu(x):
+    """``max(x, 0)^2`` in f32.  ``clamp_min`` with a Python scalar traces
+    to a ``max`` node against a scalar literal, as ``jnp.maximum(x, 0.0)``
+    does in the reference."""
+    r = torch.clamp_min(x.to(torch.float32), 0.0)
+    return (r * r).to(x.dtype)
 
 
 def rope(x, positions, theta: float = 10000.0):
@@ -208,8 +225,8 @@ def rg_lru(x, input_gate, rec_gate, Lambda, c: float = 8.0,
         rec_gate.to(torch.float32))
     a = torch.exp(log_a)
     gated = torch.sigmoid(input_gate.to(torch.float32)) * xf
-    # jnp.maximum's spelling: a max node against a scalar (clamp_min traces
-    # to an opaque clamp)
+    # a max node against a 0-d constant, broadcast (the reference's is a max
+    # against a scalar literal)
     floor = torch.full((), 1e-12, dtype=torch.float32, device=a.device)
     gx = torch.sqrt(torch.maximum(1.0 - a * a, floor)) * gated
     if return_state:

@@ -1,5 +1,6 @@
 """Unified model interface: build a ported architecture from its config and
-get its callables.  Dense and MoE families serve (init / prefill / decode);
+get its callables.  Dense (qwen3, nemotron-4-15b) and MoE (granite-moe)
+families serve (init / prefill / decode);
 the ssm family (falcon-mamba) and the hybrid family (recurrentgemma) score
 (``train_forward``, ``block_fn``) and do not serve yet."""
 

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 from .config import ModelConfig
 from .layers import torch_dtype
 
@@ -35,11 +37,13 @@ def _leaves(tree):
     return [tree]
 
 
-def params_from_jax(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
+def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
     """Reference params (a tree of numpy arrays, stacked ``layers`` or
-    ``supers``) -> the port's params on ``device``, in
-    ``cfg.param_dtype``."""
+    ``supers``) -> the port's params on ``device`` (the card unless the
+    caller asks for the CPU), in ``cfg.param_dtype``.  Every leaf is
+    carried as it is: a LayerNorm's ``b`` and the two-matrix MLP too."""
     pdt = torch_dtype(cfg.param_dtype)
+    device = resolve_device(device)
 
     def tensor(a):
         return torch.tensor(np.asarray(a, dtype=np.float32), dtype=pdt,

@@ -1,6 +1,8 @@
 """Layer library of the dense and MoE families: GQA attention (RoPE /
-qk-norm / dense KV cache), the SwiGLU / GeGLU MLP, RMSNorm, the sort-based
-capacity MoE, and their initializers.
+qk-norm / dense KV cache), the SwiGLU / GeGLU MLP and the two-matrix
+squared-ReLU MLP, RMSNorm and LayerNorm, the sort-based capacity MoE, and
+their initializers.  A ``norm`` or ``act`` value the port does not know
+raises ``ValueError``.
 
 All functions are pure; parameters are nested dicts of tensors in the
 reference's layout (weights ``(in, out)`` for ``x @ w``, activations
@@ -36,9 +38,22 @@ def _normal(gen: torch.Generator, shape, scale: float, cfg: ModelConfig,
     return (x * scale).to(torch_dtype(cfg.param_dtype))
 
 
+_NORMS = ("rms", "ln")
+_ACTS = ("swiglu", "geglu", "sqrelu")
+
+
+def _check_choice(field: str, value: str, known: tuple) -> None:
+    if value not in known:
+        raise ValueError(f"{field}={value!r} is not ported; known: {known}")
+
+
 def init_norm(cfg: ModelConfig, device, d: int | None = None) -> Params:
-    return {"g": torch.ones((d or cfg.d_model,),
-                           dtype=torch_dtype(cfg.param_dtype), device=device)}
+    _check_choice("norm", cfg.norm, _NORMS)
+    pdt, d = torch_dtype(cfg.param_dtype), d or cfg.d_model
+    p = {"g": torch.ones((d,), dtype=pdt, device=device)}
+    if cfg.norm == "ln":
+        p["b"] = torch.zeros((d,), dtype=pdt, device=device)
+    return p
 
 
 def init_attention(gen, cfg: ModelConfig, device) -> Params:
@@ -57,8 +72,14 @@ def init_attention(gen, cfg: ModelConfig, device) -> Params:
 
 
 def init_mlp(gen, cfg: ModelConfig, device) -> Params:
+    """The gated three-matrix MLP (SwiGLU, GeGLU) or the two-matrix one
+    (squared ReLU)."""
+    _check_choice("act", cfg.act, _ACTS)
     D, F = cfg.d_model, cfg.d_ff
     sc_in, sc_out = 1.0 / math.sqrt(D), 1.0 / math.sqrt(F)
+    if cfg.act == "sqrelu":
+        return {"w_up": _normal(gen, (D, F), sc_in, cfg, device),
+                "w_down": _normal(gen, (F, D), sc_out, cfg, device)}
     return {
         "w_gate": _normal(gen, (D, F), sc_in, cfg, device),
         "w_up": _normal(gen, (D, F), sc_in, cfg, device),
@@ -85,11 +106,18 @@ def init_moe(gen, cfg: ModelConfig, device) -> Params:
 # ---------------------------------------------------------------------------
 
 def apply_norm(p: Params, x, cfg: ModelConfig):
-    return ops.rmsnorm(x, p["g"].to(torch_dtype(cfg.dtype)))
+    _check_choice("norm", cfg.norm, _NORMS)
+    dt = torch_dtype(cfg.dtype)
+    if cfg.norm == "ln":
+        return ops.layernorm(x, p["g"].to(dt), p["b"].to(dt))
+    return ops.rmsnorm(x, p["g"].to(dt))
 
 
 def apply_mlp(p: Params, x, cfg: ModelConfig):
+    _check_choice("act", cfg.act, _ACTS)
     dt = torch_dtype(cfg.dtype)
+    if cfg.act == "sqrelu":
+        return ops.squared_relu(x @ p["w_up"].to(dt)) @ p["w_down"].to(dt)
     gate = x @ p["w_gate"].to(dt)
     up = x @ p["w_up"].to(dt)
     h = ops.swiglu(gate, up) if cfg.act == "swiglu" else ops.geglu(gate, up)

@@ -1,4 +1,6 @@
-"""Decoder-only transformer LM, dense and MoE families.
+"""Decoder-only transformer LM, dense and MoE families: RMSNorm and a gated
+MLP (qwen3, granite-moe), or LayerNorm and the two-matrix squared-ReLU MLP
+(nemotron-4-15b), as ``cfg.norm`` and ``cfg.act`` say.
 
 The layer loop is a Python loop over a list of per-layer parameter dicts,
 so tracing unrolls it exactly like the reference with ``scan_layers=False``.

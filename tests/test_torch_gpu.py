@@ -497,6 +497,100 @@ def test_reduced_recurrentgemma_kernel_mode_on_card():
     torch.testing.assert_close(y, model.block_fn(lp, x), rtol=2e-5, atol=2e-5)
 
 
+# nemotron-4-15b's main-path shapes, batch 4: decode rows and bucket-256
+# prefill token rows at d_model 6144 (LayerNorm) and d_ff 24576 (squared
+# ReLU); a ragged width below one block and one off the power of two
+LN_SHAPES = [(4, 6144), (1024, 6144), (37, 96), (3, 200)]
+SQRELU_SHAPES = [(4, 24576), (1024, 24576), (37, 96)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
+def test_layernorm_kernel_on_card(dtype, tol):
+    _need_card()
+    from repro_torch.kernels import norms
+    for i, (rows, d) in enumerate(LN_SHAPES):
+        x = 2.0 * _rand((rows, d), dtype, i) + 0.5
+        g = 1.0 + 0.1 * _rand((d,), dtype, 10 + i)
+        b = 0.1 * _rand((d,), dtype, 20 + i)
+        before = sum(norms.layernorm_launches.values())
+        out = norms.layernorm_op(x, g, b, 1e-5)
+        torch.cuda.synchronize()
+        assert sum(norms.layernorm_launches.values()) == before + 1
+        torch.testing.assert_close(
+            out.float(), norms.layernorm_plain(x, g, b, 1e-5).float(),
+            rtol=tol, atol=tol)
+    # row-strided x (a column slice) is taken; a transposed one is refused
+    wide = _rand((4, 2 * 6144), dtype, 5)[:, 6144:]
+    g, b = _rand((6144,), dtype, 6), _rand((6144,), dtype, 7)
+    torch.testing.assert_close(norms.layernorm_op(wide, g, b, 1e-5).float(),
+                               norms.layernorm_plain(wide, g, b, 1e-5).float(),
+                               rtol=tol, atol=tol)
+    with pytest.raises(ValueError, match="contiguous"):
+        norms.layernorm_op(_rand((96, 37), dtype).t(), g[:96], b[:96], 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_squared_relu_kernel_on_card(dtype):
+    """Bitwise equal to the plain version (one max, one product, one cast),
+    on inputs half negative with exact zeros, NaN and infinities."""
+    _need_card()
+    from repro_torch.kernels import activations
+    for i, shape in enumerate(SQRELU_SHAPES):
+        x = _rand(shape, dtype, 30 + i)
+        x.view(-1)[::5] = 0.0
+        x.view(-1)[:3] = torch.tensor([float("nan"), float("inf"),
+                                       -float("inf")])
+        before = sum(activations.sqrelu_launches.values())
+        out = activations.squared_relu_op(x)
+        torch.cuda.synchronize()
+        assert sum(activations.sqrelu_launches.values()) == before + 1
+        torch.testing.assert_close(out, activations.squared_relu_plain(x),
+                                   rtol=0, atol=0, equal_nan=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        activations.squared_relu_op(_rand((96, 37), dtype).t())
+
+
+@pytest.mark.gpu
+def test_reduced_nemotron_kernel_mode_on_card():
+    """Reduced nemotron in float32 with seeded norms, served stitched in
+    kernel mode: tokens equal the eager ref-mode engine's, with 2L+1
+    LayerNorm and L squared-ReLU launches a prefill call and a decode
+    step."""
+    _need_card()
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = replace(get_reduced("nemotron-4-15b"), dtype="float32")
+    model = build_model(cfg)
+    params = model.init(0, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for norm in [lp[k] for lp in params["layers"] for k in ("norm1", "norm2")] \
+            + [params["final_norm"]]:
+        norm["g"] = 1 + 0.1 * torch.randn(norm["g"].shape, generator=gen,
+                                          device="cuda")
+        norm["b"] = 0.1 * torch.randn(norm["b"].shape, generator=gen,
+                                      device="cuda")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (3, 7))
+    lens = np.array([7, 5, 6])
+    scfg = dict(batch=3, max_len=32, max_new_tokens=6)
+    ops.reset_launch_counts()
+    with ops.kernel_mode("kernels"):
+        eng = Engine(model, params, ServeConfig(**scfg, stitch_execute=True),
+                     device="cuda")
+        toks = eng.generate(prompts, prompt_lens=lens)
+    # one prefill call and five decode steps
+    counts = ops.launch_counts()
+    assert counts["layernorm"] == 6 * (2 * cfg.n_layers + 1)
+    assert counts["squared_relu"] == 6 * cfg.n_layers
+    assert counts["rmsnorm"] == counts["glu"] == 0
+    eager = Engine(model, params, ServeConfig(**scfg), device="cuda")
+    np.testing.assert_array_equal(toks, eager.generate(prompts,
+                                                       prompt_lens=lens))
+
+
 @pytest.mark.gpu
 def test_cuda_library_builds_from_an_empty_directory(tmp_path):
     _need_card()

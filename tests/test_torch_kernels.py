@@ -4,7 +4,8 @@ reference's Pallas kernels.
 On the CPU each kernel's custom op runs its plain version, so these tests
 hold the plain versions against the reference kernels run in interpret
 mode, on the same numpy inputs: RMSNorm, SwiGLU/GeGLU, RoPE, decode
-attention and flash attention (the MoE router's are in
+attention and flash attention (LayerNorm's and squared ReLU's are in
+``tests/test_torch_nemotron.py``, the MoE router's in
 ``tests/test_torch_moe.py``, the selective scan's in
 ``tests/test_torch_mamba.py``, the RG-LRU's in
 ``tests/test_torch_griffin.py``), in float32 (rtol/atol 2e-4, the reference's
@@ -185,7 +186,14 @@ def _op_cases():
         ("rmsnorm", norms.rmsnorm_op, (t(6, 32), t(32), 1e-6)),
         ("rmsnorm_bf16", norms.rmsnorm_op,
          (t(6, 32, dtype=torch.bfloat16), t(32, dtype=torch.bfloat16), 1e-6)),
+        ("layernorm", norms.layernorm_op, (t(6, 32), t(32), t(32), 1e-5)),
+        ("layernorm_bf16", norms.layernorm_op,
+         (t(5, 40, dtype=torch.bfloat16), t(40, dtype=torch.bfloat16),
+          t(40, dtype=torch.bfloat16), 1e-5)),
         ("glu_silu", activations.glu_op, (t(4, 24), t(4, 24), "silu")),
+        ("squared_relu", activations.squared_relu_op, (t(4, 24),)),
+        ("squared_relu_bf16", activations.squared_relu_op,
+         (t(3, 40, dtype=torch.bfloat16),)),
         ("glu_gelu", activations.glu_op, (t(4, 24), t(4, 24), "gelu")),
         ("rope", rope.rope_op,
          (t(6, 32), torch.arange(6, dtype=torch.int32), 1e4, 8)),
@@ -248,22 +256,25 @@ def test_custom_op_opcheck(case):
     torch.library.opcheck(op, args)
 
 
-@pytest.mark.parametrize("mod,op", [
-    (norms, norms.rmsnorm_op), (activations, activations.glu_op),
-    (rope, rope.rope_op), (decode_attention, decode_attention.decode_attention_op),
-    (flash_attention, flash_attention.flash_attention_op),
-    (router, router.topk_router_op), (mamba_scan, mamba_scan.mamba_scan_op),
-    (rg_lru, rg_lru.rg_lru_op),
+@pytest.mark.parametrize("launch,op", [
+    (norms._launch, norms.rmsnorm_op), (activations._launch, activations.glu_op),
+    (rope._launch, rope.rope_op),
+    (decode_attention._launch, decode_attention.decode_attention_op),
+    (flash_attention._launch, flash_attention.flash_attention_op),
+    (router._launch, router.topk_router_op),
+    (mamba_scan._launch, mamba_scan.mamba_scan_op), (rg_lru._launch, rg_lru.rg_lru_op),
+    (norms._launch_layernorm, norms.layernorm_op),
+    (activations._launch_sqrelu, activations.squared_relu_op),
 ], ids=["rmsnorm", "glu", "rope", "decode_attention", "flash_attention",
-        "topk_router", "mamba_scan", "rg_lru"])
-def test_cuda_launcher_takes_the_op_signature(mod, op):
+        "topk_router", "mamba_scan", "rg_lru", "layernorm", "squared_relu"])
+def test_cuda_launcher_takes_the_op_signature(launch, op):
     """The dispatcher drops an argument left at its default, so the CUDA
     implementation must declare the op's parameters with the same
     defaults."""
     def spelled(fn):
         return [(p.name, p.default)
                 for p in inspect.signature(fn).parameters.values()]
-    assert spelled(mod._launch) == spelled(op._init_fn)
+    assert spelled(launch) == spelled(op._init_fn)
 
 
 def test_kernel_mode_dispatch():
@@ -284,6 +295,9 @@ def test_kernel_mode_dispatch():
     with ops.kernel_mode("kernels"):
         kern_out = ops.rmsnorm(x, g)
         torch.testing.assert_close(ops.geglu(x, x), ref.geglu(x, x))
+        torch.testing.assert_close(ops.squared_relu(x), ref.squared_relu(x))
+        torch.testing.assert_close(ops.layernorm(x, g, 0.5 * g),
+                                   ref.layernorm(x, g, 0.5 * g))
     torch.testing.assert_close(kern_out, ref_out, rtol=0, atol=0)
 
 
@@ -302,12 +316,13 @@ def test_cpu_tensors_never_count_launches():
         ops.mamba_scan(x[:, 0], x[:, 0].abs(), -torch.ones(16, 3),
                        torch.randn(4, 2, 3), torch.randn(4, 2, 3), torch.ones(16))
         ops.rg_lru(x[:, 0], x[:, 0], x[:, 0], torch.ones(16))
-    assert ops.launch_counts() == {"rmsnorm": 0, "glu": 0, "rope": 0,
-                                   "decode_attention": 0, "flash_attention": 0,
-                                   "router": 0, "mamba_scan": 0, "rg_lru": 0}
-    assert ops.launch_counts_by_signature() == {
-        "rmsnorm": {}, "glu": {}, "rope": {}, "decode_attention": {},
-        "flash_attention": {}, "router": {}, "mamba_scan": {}, "rg_lru": {}}
+        ops.layernorm(x, torch.ones(16), torch.zeros(16))
+        ops.squared_relu(x)
+    names = ["rmsnorm", "layernorm", "glu", "squared_relu", "rope",
+             "decode_attention", "flash_attention", "router", "mamba_scan",
+             "rg_lru"]
+    assert ops.launch_counts() == {k: 0 for k in names}
+    assert ops.launch_counts_by_signature() == {k: {} for k in names}
 
 
 def test_launch_signature_keys_shapes_dtypes_and_arguments():
