@@ -5,14 +5,16 @@ kernels and the plain oracles.
 (``repro/kernels/ops.py``):
 
 * ``"kernels"`` — the hand-written kernels, the counterpart of the
-  reference's ``"pallas"`` mode: RMSNorm, LayerNorm, RoPE, SwiGLU/GeGLU
-  and squared ReLU in Triton, decode attention, flash attention, the MoE
-  router, the Mamba-1 selective scan and the RG-LRU recurrence in CUDA
-  C++.  Each is a ``torch.library`` custom op, so the tracer sees one node
-  (with a projection per output) and tags it with the reference kernel's
-  name; the planner's registry prices the tags it knows and cuts the graph
-  at the others (squared ReLU and the two recurrences), as the
-  reference's does.  On the CPU the op runs its plain version.
+  reference's ``"pallas"`` mode: RMSNorm, the residual add + RMSNorm,
+  LayerNorm, RoPE, SwiGLU/GeGLU, squared ReLU, the scaled (and masked)
+  softmax and the cross-entropy in Triton, decode attention, flash
+  attention, the MoE router, the Mamba-1 selective scan and the RG-LRU
+  recurrence in CUDA C++.  Each is a ``torch.library`` custom op, so the
+  tracer sees one node (with a projection per output) and tags it with the
+  reference kernel's name; the planner's registry prices the tags it knows
+  and cuts the graph at the others (squared ReLU, the softmaxes, the
+  cross-entropy and the two recurrences), as the reference's does.  On the
+  CPU the op runs its plain version.
 * ``"ref"`` — the plain-PyTorch oracles of :mod:`.ref`; the default.
 
 The switch is a context variable, read when the model function runs: at
@@ -29,6 +31,7 @@ from typing import Literal
 import torch
 
 from . import activations as _act
+from . import cross_entropy as _xent
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import mamba_scan as _mamba
@@ -37,9 +40,11 @@ from . import ref as _ref
 from . import rg_lru as _rglru
 from . import rope as _rope
 from . import router as _router
+from . import softmax as _softmax
 
-__all__ = ["KernelMode", "get_mode", "kernel_mode", "rmsnorm", "layernorm",
-           "swiglu", "geglu", "squared_relu", "rope", "attention",
+__all__ = ["KernelMode", "get_mode", "kernel_mode", "rmsnorm",
+           "rmsnorm_residual", "layernorm", "softmax", "swiglu", "geglu",
+           "squared_relu", "rope", "cross_entropy", "attention",
            "decode_attention", "topk_router", "mamba_scan", "rg_lru",
            "KERNEL_TAGS",
            "launch_counts", "launch_counts_by_signature", "reset_launch_counts"]
@@ -54,10 +59,15 @@ _KERNELS = {"rmsnorm": _norms.launches, "layernorm": _norms.layernorm_launches,
             "glu": _act.launches, "squared_relu": _act.sqrelu_launches,
             "rope": _rope.launches, "decode_attention": _decode.launches,
             "flash_attention": _flash.launches, "router": _router.launches,
-            "mamba_scan": _mamba.launches, "rg_lru": _rglru.launches}
+            "mamba_scan": _mamba.launches, "rg_lru": _rglru.launches,
+            "rmsnorm_residual": _norms.residual_launches,
+            "softmax": _softmax.launches,
+            "softmax_masked": _softmax.masked_launches,
+            "cross_entropy": _xent.launches}
 
 # each custom op -> the reference kernel body it ports, the name the
 # planner's registry (kernels/registry.py) knows it by; ``_sqrelu_kernel``,
+# ``_softmax_kernel``, ``_softmax_masked_kernel``, ``_xent_kernel``,
 # ``_mamba_kernel`` and ``_rglru_kernel`` are not in the registry (nor in
 # the reference's), so their nodes cut the graph
 KERNEL_TAGS = {
@@ -71,6 +81,10 @@ KERNEL_TAGS = {
     torch.ops.repro_torch.topk_router.default: "_router_kernel",
     torch.ops.repro_torch.mamba_scan.default: "_mamba_kernel",
     torch.ops.repro_torch.rg_lru.default: "_rglru_kernel",
+    torch.ops.repro_torch.rmsnorm_residual.default: "_rmsnorm_residual_kernel",
+    torch.ops.repro_torch.softmax.default: "_softmax_kernel",
+    torch.ops.repro_torch.softmax_masked.default: "_softmax_masked_kernel",
+    torch.ops.repro_torch.cross_entropy.default: "_xent_kernel",
 }
 
 
@@ -117,10 +131,26 @@ def rmsnorm(x, gamma, eps: float = 1e-6):
     return _ref.rmsnorm(x, gamma, eps)
 
 
+def rmsnorm_residual(x, res, gamma, eps: float = 1e-6):
+    """(RMSNorm of x + res, x + res), each in x's dtype."""
+    if _use_kernels():
+        return _norms.rmsnorm_residual(x, res, gamma, eps)
+    return _ref.rmsnorm_residual(x, res, gamma, eps)
+
+
 def layernorm(x, gamma, beta, eps: float = 1e-5):
     if _use_kernels():
         return _norms.layernorm(x, gamma, beta, eps)
     return _ref.layernorm(x, gamma, beta, eps)
+
+
+def softmax(x, scale: float = 1.0, mask=None):
+    """``softmax(x * scale)`` over the last axis; a bool ``mask``
+    (broadcastable to x) keeps the lanes where it is True.  A fully masked
+    row is 0 in kernel mode and NaN in ref mode, as in the reference."""
+    if _use_kernels():
+        return _softmax.softmax(x, scale, mask)
+    return _ref.softmax(x, scale, mask)
 
 
 def swiglu(gate, up):
@@ -145,6 +175,13 @@ def rope(x, positions, theta: float = 10000.0):
     if _use_kernels():
         return _rope.rope(x, positions, theta)
     return _ref.rope(x, positions, theta)
+
+
+def cross_entropy(logits, labels):
+    """logits (B, V), labels (B,) int -> the mean NLL (f32 scalar)."""
+    if _use_kernels():
+        return _xent.cross_entropy(logits, labels)
+    return _ref.cross_entropy(logits, labels)
 
 
 def attention(q, k, v, *, causal: bool = True, scale: float | None = None,

@@ -12,7 +12,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rmsnorm", "layernorm", "swiglu", "geglu", "squared_relu", "rope",
+__all__ = ["rmsnorm", "rmsnorm_residual", "layernorm", "softmax", "swiglu",
+           "geglu", "squared_relu", "rope", "cross_entropy", "xent_rows",
            "attention", "topk_router", "mamba_scan", "softplus", "rg_lru"]
 
 
@@ -23,6 +24,13 @@ def rmsnorm(x, gamma, eps: float = 1e-6):
     return (out * gamma.to(torch.float32)).to(x.dtype)
 
 
+def rmsnorm_residual(x, res, gamma, eps: float = 1e-6):
+    """Residual add + RMSNorm: ``s = x + res`` in f32; returns (the norm of
+    s, s), each in x's dtype."""
+    s = x.to(torch.float32) + res.to(torch.float32)
+    return rmsnorm(s, gamma, eps).to(x.dtype), s.to(x.dtype)
+
+
 def layernorm(x, gamma, beta, eps: float = 1e-5):
     """Mean, then the variance as the mean of ``(x - mu)^2`` (``square``,
     as ``jnp.square`` traces), in f32; gamma and beta promote to f32."""
@@ -30,6 +38,18 @@ def layernorm(x, gamma, beta, eps: float = 1e-5):
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
     return ((xf - mu) * torch.rsqrt(var + eps) * gamma + beta).to(x.dtype)
+
+
+def softmax(x, scale: float = 1.0, mask=None):
+    """Softmax of ``x * scale`` over the last axis in f32, masked lanes
+    ``-inf``: a fully masked row is NaN here, as in the reference's oracle
+    (only the masked kernel makes it 0)."""
+    xf = x.to(torch.float32) * scale
+    if mask is not None:
+        xf = torch.where(mask, xf, -math.inf)
+    m = torch.amax(xf, dim=-1, keepdim=True)
+    e = torch.exp(xf - m)
+    return (e / torch.sum(e, dim=-1, keepdim=True)).to(x.dtype)
 
 
 def swiglu(gate, up):
@@ -65,6 +85,27 @@ def rope(x, positions, theta: float = 10000.0):
     x2 = x[..., half:].to(torch.float32)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def xent_rows(logits, labels):
+    """Per-row NLL ``logsumexp(row) - row[label]`` in f32: logits (B, V),
+    labels (B,) int.  The gold logit is ``jnp.take_along_axis``'s steps: a
+    negative label wraps (``lt``, ``add``, ``select``), then a (B, 1)
+    index, a gather, and the ``[..., 0]`` slice."""
+    lf = logits.to(torch.float32)
+    m = torch.amax(lf, dim=-1, keepdim=True)
+    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+    idx = labels.to(torch.int32)
+    idx = torch.where(idx < 0, idx + lf.shape[-1], idx)
+    gold = torch.gather(lf, 1, idx.reshape(-1, 1))[..., 0]
+    return lse - gold
+
+
+def cross_entropy(logits, labels):
+    """Mean token NLL: logits (B, V) float, labels (B,) int.  The mean is a
+    sum and a division, as ``jnp.mean`` traces."""
+    rows = xent_rows(logits, labels)
+    return torch.sum(rows) / rows.shape[0]
 
 
 def attention(q, k, v, *, causal: bool = True, scale: float | None = None,

@@ -591,6 +591,165 @@ def test_reduced_nemotron_kernel_mode_on_card():
                                                        prompt_lens=lens))
 
 
+RESIDUAL_SHAPES = [(1024, 2048), (4, 2048), (7, 333)]
+# (rows, d, scale): a ragged width, the reference benchmark's softmax, a
+# vocabulary row (151936 columns, past the one-pass block) and a wide row
+# that is no multiple of the sweep block
+SOFTMAX_SHAPES = [(7, 333, 1.0), (2048, 1024, 0.125), (4, 151936, 1 / 0.7),
+                  (3, 10001, 0.5)]
+XENT_SHAPES = [(64, 151936), (33, 2500), (7, 333)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
+def test_rmsnorm_residual_kernel_on_card(dtype, tol):
+    """Both outputs against the plain version; the new residual (x + res
+    rounded once) bitwise."""
+    _need_card()
+    from repro_torch.kernels import norms
+    for i, (rows, d) in enumerate(RESIDUAL_SHAPES):
+        x, r = _rand((rows, d), dtype, i), _rand((rows, d), dtype, 10 + i)
+        g = 1.0 + 0.1 * _rand((d,), dtype, 20 + i)
+        before = sum(norms.residual_launches.values())
+        normed, new_res = norms.rmsnorm_residual_op(x, r, g, 1e-6)
+        torch.cuda.synchronize()
+        assert sum(norms.residual_launches.values()) == before + 1
+        want = norms.rmsnorm_residual_plain(x, r, g, 1e-6)
+        torch.testing.assert_close(normed.float(), want[0].float(), rtol=tol,
+                                   atol=tol)
+        torch.testing.assert_close(new_res, want[1], rtol=0, atol=0)
+    # row-strided operands are taken; a transposed one is refused
+    wide = _rand((4, 2 * 2048), dtype, 5)
+    g = _rand((2048,), dtype, 6)
+    got = norms.rmsnorm_residual_op(wide[:, :2048], wide[:, 2048:], g, 1e-6)
+    want = norms.rmsnorm_residual_plain(wide[:, :2048], wide[:, 2048:], g, 1e-6)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+    with pytest.raises(ValueError, match="contiguous"):
+        norms.rmsnorm_residual_op(wide[:, :96].t(), wide[:, 96:192].t(),
+                                  g[:4], 1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
+def test_softmax_kernel_on_card(dtype, tol):
+    """The one-pass and the two-sweep layouts against the plain version; a
+    row of -inf and a row holding a NaN come out NaN, as in the
+    reference."""
+    _need_card()
+    from repro_torch.kernels import softmax
+    for i, (rows, d, scale) in enumerate(SOFTMAX_SHAPES):
+        x = 3.0 * _rand((rows, d), dtype, 40 + i)
+        x[1] = -float("inf")
+        x[2, d // 2] = float("nan")
+        before = sum(softmax.launches.values())
+        out = softmax.softmax_op(x, scale)
+        torch.cuda.synchronize()
+        assert sum(softmax.launches.values()) == before + 1
+        want = softmax.softmax_plain(x, scale)
+        assert torch.isnan(want[1:3]).all() and torch.isnan(out[1:3]).all()
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                   atol=tol, equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
+def test_softmax_masked_kernel_on_card(dtype, tol):
+    """Random masks with a fully masked row (exactly 0), a row masked in
+    its first half (the wide layout's first sweep steps see only -inf) and
+    a fully kept row, in both layouts."""
+    _need_card()
+    from repro_torch.kernels import softmax
+    for i, (rows, d, scale) in enumerate([(64, 256, 128 ** -0.5),
+                                          (6, 333, 1.0), (4, 151936, 0.5),
+                                          (3, 10001, 1.0)]):
+        x = 3.0 * _rand((rows, d), dtype, 50 + i)
+        gen = torch.Generator().manual_seed(60 + i)
+        mask = (torch.rand((rows, d), generator=gen) < 0.6).cuda()
+        mask[0] = False
+        mask[1, : d // 2] = False
+        mask[2] = True
+        before = sum(softmax.masked_launches.values())
+        out = softmax.softmax_masked_op(x, mask, scale)
+        torch.cuda.synchronize()
+        assert sum(softmax.masked_launches.values()) == before + 1
+        assert (out[0] == 0).all() and (out[~mask] == 0).all()
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(
+            out.float(), softmax.softmax_masked_plain(x, mask, scale).float(),
+            rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_entropy_kernel_on_card(dtype):
+    """Per-row losses (f32) against the plain version within the f32
+    tolerance, for f32 and bf16 logits; labels at both ends of the row."""
+    _need_card()
+    from repro_torch.kernels import cross_entropy
+    for i, (rows, V) in enumerate(XENT_SHAPES):
+        x = 4.0 * _rand((rows, V), dtype, 70 + i)
+        gen = torch.Generator().manual_seed(80 + i)
+        lab = torch.randint(0, V, (rows,), generator=gen, dtype=torch.int32)
+        lab[0], lab[1] = 0, V - 1
+        lab = lab.cuda()
+        before = sum(cross_entropy.launches.values())
+        out = cross_entropy.cross_entropy_op(x, lab)
+        torch.cuda.synchronize()
+        assert sum(cross_entropy.launches.values()) == before + 1
+        assert out.shape == (rows,) and out.dtype == torch.float32
+        torch.testing.assert_close(out, cross_entropy.cross_entropy_plain(x, lab),
+                                   rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError, match="int32"):
+        cross_entropy.cross_entropy_op(x, lab.long())
+
+
+@pytest.mark.gpu
+def test_kernel_api_paths_on_card():
+    """The three kernel-API functions of ``chip_smoke.py`` at a small size,
+    through ``stitch()`` in kernel mode: exactly their kernels' launches
+    a call, and the outputs of eager ref mode (f32), the fully masked
+    query rows 0."""
+    _need_card()
+    import chip_smoke
+    from repro_torch.exec import stitch
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    lens = [8, 5]
+    cases = {
+        "seam": (chip_smoke.seam_loss,
+                 (rnd(2, 8, 64), rnd(2, 8, 64), 1 + 0.1 * rnd(64),
+                  rnd(64, 2500) / 8,
+                  torch.randint(0, 2500, (16,), generator=gen, device="cuda",
+                                dtype=torch.int32)),
+                 {"rmsnorm_residual": 1, "cross_entropy": 1}),
+        "attn": (chip_smoke.masked_attention,
+                 (rnd(2, 8, 2, 16), rnd(2, 8, 1, 16), rnd(2, 8, 1, 16),
+                  chip_smoke.padding_mask(lens, 8, "cuda")),
+                 {"softmax_masked": 1}),
+        "probs": (chip_smoke.vocab_probs, (rnd(4, 10001),), {"softmax": 1}),
+    }
+    for name, (fn, args, launched) in cases.items():
+        with ops.kernel_mode("kernels"):
+            sf = stitch(fn, device="cuda")
+            sf(*args)
+        ops.reset_launch_counts()
+        got = sf(*args)
+        counts = ops.launch_counts()
+        assert {k: v for k, v in counts.items() if v} == launched, name
+        want = fn(*args)
+        got, want = (o if isinstance(o, tuple) else (o,) for o in (got, want))
+        for a, b in zip(got, want):
+            if name == "attn":
+                assert (a[1, 5:] == 0).all() and torch.isnan(b[1, 5:]).all()
+                a, b = a[:, :5], b[:, :5]
+            torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
+
+
 @pytest.mark.gpu
 def test_cuda_library_builds_from_an_empty_directory(tmp_path):
     _need_card()

@@ -33,8 +33,8 @@ from repro.kernels import flash_attention as ref_flash
 from repro.kernels import norms as ref_norms
 from repro.kernels import rope as ref_rope
 from repro_torch.kernels import activations, build, decode_attention, norms, ops
-from repro_torch.kernels import flash_attention, mamba_scan
-from repro_torch.kernels import ref, rg_lru, rope, router
+from repro_torch.kernels import cross_entropy, flash_attention, mamba_scan
+from repro_torch.kernels import ref, rg_lru, rope, router, softmax
 
 DTYPES = [("float32", 2e-4), ("bfloat16", 1.6e-2)]
 
@@ -235,6 +235,22 @@ def _op_cases():
         ("linear_scan_ref_state",
          torch.ops.repro_torch.linear_scan_ref_state.default,
          (t(2, 5, 6).sigmoid(), t(2, 5, 6))),
+        ("rmsnorm_residual", norms.rmsnorm_residual_op,
+         (t(6, 32), t(6, 32), t(32), 1e-6)),
+        ("rmsnorm_residual_bf16", norms.rmsnorm_residual_op,
+         (t(5, 40, dtype=torch.bfloat16), t(5, 40, dtype=torch.bfloat16),
+          t(40), 1e-6)),
+        ("softmax", softmax.softmax_op, (t(6, 33), 0.125)),
+        ("softmax_bf16", softmax.softmax_op, (t(4, 40, dtype=torch.bfloat16), 2.0)),
+        ("softmax_masked", softmax.softmax_masked_op,
+         (t(6, 33), t(6, 33) > 0, 0.125)),
+        ("softmax_masked_bf16", softmax.softmax_masked_op,
+         (t(4, 40, dtype=torch.bfloat16), t(4, 40) > 0.5, 1.0)),
+        ("cross_entropy", cross_entropy.cross_entropy_op,
+         (t(6, 50), torch.tensor([0, 49, 7, 3, 12, 30], dtype=torch.int32))),
+        ("cross_entropy_bf16", cross_entropy.cross_entropy_op,
+         (t(3, 70, dtype=torch.bfloat16),
+          torch.tensor([69, 0, 35], dtype=torch.int32))),
     ]
 
 
@@ -265,8 +281,13 @@ def test_custom_op_opcheck(case):
     (mamba_scan._launch, mamba_scan.mamba_scan_op), (rg_lru._launch, rg_lru.rg_lru_op),
     (norms._launch_layernorm, norms.layernorm_op),
     (activations._launch_sqrelu, activations.squared_relu_op),
+    (norms._launch_residual, norms.rmsnorm_residual_op),
+    (softmax._launch, softmax.softmax_op),
+    (softmax._launch_masked, softmax.softmax_masked_op),
+    (cross_entropy._launch, cross_entropy.cross_entropy_op),
 ], ids=["rmsnorm", "glu", "rope", "decode_attention", "flash_attention",
-        "topk_router", "mamba_scan", "rg_lru", "layernorm", "squared_relu"])
+        "topk_router", "mamba_scan", "rg_lru", "layernorm", "squared_relu",
+        "rmsnorm_residual", "softmax", "softmax_masked", "cross_entropy"])
 def test_cuda_launcher_takes_the_op_signature(launch, op):
     """The dispatcher drops an argument left at its default, so the CUDA
     implementation must declare the op's parameters with the same
@@ -298,6 +319,18 @@ def test_kernel_mode_dispatch():
         torch.testing.assert_close(ops.squared_relu(x), ref.squared_relu(x))
         torch.testing.assert_close(ops.layernorm(x, g, 0.5 * g),
                                    ref.layernorm(x, g, 0.5 * g))
+        torch.testing.assert_close(ops.rmsnorm_residual(x, 2 * x, g),
+                                   ref.rmsnorm_residual(x, 2 * x, g))
+        torch.testing.assert_close(ops.softmax(x, 0.5), ref.softmax(x, 0.5))
+        torch.testing.assert_close(ops.softmax(x, 0.5, x > -1),
+                                   ref.softmax(x, 0.5, x > -1))
+        labels = torch.tensor([0, 15, 7], dtype=torch.int32)
+        torch.testing.assert_close(ops.cross_entropy(x[0], labels),
+                                   ref.cross_entropy(x[0], labels))
+        # a fully masked row: 0 through the kernel's plain version
+        kern_masked = ops.softmax(x, 0.5, torch.zeros(16, dtype=torch.bool))
+    assert (kern_masked == 0).all()
+    assert torch.isnan(ops.softmax(x, 0.5, torch.zeros(16, dtype=torch.bool))).all()
     torch.testing.assert_close(kern_out, ref_out, rtol=0, atol=0)
 
 
@@ -318,9 +351,14 @@ def test_cpu_tensors_never_count_launches():
         ops.rg_lru(x[:, 0], x[:, 0], x[:, 0], torch.ones(16))
         ops.layernorm(x, torch.ones(16), torch.zeros(16))
         ops.squared_relu(x)
+        ops.rmsnorm_residual(x, x, torch.ones(16))
+        ops.softmax(x, 0.5)
+        ops.softmax(x, 0.5, x > 0)
+        ops.cross_entropy(x[:, 0, 0], torch.zeros(4, dtype=torch.int32))
     names = ["rmsnorm", "layernorm", "glu", "squared_relu", "rope",
              "decode_attention", "flash_attention", "router", "mamba_scan",
-             "rg_lru"]
+             "rg_lru", "rmsnorm_residual", "softmax", "softmax_masked",
+             "cross_entropy"]
     assert ops.launch_counts() == {k: 0 for k in names}
     assert ops.launch_counts_by_signature() == {k: {} for k in names}
 
