@@ -17,8 +17,9 @@ translation:
 * Ops with no tensor operand (``arange``, ``full``, ``scalar_tensor``) are
   evaluated once at trace time into CONSTANT nodes.
 * ``_softmax`` / ``_log_softmax`` are spelled out as reductions and
-  elementwise ops (the planner must see them); ``mean`` is a REDUCTION
-  ``mean``.
+  elementwise ops (the planner must see them); ``mean`` is spelled as the
+  jaxpr of ``jnp.mean``: a REDUCTION ``sum``, a BROADCAST back to the kept
+  rank when ``keepdim``, and a ``div`` by the count as a scalar literal.
 * Any other op (``embedding``, ``index_put``, ``cat``, ``index``, ...)
   becomes an executable CUSTOM node whose closure calls the ATen op: it
   partitions fusion, like the paper's opaque ops, and the graph stays
@@ -34,6 +35,7 @@ translation:
 
 from __future__ import annotations
 
+import math
 import operator
 from typing import Callable
 
@@ -69,8 +71,7 @@ _BINARY = {
     "ge": "ge", "gt": "gt", "le": "le", "lt": "lt", "eq": "eq",
 }
 
-_REDUCE = {"sum": "sum", "mean": "mean", "amax": "max", "amin": "min",
-           "prod": "prod"}
+_REDUCE = {"sum": "sum", "amax": "max", "amin": "min", "prod": "prod"}
 
 _IDENTITY = {"clone", "alias", "alias_copy", "lift_fresh_copy", "detach",
              "detach_copy", "contiguous"}
@@ -465,7 +466,9 @@ class _Translator:
 
     op_select_copy = op_select
 
-    def reduction(self, node, op: str):
+    def reduction(self, node, op: str, keepdim: bool | None = None):
+        """A REDUCTION over the node's dims; ``keepdim`` overrides the
+        node's own (the result's shape follows it)."""
         x = node.args[0]
         xm = _meta(x)
         rank = xm.dim()
@@ -474,14 +477,40 @@ class _Translator:
             dims = [dims]
         if not dims:
             dims = list(range(rank))
-        keepdim = bool(node.args[2] if len(node.args) > 2
-                       else node.kwargs.get("keepdim", False))
+        if keepdim is None:
+            keepdim = bool(node.args[2] if len(node.args) > 2
+                           else node.kwargs.get("keepdim", False))
         if node.kwargs.get("dtype") is not None:
             return self.custom(node)
         v = _meta(node)
         axes = tuple(sorted(int(d) % rank for d in dims)) if rank else ()
-        return self._reduce(op, self.env[x], axes, keepdim, v.shape,
+        shape = tuple(1 if i in axes else d for i, d in enumerate(xm.shape)) \
+            if keepdim else tuple(d for i, d in enumerate(xm.shape)
+                                  if i not in axes)
+        return self._reduce(op, self.env[x], axes, keepdim, shape,
                             dtype_name(v.dtype))
+
+    def op_mean(self, node):
+        """``sum`` over the axes without keepdims, a broadcast to the kept
+        shape, and a division by the count (a literal in the result's
+        dtype), as ``jnp.mean`` traces.  A mean with a ``dtype`` argument
+        stays one CUSTOM node running the mean itself."""
+        v = _meta(node)
+        total = self.reduction(node, "sum", keepdim=False)
+        if self.g[total].kind is not OpKind.REDUCTION:
+            return total
+        axes = self.g[total].attrs["axes"]
+        in_shape = self.g[self.env[node.args[0]]].shape
+        dt = dtype_name(v.dtype)
+        out = total
+        if tuple(v.shape) != self.g[total].shape:
+            kept = tuple(i for i in range(len(in_shape)) if i not in axes)
+            out = self.add("bcast", OpKind.BROADCAST, v.shape, dt, (total,),
+                           {"bcast_dims": kept})
+        count = math.prod(in_shape[a] for a in axes)
+        lit = self.const(torch.tensor(float(count), dtype=v.dtype), "lit")
+        return self.add("div", OpKind.ELEMENTWISE, v.shape, dt, (out, lit),
+                        {"op": "div"})
 
     def _reduce(self, op, x, axes, keepdims, shape, dtype):
         return self.add(f"reduce_{op}", OpKind.REDUCTION, shape, dtype, (x,),

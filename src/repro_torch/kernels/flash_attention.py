@@ -1,9 +1,19 @@
 """Causal / local-window GQA flash attention: the port of the reference's
 ``_flash_kernel`` (``src/repro/kernels/flash_attention.py``).
 
-The kernel is CUDA C++ for ``sm_90a`` (``repro_torch/csrc/flash_attention.cu``,
-built by :mod:`.build` at first use and bound with ``ctypes``); its source
-note gives the bound and the design.  It is the custom op
+Two CUDA C++ kernels for ``sm_90a`` (built by :mod:`.build` at first use and
+bound with ``ctypes``; each source note gives the bound and the design):
+
+* ``"sm90"`` (``repro_torch/csrc/flash_attention_sm90.cu``): ``wgmma`` fed
+  by TMA, for bf16 at head widths 64, 128 and 256 with 16-byte-aligned
+  tensors and strides;
+* ``"simt"`` (``repro_torch/csrc/flash_attention.cu``): f32 FMAs on the CUDA
+  cores, for f32 (``wgmma`` would compute it in TF32) and every other bf16
+  shape.
+
+:func:`_variant` picks one from the arguments alone; a call it sends to the
+Hopper kernel that the kernel refuses raises, and nothing falls back.  It is
+the custom op
 ``repro_torch::flash_attention``: the CPU implementation is the plain
 version below, the CUDA implementation launches the kernel, so ``make_fx``
 sees the whole attention as one node, which the tracer tags
@@ -27,16 +37,33 @@ import torch
 
 from . import build
 
-__all__ = ["bind", "flash_attention", "flash_attention_plain", "launches"]
+__all__ = ["bind", "flash_attention", "flash_attention_plain", "launches",
+           "variant_launches"]
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_LIMIT = 65535       # the kernel's grid: (q tiles, Hq, B)
+SM90_HEAD_DIMS = (64, 128, 256)
 
-# kernel launches since the last reset, by build.signature of the arguments
+# kernel launches since the last reset, by build.signature of the arguments,
+# and by variant ("sm90", "simt")
 launches: Counter = Counter()
+variant_launches: Counter = Counter()
 _LIB: ctypes.CDLL | None = None
+_LIB_SM90: ctypes.CDLL | None = None
+
+
+def _variant(dtype, dh: int, ptrs, strides) -> str:
+    """The kernel a call runs: ``"sm90"`` for bf16 at head width 64, 128 or
+    256 with every base pointer 16-byte aligned and every stride (in
+    elements) a positive multiple of 8; ``"simt"`` for the rest, f32
+    included."""
+    if dtype != torch.bfloat16 or dh not in SM90_HEAD_DIMS:
+        return "simt"
+    if any(p % 16 for p in ptrs) or any(s <= 0 or s % 8 for s in strides):
+        return "simt"
+    return "sm90"
 
 
 def flash_attention_plain(qt, kt, vt, scale: float, causal: bool = True,
@@ -65,12 +92,20 @@ def flash_attention_plain(qt, kt, vt, scale: float, causal: bool = True,
     return out.reshape(B, Hq, Lq, Dh).to(qt.dtype).contiguous()
 
 
+# each variant's C function; the two share one signature
+_ENTRY = {"simt": "repro_flash_attention", "sm90": "repro_flash_attention_sm90"}
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of a built ``flash_attention`` library."""
+    """Declare the C interface of a built ``flash_attention`` or
+    ``flash_attention_sm90`` library."""
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.repro_flash_attention.argtypes = (
-        [vp] * 4 + [ci] * 7 + [cl] * 9 + [ctypes.c_float, ci, ci, ci, vp])
-    lib.repro_flash_attention.restype = ci
+    for name in _ENTRY.values():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = ([vp] * 4 + [ci] * 7 + [cl] * 9
+                           + [ctypes.c_float, ci, ci, ci, vp])
+            fn.restype = ci
     lib.repro_cuda_error_string.argtypes = [ci]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -83,8 +118,25 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
+def _lib_sm90() -> ctypes.CDLL:
+    global _LIB_SM90
+    if _LIB_SM90 is None:
+        _LIB_SM90 = bind(ctypes.CDLL(str(
+            build.library("flash_attention_sm90"))))
+    return _LIB_SM90
+
+
 def _launch(qt, kt, vt, scale: float, causal: bool = True,
             window: Optional[int] = None, q_offset: int = 0):
+    return _launch_variant(None, qt, kt, vt, scale, causal, window, q_offset)
+
+
+def _launch_variant(variant: Optional[str], qt, kt, vt, scale: float,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0):
+    """Launch the kernel ``variant`` names, or :func:`_variant`'s choice
+    when it is None (the card check and the card tests name "simt" to time
+    and test the CUDA-core kernel on bf16)."""
     if qt.dim() != 4 or kt.dim() != 4 or tuple(vt.shape) != tuple(kt.shape):
         raise ValueError(f"flash_attention: shapes q {tuple(qt.shape)}, "
                          f"k {tuple(kt.shape)}, v {tuple(vt.shape)}")
@@ -112,20 +164,24 @@ def _launch(qt, kt, vt, scale: float, causal: bool = True,
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name} strides {t.stride()}: "
                              f"the last dimension must be contiguous")
+    ptrs = [t.data_ptr() for t in (qt, kt, vt)]
+    strides = [s for t in (qt, kt, vt) for s in t.stride()[:3]]
+    variant = variant or _variant(qt.dtype, Dh, ptrs, strides)
+    if variant not in _ENTRY:
+        raise ValueError(f"flash_attention: no variant {variant!r}")
+    lib = _lib_sm90() if variant == "sm90" else _lib()
     out = torch.empty((B, Hq, Lq, Dh), dtype=qt.dtype, device=dev)
-    err = _lib().repro_flash_attention(
-        qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), out.data_ptr(),
-        _DTYPES[qt.dtype], B, Hq, Hkv, Lq, Lkv, Dh,
-        qt.stride(0), qt.stride(1), qt.stride(2),
-        kt.stride(0), kt.stride(1), kt.stride(2),
-        vt.stride(0), vt.stride(1), vt.stride(2),
-        float(scale), int(bool(causal)),
+    err = getattr(lib, _ENTRY[variant])(
+        *ptrs, out.data_ptr(), _DTYPES[qt.dtype], B, Hq, Hkv, Lq, Lkv, Dh,
+        *strides, float(scale), int(bool(causal)),
         int(window) if window is not None else 0, int(q_offset),
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        msg = _lib().repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"flash_attention kernel launch failed: {msg} ({err})")
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"flash_attention {variant} kernel launch failed: "
+                           f"{msg} ({err})")
     launches[build.signature(qt, kt, vt, scale, causal, window, q_offset)] += 1
+    variant_launches[variant] += 1
     return out
 
 
@@ -154,8 +210,7 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
     ``q_offset``: absolute position of q[0] (for chunked prefill).
     ``block_q`` / ``block_k`` are the reference's TPU tile sizes, taken so
     that callers of either package pass the same arguments; the result
-    does not depend on them, and the kernel keeps its own tiles (64 q rows
-    by 64 keys, 32 q rows above head width 128)."""
+    does not depend on them, and the kernels keep their own tiles."""
     del block_q, block_k
     Dh = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(Dh)

@@ -47,7 +47,8 @@ __all__ = ["KernelMode", "get_mode", "kernel_mode", "rmsnorm",
            "squared_relu", "rope", "cross_entropy", "attention",
            "decode_attention", "topk_router", "mamba_scan", "rg_lru",
            "KERNEL_TAGS",
-           "launch_counts", "launch_counts_by_signature", "reset_launch_counts"]
+           "launch_counts", "launch_counts_by_signature",
+           "launch_counts_by_variant", "reset_launch_counts"]
 
 KernelMode = Literal["kernels", "ref"]
 _mode: contextvars.ContextVar[str] = contextvars.ContextVar("kernel_mode",
@@ -64,6 +65,9 @@ _KERNELS = {"rmsnorm": _norms.launches, "layernorm": _norms.layernorm_launches,
             "softmax": _softmax.launches,
             "softmax_masked": _softmax.masked_launches,
             "cross_entropy": _xent.launches}
+# the kernels with more than one variant: launches by variant
+_VARIANTS = {"flash_attention": _flash.variant_launches,
+             "decode_attention": _decode.variant_launches}
 
 # each custom op -> the reference kernel body it ports, the name the
 # planner's registry (kernels/registry.py) knows it by; ``_sqrelu_kernel``,
@@ -118,8 +122,15 @@ def launch_counts_by_signature() -> dict[str, dict[tuple, int]]:
     return {name: dict(c) for name, c in _KERNELS.items()}
 
 
+def launch_counts_by_variant() -> dict[str, dict[str, int]]:
+    """Launches of flash attention by variant (``"sm90"``: wgmma + TMA,
+    ``"simt"``: CUDA cores) and of decode attention (``"split"``, and the
+    replaced ``"single"`` the card check times it against)."""
+    return {name: dict(c) for name, c in _VARIANTS.items()}
+
+
 def reset_launch_counts() -> None:
-    for c in _KERNELS.values():
+    for c in (*_KERNELS.values(), *_VARIANTS.values()):
         c.clear()
 
 

@@ -89,23 +89,21 @@ def rope(x, positions, theta: float = 10000.0):
 
 def xent_rows(logits, labels):
     """Per-row NLL ``logsumexp(row) - row[label]`` in f32: logits (B, V),
-    labels (B,) int.  The gold logit is ``jnp.take_along_axis``'s steps: a
-    negative label wraps (``lt``, ``add``, ``select``), then a (B, 1)
-    index, a gather, and the ``[..., 0]`` slice."""
+    labels (B,) int.  The gold logit is ``jnp.take_along_axis``'s steps on
+    ``labels[:, None]``: the (B, 1) index, a negative label's wrap (``lt``,
+    ``add``, ``select``), a gather, and the ``[..., 0]`` slice."""
     lf = logits.to(torch.float32)
     m = torch.amax(lf, dim=-1, keepdim=True)
     lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
-    idx = labels.to(torch.int32)
+    idx = labels.to(torch.int32).reshape(-1, 1)
     idx = torch.where(idx < 0, idx + lf.shape[-1], idx)
-    gold = torch.gather(lf, 1, idx.reshape(-1, 1))[..., 0]
+    gold = torch.gather(lf, 1, idx)[..., 0]
     return lse - gold
 
 
 def cross_entropy(logits, labels):
-    """Mean token NLL: logits (B, V) float, labels (B,) int.  The mean is a
-    sum and a division, as ``jnp.mean`` traces."""
-    rows = xent_rows(logits, labels)
-    return torch.sum(rows) / rows.shape[0]
+    """Mean token NLL: logits (B, V) float, labels (B,) int."""
+    return torch.mean(xent_rows(logits, labels))
 
 
 def attention(q, k, v, *, causal: bool = True, scale: float | None = None,

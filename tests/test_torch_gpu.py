@@ -245,17 +245,22 @@ FLASH_CASES = [(4, 16, 8, 256, 256, 128, True, None, 0),
                (1, 16, 1, 300, 300, 256, True, 64, 0)]
 
 
+def _flash_args(i, case, dtype):
+    """The case's q, k, v as views strided from (B, L, H, Dh) activations."""
+    B, Hq, Hkv, Lq, Lkv, Dh, causal, window, q_offset = case
+    q = _rand((B, Lq, Hq, Dh), dtype, 3 * i)
+    k, v = (_rand((B, Lkv, Hkv, Dh), dtype, 3 * i + j) for j in (1, 2))
+    return (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            Dh ** -0.5, causal, window, q_offset)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
 def test_flash_attention_kernel_on_card(dtype, tol):
     _need_card()
     from repro_torch.kernels import flash_attention as fa
-    for i, (B, Hq, Hkv, Lq, Lkv, Dh, causal, window, q_offset) in \
-            enumerate(FLASH_CASES):
-        q = _rand((B, Lq, Hq, Dh), dtype, 3 * i)
-        k, v = (_rand((B, Lkv, Hkv, Dh), dtype, 3 * i + j) for j in (1, 2))
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        args = (qt, kt, vt, Dh ** -0.5, causal, window, q_offset)
+    for i, case in enumerate(FLASH_CASES):
+        args = _flash_args(i, case, dtype)
         before = sum(fa.launches.values())
         out = fa.flash_attention_op(*args)
         torch.cuda.synchronize()
@@ -264,9 +269,100 @@ def test_flash_attention_kernel_on_card(dtype, tol):
                                    fa.flash_attention_plain(*args).float(),
                                    rtol=tol, atol=tol)
     # the same shape with a strided last dimension is refused
+    qt, kt, vt = args[:3]
     bad = qt.contiguous().transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention_op(bad, kt, vt, 0.1)
+
+
+# bf16 cases for both flash variants at every head width the Hopper kernel
+# takes: Lq 200 against Lkv 384 with a q_offset (a chunk after 184 cached
+# tokens), rows without a valid key, a window across kv tiles, GQA groups
+# of 6 and 16, and causal=False
+FLASH_VARIANT_CASES = [(2, 12, 2, 200, 384, 64, True, None, 184),
+                       (1, 4, 2, 128, 128, 64, True, 16, 100),
+                       (2, 48, 8, 256, 256, 128, True, None, 0),
+                       (2, 8, 4, 200, 384, 128, True, 100, 184),
+                       (1, 4, 2, 128, 128, 128, True, 16, 100),
+                       (2, 4, 4, 200, 200, 128, False, None, 0),
+                       (2, 16, 1, 256, 256, 256, True, None, 0),
+                       (1, 16, 1, 300, 300, 256, True, 64, 0),
+                       (1, 8, 2, 200, 384, 256, True, None, 184)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["sm90", "simt"])
+def test_flash_attention_variants_on_card(variant):
+    """Each flash variant against the plain version in bf16 at 1.6e-2; the
+    dispatch sends every case to the Hopper kernel, and a shape it refuses
+    raises."""
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    for i, case in enumerate(FLASH_VARIANT_CASES):
+        args = _flash_args(i, case, "bfloat16")
+        ptrs = [t.data_ptr() for t in args[:3]]
+        strides = [st for t in args[:3] for st in t.stride()[:3]]
+        assert fa._variant(torch.bfloat16, case[5], ptrs, strides) == "sm90"
+        before = fa.variant_launches[variant]
+        out = fa._launch_variant(variant, *args)
+        torch.cuda.synchronize()
+        assert fa.variant_launches[variant] == before + 1
+        torch.testing.assert_close(out.float(),
+                                   fa.flash_attention_plain(*args).float(),
+                                   rtol=1.6e-2, atol=1.6e-2)
+    if variant == "sm90":
+        # f32, a head width of 96 and a misaligned view are not the Hopper
+        # kernel's: the dispatch sends them to "simt", and forcing it raises
+        f32 = _flash_args(0, FLASH_VARIANT_CASES[2], "float32")
+        d96 = _flash_args(0, (1, 4, 2, 64, 64, 96, True, None, 0), "bfloat16")
+        for bad in (f32, d96):
+            with pytest.raises(RuntimeError, match="sm90 kernel launch failed"):
+                fa._launch_variant("sm90", *bad)
+
+
+# split decode: (Hq, Hkv, Smax, Dh, positions, window): positions on chunk
+# edges (0, C - 1, C, Smax - 1) at GQA groups 1, 6 and 8, a window across
+# two chunks, a group of 16 (above the single-pass kernel's 8), head width
+# 64, and rows without a valid key (a position past the window's reach)
+def _decode_cases(C):
+    return [(8, 8, 4 * C, 128, [0, C - 1, C, 4 * C - 1], None),
+            (48, 8, 16 * C, 128, [0, C - 1, C, 16 * C - 1], None),
+            (16, 2, 3 * C + 5, 128, [C - 1, C, 2 * C + 3, 3 * C + 4], None),
+            (48, 8, 4 * C, 128, [C + 2, 2 * C, 3 * C - 1, 4 * C - 1], C // 2),
+            (16, 1, 2 * C, 64, [0, C, 2 * C - 1, C // 2], None),
+            (8, 2, 2 * C, 128, [4 * C, 2 * C - 1, -1, C], 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
+def test_decode_attention_split_on_card(dtype, tol):
+    _need_card()
+    from repro_torch.kernels import decode_attention as da
+    C, _ = da.chunk_plan(1)
+    for i, (hq, hkv, smax, dh, pos, window) in enumerate(_decode_cases(C)):
+        B = len(pos)
+        q = _rand((B, 1, hq, dh), dtype, 3 * i)
+        k, v = (_rand((B, smax, hkv, dh), dtype, 3 * i + j) for j in (1, 2))
+        p = torch.tensor(pos, dtype=torch.int32).reshape(B, 1).cuda()
+        args = (p, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                dh ** -0.5, window)
+        ref = da.decode_attention_plain(*args).float()
+        before = da.variant_launches["split"]
+        out = da.decode_attention_op(*args)
+        torch.cuda.synchronize()
+        assert da.variant_launches["split"] == before + 1
+        torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
+        # deterministic: no atomics, the same bits on a second call
+        assert torch.equal(da.decode_attention_op(*args), out)
+        if hq // hkv > da.SINGLE_MAX_GROUP:
+            with pytest.raises(ValueError, match="at most"):
+                da._launch_variant("single", *args)
+        elif window is None:
+            # the replaced kernel, on rows that have a valid key (it gives
+            # 0 where the reference gives the mean of V)
+            torch.testing.assert_close(
+                da._launch_variant("single", *args).float(), ref,
+                rtol=tol, atol=tol)
 
 
 # (T, E, k): a granite decode step and its bucket-256 prefill, a ragged E
@@ -759,7 +855,9 @@ def test_cuda_library_builds_from_an_empty_directory(tmp_path):
             for p in build.CSRC.glob("*.cu")}
     assert all(path.parent == tmp_path for path in libs.values())
     for stem, fn in (("decode_attention", "repro_decode_attention"),
+                     ("decode_attention", "repro_decode_attention_single"),
                      ("flash_attention", "repro_flash_attention"),
+                     ("flash_attention_sm90", "repro_flash_attention_sm90"),
                      ("router", "repro_topk_router"),
                      ("mamba_scan", "repro_mamba_scan"),
                      ("rg_lru", "repro_rg_lru")):

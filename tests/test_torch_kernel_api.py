@@ -334,18 +334,26 @@ def test_traced_kernel_nodes_match_the_reference(path):
 
 
 def test_ref_mode_gather_is_spelled_as_the_reference():
-    """``take_along_axis``'s steps: the index wrap (lt, add, select), a
-    (T, 1) index, one CUSTOM gather, the ``[..., 0]`` slice."""
+    """``take_along_axis``'s steps on ``labels[:, None]``: the labels taken
+    to a (T, 1) index first (jax's expand_dims is a broadcast, torch's a
+    reshape), then the index wrap (lt, add, select) at (T, 1), one CUSTOM
+    gather (the reference's through a (T, 1, 1) reshape of the index), the
+    ``[..., 0]`` slice."""
     rg, g = traced("seam", ("ref", "ref"))
     for graph, prim in ((g, "aten.gather.default"), (rg, "gather")):
         (gather,) = [n for n in graph.nodes.values()
                      if n.attrs.get("prim") == prim]
-        idx = graph[gather.operands[1]]
-        assert idx.kind.value == "reshape" and str(idx.dtype) == "int32"
-        sel = graph[idx.operands[0]]
-        assert sel.attrs.get("op") == "select"
-        assert sorted(graph[o].attrs.get("op") for o in sel.operands[:2]) == \
-            ["add", "lt"]
+        sel = graph[gather.operands[1]]
+        if sel.kind.value == "reshape":
+            sel = graph[sel.operands[0]]
+        assert sel.attrs.get("op") == "select" and tuple(sel.shape) == (T, 1)
+        wrap = [graph[o] for o in sel.operands[:2]]
+        assert sorted(n.attrs.get("op") for n in wrap) == ["add", "lt"]
+        for n in wrap:
+            assert tuple(n.shape) == (T, 1)
+            idx = graph[n.operands[0]]
+            assert idx.kind.value in ("reshape", "broadcast")
+            assert tuple(idx.shape) == (T, 1) and str(idx.dtype) == "int32"
         (user,) = graph.users(gather.name)
         assert graph[user].kind.value == "slice"
         assert tuple(gather.shape) == (T, 1)
@@ -393,14 +401,15 @@ def test_port_kernel_mode_seam_plans_as_the_reference():
 
 
 def test_port_ref_mode_seam_plans_to_three_kernels():
-    """The port's own ref-mode graph: 30 ops (its RMSNorm mean is one
-    REDUCTION node where the reference's is a sum, a broadcast and a
-    division, and its labels are not broadcast before the wrap), planned
-    as the reference's: the gather alone, the logsumexp with the mean."""
+    """The port's own ref-mode graph: 32 ops, as the reference's (the
+    RMSNorm mean and the loss's mean each a sum, a broadcast where dims are
+    kept and a division; the labels taken to a (B, 1) index before the
+    wrap), planned as the reference's: the gather alone, the logsumexp with
+    the mean."""
     _, g = traced("seam", ("ref", "ref"))
     port = StitchCompiler(V100, mode="stitch").compile(g)
-    assert (port.stats.n_ops, port.stats.n_kernels) == (30, 3)
-    assert sorted(len(grp.members) for grp in port.groups) == [1, 14, 15]
+    assert (port.stats.n_ops, port.stats.n_kernels) == (32, 3)
+    assert sorted(len(grp.members) for grp in port.groups) == [1, 14, 17]
     (alone,) = [grp for grp in port.groups if len(grp.members) == 1]
     (name,) = alone.members
     assert g[name].attrs.get("prim") == "aten.gather.default"

@@ -361,6 +361,8 @@ def test_cpu_tensors_never_count_launches():
              "cross_entropy"]
     assert ops.launch_counts() == {k: 0 for k in names}
     assert ops.launch_counts_by_signature() == {k: {} for k in names}
+    assert ops.launch_counts_by_variant() == {"flash_attention": {},
+                                              "decode_attention": {}}
 
 
 def test_launch_signature_keys_shapes_dtypes_and_arguments():
@@ -421,7 +423,7 @@ def test_build_failure_raises_with_nvcc_output(tmp_path, monkeypatch):
 
 def test_csrc_sources_are_found():
     stems = {p.stem for p in build.CSRC.glob("*.cu")}
-    assert {"decode_attention", "flash_attention", "router",
-            "mamba_scan", "rg_lru"} <= stems
+    assert {"decode_attention", "flash_attention", "flash_attention_sm90",
+            "router", "mamba_scan", "rg_lru"} <= stems
     assert build.build_dir().parts[-2:] == ("build", "kernels")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

@@ -102,7 +102,8 @@ def test_h100_preset():
 
 def test_frontend_spells_broadcasts_explicitly():
     """Implicit ATen broadcasting becomes explicit right-aligned BROADCAST
-    nodes, scalars become shape-() constants, mean is a REDUCTION."""
+    nodes, scalars become shape-() constants, mean is a REDUCTION sum, its
+    broadcast back to the kept rank and a division by a count literal."""
     def fn(x, g):
         return (x - x.mean(-1, keepdim=True)) * g * 0.5
 
@@ -114,9 +115,10 @@ def test_frontend_spells_broadcasts_explicitly():
     assert OpKind.REDUCTION in kinds
     bc = [g[n] for n in g.nodes if g[n].kind is OpKind.BROADCAST]
     dims = sorted(tuple(b.attrs["bcast_dims"]) for b in bc)
-    assert dims == [(0, 1, 2), (2,)]
+    assert dims == [(0, 1), (0, 1, 2), (2,)]
     lits = [g[n] for n in g.nodes if g[n].kind is OpKind.CONSTANT]
-    assert [tuple(c.shape) for c in lits] == [()]
+    assert sorted(float(c.attrs["value"]) for c in lits) == [0.5, 8.0]
+    assert [tuple(c.shape) for c in lits] == [(), ()]
     for node in g.nodes.values():
         if node.kind is OpKind.ELEMENTWISE:
             for o in node.operands:
