@@ -10,7 +10,9 @@ result line):
    started together, with each one's build seconds and ptxas report; the
    Triton kernels' planted-fault sources.
 1. Sample kernels: generated Triton stitched kernels for a softmax, an
-   RMSNorm chain and a SwiGLU chain, and the fourteen hand-written kernels
+   RMSNorm chain, a SwiGLU chain and a scaled softmax whose row statistics
+   and column scale broadcast implicitly (size-1 dims), and the fourteen
+   hand-written kernels
    (RMSNorm, the residual RMSNorm, LayerNorm, SwiGLU/GeGLU, squared ReLU,
    RoPE, the plain and masked softmax, the cross-entropy, decode
    attention, flash attention, the MoE router, the selective scan, the
@@ -21,7 +23,10 @@ result line):
    one, wgmma fed by TMA, and the CUDA-core one it replaced for bf16) and
    its f32 samples through the CUDA-core one; decode attention runs the
    split kernel and the single-pass one it replaced, with positions on the
-   split's chunk edges; the launches by variant are counted exactly.  Three
+   split's chunk edges; the launches by variant are counted exactly; the
+   selective scan's samples run the lanes kernel and the thread kernel it
+   replaced, and the softmax's wide rows the split layout and the
+   single-program layout it replaced.  Three
    bf16 faults are planted (the Hopper flash kernel's acc not rescaled and
    its window ignored, the split decode's combine adding a partial without
    its rescale), and the bf16 sample gate must catch each.
@@ -74,11 +79,13 @@ result line):
    scan and 33 RMSNorm launches a call and no other
    hand-written kernel, the call's ms, tokens/s, device busy and peak
    memory, every kernel of the path against its plain version (the scan
-   beside its bound, whose term is the SFU's exponentials); then
+   beside its bound, whose term is the SFU's exponentials, and beside the
+   thread kernel it replaced on the same operands); then
    ``stitch(block_fn)`` on layer 0 (one scan launch a call); bf16 loss and
    block output against the eager ref-mode model over several weight
    seeds; then (with the float32 checks) the model cut to 4 layers in
-   float32, with a fault planted in the scan kernel.
+   float32, with a fault planted in the scan kernel (its lane states
+   restart at every chunk of 16 steps).
 7. Hybrid phase (after the ssm phase): the RG-LRU kernel, flash attention
    at head width 256 on one kv head and RoPE on that head at sample shapes
    (with phase 1's samples); full-width recurrentgemma-9b (38 layers: 26
@@ -124,11 +131,13 @@ result line):
    kernel; every kernel against its plain version on the path's operands,
    timed beside its bound and a PyTorch call (the ``x + res ->
    F.rms_norm`` chain, ``F.cross_entropy``, the ``masked_fill -> softmax``
-   and ``mul -> softmax`` chains); the outputs against the same functions
-   run eagerly in ref mode over several seeds; then in float32 at the same
-   widths, with faults planted in the four Triton kernels (the residual
-   norm of x alone, the cross-entropy's and the wide softmax's running
-   sums not rescaled, the mask ignored).
+   and ``mul -> softmax`` chains; the vocabulary softmax, split across the
+   card, also beside the single-program layout it replaced); the outputs
+   against the same functions run eagerly in ref mode over several seeds;
+   then in float32 at the same widths, with faults planted in the four
+   Triton kernels (the residual norm of x alone, the cross-entropy's
+   running sum not rescaled, the split softmax's fold adding a chunk's sum
+   without its exp(m_c - M) rescale, the mask ignored).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -292,13 +301,17 @@ def kernel_bound(k) -> tuple[float, str]:
 
 def rms_chain(p):
     """The RMSNorm chain of a pattern, or None: ``xf = convert(x)`` (or x
-    itself), ``r = rsqrt(mean(xf * xf, last axis) + eps)``, ``y = xf * r *
-    gamma`` and an optional convert back; the mean is a REDUCTION ``mean``
-    (a ``GraphBuilder`` graph) or, as ``torch.mean`` traces, a ``sum``, its
-    broadcast back to the kept rank and a division by the width.  Returns
-    (x, gamma input, eps, y, the chain's node names); every chain node but
-    ``y`` must be used only inside the chain, so the chain can be swapped
-    for one ``F.rms_norm``."""
+    itself; jnp's spelling converts x twice, once for the square and once
+    for the product), ``r = rsqrt(mean(square(xf), last axis) + eps)`` (the
+    square as ``xf * xf`` or ``square``), ``y = xf * r * gamma`` (r and
+    gamma broadcast explicitly or by their size-1 dims, gamma through its
+    casts) and an optional
+    convert back; the mean is a REDUCTION ``mean`` (a ``GraphBuilder``
+    graph) or, as ``torch.mean`` traces, a ``sum``, its broadcast back to
+    the kept rank and a division by the width.  Returns (x, gamma input,
+    eps, y, the chain's node names); every chain node but ``y`` must be
+    used only inside the chain, so the chain can be swapped for one
+    ``F.rms_norm``."""
     from repro_torch.core.ir import OpKind
     g = p.graph
     members = p.members
@@ -315,14 +328,23 @@ def rms_chain(p):
             return None
         return node
 
+    def source(xf):
+        """x behind ``xf``: the operand of a member convert, else xf."""
+        if (xf in members and g[xf].kind is EW
+                and g[xf].attrs.get("op") == "convert"):
+            return g[xf].operands[0]
+        return xf
+
     EW = OpKind.ELEMENTWISE
     for red in p.compute_members:
         if red.kind is not OpKind.REDUCTION or \
                 red.attrs.get("op") not in ("mean", "sum"):
             continue
         sq = g[red.operands[0]]
-        if not (sq.name in members and sq.kind is EW and sq.attrs.get("op") == "mul"
-                and sq.operands[0] == sq.operands[1]):
+        if not (sq.name in members and sq.kind is EW and (
+                sq.attrs.get("op") == "square" or (
+                    sq.attrs.get("op") == "mul"
+                    and sq.operands[0] == sq.operands[1]))):
             continue
         if tuple(red.attrs["axes"]) != (len(sq.shape) - 1,):
             continue
@@ -345,27 +367,41 @@ def rms_chain(p):
         if lit.kind is not OpKind.CONSTANT or lit.shape or "value" not in lit.attrs:
             continue
         rs = only_user(add.name, EW, "rsqrt")
-        bc = rs and only_user(rs.name, OpKind.BROADCAST)
-        m1 = bc and only_user(bc.name, EW, "mul")
-        if m1 is None or set(m1.operands) != {xf, bc.name}:
+        if rs is None:
+            continue
+        r = rs.name
+        bc = only_user(rs.name, OpKind.BROADCAST)
+        if bc is not None:
+            r = bc.name
+        m1 = only_user(r, EW, "mul")
+        if m1 is None or r not in m1.operands or len(m1.operands) != 2:
+            continue
+        xf2 = [o for o in m1.operands if o != r]
+        xf2 = xf2[0] if xf2 else r
+        x = source(xf)
+        if source(xf2) != x:
             continue
         m2 = only_user(m1.name, EW, "mul")
         if m2 is None:
             continue
         gam = [o for o in m2.operands if o != m1.name][0]
-        chain = {sq.name, red.name, add.name, rs.name, bc.name, m1.name,
-                 *spelled}
-        while gam in members and g[gam].kind is OpKind.BROADCAST:
+        chain = {sq.name, red.name, add.name, rs.name, m1.name, *spelled}
+        if bc is not None:
+            chain.add(bc.name)
+        # gamma through its broadcasts and casts (the model casts its f32
+        # gamma to the activation dtype and the norm back to f32)
+        while gam in members and (g[gam].kind is OpKind.BROADCAST or (
+                g[gam].kind is EW and g[gam].attrs.get("op") == "convert")):
+            if set(users(gam)) - chain - {m2.name}:
+                break
             chain.add(gam)
             gam = g[gam].operands[0]
         if gam not in p.external_inputs or g[gam].shape[-1] != d:
             continue
-        x = xf
-        if (xf in members and g[xf].kind is EW
-                and g[xf].attrs.get("op") == "convert"):
-            x = g[xf].operands[0]
-            if set(users(xf)) <= chain | {m1.name}:
-                chain.add(xf)
+        if x != xf:
+            for c in {xf, xf2}:
+                if set(users(c)) <= chain | {m1.name}:
+                    chain.add(c)
         elif set(users(xf)) - {sq.name, m1.name}:
             continue
         y = m2
@@ -487,6 +523,12 @@ def sample_kernels(dev):
     def swiglu(a, b):
         return (F.silu(a.float()) * b.float()).to(torch.bfloat16)
 
+    def scaled_softmax(x, c):
+        # the (rows, 1) max and sum and the (1, cols) scale broadcast
+        # implicitly, by their size-1 dims, as jnp traces them
+        e = torch.exp(x - x.amax(-1, keepdim=True))
+        return e / e.sum(-1, keepdim=True) * c
+
     x_sm = rnd(64, 256)
     # gamma holds bf16 values in f32, as the model's params do after their
     # cast at use: the library call's bf16 weight is then the same gamma
@@ -494,16 +536,23 @@ def sample_kernels(dev):
     g_rms = rnd(2048).to(torch.bfloat16).float()
     a_sw, b_sw = (rnd(4, 1, 6144, dtype=torch.bfloat16),
                   rnd(4, 1, 6144, dtype=torch.bfloat16))
+    x_ib, c_ib = rnd(256, 1000), rnd(1, 1000)
     cases = [
         ("softmax_f32_64x256", lambda x: torch.softmax(x, -1), (x_sm,),
          lambda: (torch.softmax(x_sm, -1),)),
         # the library side of the RMSNorm comes from its RMSNorm chain
         ("rmsnorm_bf16_4x1x2048", rms, (x_rms, g_rms), None),
         ("swiglu_bf16_4x1x6144", swiglu, (a_sw, b_sw), None),
+        ("implicit_bcast_f32_256x1000", scaled_softmax, (x_ib, c_ib),
+         lambda: (torch.softmax(x_ib, -1) * c_ib,)),
     ]
+    from repro_torch.kernels.stitched import explicit_broadcasts
     rows = []
     for name, fn, args, lib in cases:
         k, kargs = whole_graph_kernel(fn, args, name)
+        if name.startswith("implicit_bcast") and (
+                explicit_broadcasts(k.pattern).members == k.pattern.members):
+            fail(f"the {name} sample has no implicit broadcast")
         rows.append(check_kernel(name, k, kargs, library=lib))
     if rows[1]["library_ms"] is None:
         fail("the RMSNorm sample kernel has no library call")
@@ -988,7 +1037,7 @@ def expected_launches(cfg, bucket: int | None = None) -> tuple[dict, dict]:
 # attention drops the row's own key (kpos < pos); flash attention leaves acc
 # unrescaled when a later kv tile raises the row max; the router does not
 # mask the column a round chose, so each row picks its top expert k times;
-# the selective scan's state restarts at every staged chunk of time steps;
+# the selective scan's lane states restart at every chunk of time steps;
 # the RG-LRU's state restarts at every chunk of steps loaded into registers;
 # flash attention ignores the window (every key up to the diagonal is
 # walked and valid); the same two in the Hopper flash kernel; the split
@@ -1005,9 +1054,9 @@ FAULTS = {
                      "  const int q0 = blockIdx.x * kBlockQ;\n",
                      "  window = 0;\n  const int q0 = blockIdx.x * kBlockQ;\n"),
     "router": ("router", "if (lane + 32 * j == bi) p[j] = -1.0f;", ""),
-    "mamba_scan": ("mamba_scan", "const int steps = min(kChunk, L - t0);",
-                   "const int steps = min(kChunk, L - t0);\n"
-                   "    for (int n = 0; n < kMaxState; ++n) h[n] = 0.f;"),
+    "mamba_scan": ("mamba_scan", "const bool more = t0 + kChunk < L;",
+                   "const bool more = t0 + kChunk < L;\n"
+                   "    for (int i = 0; i < kPer; ++i) h[i] = 0.f;"),
     "rg_lru": ("rg_lru", "const int steps = min(kChunk, L - t0);",
                "const int steps = min(kChunk, L - t0);\n    h = 0.f;"),
     "flash_sm90_no_rescale": (
@@ -1027,7 +1076,8 @@ FAULTS = {
 # inputs come out as their squares; the residual RMSNorm normalises x
 # instead of x + res; the cross-entropy drops the exp(m_old - m_new)
 # rescale of its running sum; the masked softmax ignores its mask; the
-# wide-row softmax drops the rescale of its running sum
+# split softmax's fold adds each chunk's sum without its exp(m_c - M)
+# rescale
 TRITON_FAULTS = {
     "layernorm_no_beta": ("norms", "_layernorm_kernel",
                           "y = xc * tl.rsqrt(var + eps) * g + b",
@@ -1050,14 +1100,14 @@ TRITON_FAULTS = {
     "softmax_mask_ignored": (
         "softmax", "_softmax_kernel",
         "valid = valid & (keep != 0)", "valid = valid"),
-    "softmax_wide_no_rescale": (
-        "softmax", "_softmax_kernel",
-        "l = l * tl.exp(m - ms) + ", "l = l + "),
+    "softmax_split_no_rescale": (
+        "softmax", "_softmax_split_kernel",
+        "lc * tl.exp(mc - M)", "lc"),
 }
 # the module global each Triton kernel's jitted function is kept in
 TRITON_JIT = {"_layernorm_kernel": "_LN_JIT", "_sqrelu_kernel": "_SQ_JIT",
               "_rmsnorm_residual_kernel": "_RES_JIT", "_softmax_kernel": "_JIT",
-              "_xent_kernel": "_JIT"}
+              "_softmax_split_kernel": "_SPLIT_JIT", "_xent_kernel": "_JIT"}
 
 
 def fault_dir(fault: str) -> Path:
@@ -1761,12 +1811,17 @@ def source_of(tag, args, source):
     return source
 
 
-def replaced_kernel(tag, args, refs) -> dict:
-    """The kernel this PR replaced, on the same inputs, timed beside the
+def replaced_kernel(tag, args, refs, outs) -> dict:
+    """The kernel a rebuild replaced, on the same inputs, timed beside the
     new one: the CUDA-core flash kernel for a bf16 call that runs the
     Hopper one, the single-pass decode kernel (a GQA group of at most 8)
-    for the split one; held against the plain version too."""
+    for the split one, the single-program softmax layout for a row the
+    split layout takes, the thread scan kernel for the lanes one; held
+    against the plain version too, and the thread scan kernel against the
+    lanes kernel's ``outs`` bit for bit (both add a step's states in
+    increasing n)."""
     from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels import mamba_scan, softmax
     if tag == "_flash_kernel":
         variant = flash_variant(args)
         if variant != "sm90":
@@ -1779,6 +1834,18 @@ def replaced_kernel(tag, args, refs) -> dict:
             return {"variant": variant}
         old, name = functools.partial(decode_attention._launch_variant,
                                       "single", *args), "single"
+    elif tag in ("_softmax_kernel", "_softmax_masked_kernel"):
+        x, mask, scale = (args if tag == "_softmax_masked_kernel"
+                          else (args[0], None, args[1]))
+        variant = "split"
+        if softmax.split_plan(x.shape[-1]) is None:
+            return {"variant": "one_pass"}
+        old, name = functools.partial(softmax._launch_variant, "wide", x,
+                                      mask, scale), "wide"
+    elif tag == "_mamba_kernel":
+        variant = "lanes"
+        old, name = functools.partial(mamba_scan._launch_variant, "thread",
+                                      *args), "thread"
     else:
         return {}
     out = old()
@@ -1787,6 +1854,9 @@ def replaced_kernel(tag, args, refs) -> dict:
     if not within((out,), refs):
         fail(f"the replaced {name} kernel disagrees with the plain version "
              f"(max err {err})")
+    if tag == "_mamba_kernel" and not torch.equal(out, outs[0]):
+        fail(f"the lanes scan kernel differs from the {name} kernel in some "
+             f"bits (max diff {max_err((out,), outs)})")
     return {"variant": variant, "old_variant": name, "old_max_abs_err": err,
             "old_ms": timed(old, 50), "old_device_ms": device_ms(old)}
 
@@ -1900,7 +1970,7 @@ def hand_rows(parts, path):
                      "chain_ms": timed(chain, 50),
                      "chain_device_ms": device_ms(chain)}
         source = source_of(tag, full, source)
-        extra.update(replaced_kernel(tag, full, refs))
+        extra.update(replaced_kernel(tag, full, refs, outs))
         lib = hand_library(tag, full)
         lib_ms = lib_dev_ms = lib_err = None
         if lib is not None:
@@ -2770,7 +2840,7 @@ API_TOL = {"seam loss": 4.2e-7, "attention": 1.2e-3, "vocab": 1.4e-4}
 API_FAULTS = {"residual_normalises_x": "seam loss",
               "xent_no_rescale": "seam loss",
               "softmax_mask_ignored": "attention",
-              "softmax_wide_no_rescale": "vocab"}
+              "softmax_split_no_rescale": "vocab"}
 
 
 def api_inputs(cfg, dtype, seed, dev) -> dict:

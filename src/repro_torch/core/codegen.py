@@ -157,20 +157,45 @@ def _dot_general(lhs, rhs, contract, batch):
     return torch.einsum(spec, lhs, rhs)
 
 
+def _widening_matmul(lhs, rhs, contract, batch):
+    """A widening dot shaped as a matmul (``x @ w`` with x of any rank, or
+    a batched product over one leading dim) as one library GEMM on the
+    16-bit operands with an f32 output (``out_dtype``): f32 accumulation,
+    the dot's value at f32, as the upcast operands would give it, without
+    running the GEMM at the f32 rate.  None for any other contraction."""
+    if batch == ((), ()) and rhs.dim() == 2 \
+            and contract == ((lhs.dim() - 1,), (0,)):
+        k = lhs.shape[-1]
+        out = torch.mm(lhs.reshape(-1, k), rhs, out_dtype=torch.float32)
+        return out.reshape(*lhs.shape[:-1], rhs.shape[1])
+    if batch == ((0,), (0,)) and lhs.dim() == rhs.dim() == 3 \
+            and contract == ((2,), (1,)):
+        return torch.bmm(lhs, rhs, out_dtype=torch.float32)
+    return None
+
+
 def dot_accumulate(node: OpNode, lhs, rhs, *, dimension_numbers):
     """Dot with explicit accumulation dtype, rounded once to the node's
     declared output dtype.  Every executor funnels through here.
 
     When the operands already carry the output dtype, the library GEMM
     accumulates in f32 and rounds once (cuBLAS on the card, with reduced-
-    precision reductions switched off by the caller); only a widening dot
-    (bf16 operands, f32 output) upcasts its operands first."""
+    precision reductions switched off by the caller).  A widening dot
+    (16-bit operands, f32 output) shaped as a matmul runs on the card as
+    one 16-bit GEMM with an f32 output (:func:`_widening_matmul`); any
+    other widening dot upcasts its operands first."""
     contract, batch = dimension_numbers
     out_dt = canonical_dtype(node.dtype)
     acc = accumulation_dtype(node)
     if lhs.dtype == out_dt and rhs.dtype == out_dt and (
             not out_dt.is_floating_point or out_dt.itemsize <= acc.itemsize):
         return _dot_general(lhs, rhs, contract, batch).to(out_dt)
+    if (lhs.is_cuda and lhs.dtype == rhs.dtype
+            and lhs.dtype in (torch.bfloat16, torch.float16)
+            and acc == torch.float32 and out_dt == torch.float32):
+        out = _widening_matmul(lhs, rhs, contract, batch)
+        if out is not None:
+            return out
     out = _dot_general(lhs.to(acc), rhs.to(acc), contract, batch)
     return out.to(out_dt)
 

@@ -18,9 +18,11 @@ __all__ = ["rmsnorm", "rmsnorm_residual", "layernorm", "softmax", "swiglu",
 
 
 def rmsnorm(x, gamma, eps: float = 1e-6):
-    xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
+    # x converted to f32 once for the statistics and once for the product,
+    # and jnp.square's square, as the reference spells it (its trace
+    # carries both converts)
+    var = torch.mean(torch.square(x.to(torch.float32)), dim=-1, keepdim=True)
+    out = x.to(torch.float32) * torch.rsqrt(var + eps)
     return (out * gamma.to(torch.float32)).to(x.dtype)
 
 
@@ -95,7 +97,7 @@ def xent_rows(logits, labels):
     lf = logits.to(torch.float32)
     m = torch.amax(lf, dim=-1, keepdim=True)
     lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
-    idx = labels.to(torch.int32).reshape(-1, 1)
+    idx = labels.to(torch.int32)[:, None]
     idx = torch.where(idx < 0, idx + lf.shape[-1], idx)
     gold = torch.gather(lf, 1, idx)[..., 0]
     return lse - gold
@@ -119,10 +121,11 @@ def attention(q, k, v, *, causal: bool = True, scale: float | None = None,
     logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                           kr.to(torch.float32)) * scale
     dev = q.device
+    # int32 positions, as jnp.arange gives them
     pq = positions_q if positions_q is not None else \
-        torch.arange(Lq, device=dev)[None]
+        torch.arange(Lq, dtype=torch.int32, device=dev)[None]
     pk = positions_kv if positions_kv is not None else \
-        torch.arange(Lkv, device=dev)[None]
+        torch.arange(Lkv, dtype=torch.int32, device=dev)[None]
     mask = torch.ones((B, 1, Lq, Lkv), dtype=torch.bool, device=dev)
     if causal:
         mask = mask & (pq[:, None, :, None] >= pk[:, None, None, :])

@@ -18,11 +18,23 @@ scores of qwen3-1.7b's long prompts, 6.3 us at 3.35 TB/s.  Design:
   elements), one pass: ``x * scale`` in f32, the row max, ``exp(x - max)``,
   the sum and the division, one cast out; lanes past the row are ``-inf``
   and never enter the max;
-* wider rows (a vocabulary row, 151936 columns): one row a program, two
-  sweeps over ``WIDE_BLOCK`` columns at a time, both in column order: an
-  online max and sum (the sum rescaled by ``exp(m_old - m_new)`` when the
-  max rises), then the write.  The row is read twice; no atomics, so the
-  result does not depend on scheduling.
+* wider rows (a vocabulary row, 151936 columns) split across the card:
+  a grid of (row, chunk of ``SPLIT_BLOCK`` columns) programs, so 4 rows
+  of 151936 take 300 programs where one program a row took 4 of 132 SMs.
+  Pass 1 (``_softmax_partials_kernel``) writes each chunk's f32 max m_c
+  and sum l_c of ``exp(x - m_c)`` into scratch.  Pass 2
+  (``_softmax_split_kernel``), on the same grid, folds its row's partials
+  to ``M = max m_c`` and ``L = sum l_c * exp(m_c - M)`` with one fixed
+  reduction over the chunk index, the same in every program of a row (so
+  the row's programs agree bit for bit), then writes ``exp(x - M) / L``
+  for its chunk.  x is read twice; no atomics, so the result does not
+  depend on scheduling.  The masked variant's rules hold in the fold: a
+  non-finite M becomes 0 and L is floored at 1e-30;
+* the single-program wide layout that the split replaced (one row a
+  program, an online max and sum over ``WIDE_BLOCK`` columns at a time,
+  then the write) stays in ``_softmax_kernel`` as the yardstick that
+  ``chip_smoke.py`` times on the same rows (:func:`_launch_variant`); no
+  path launches it.
 
 They are the custom ops ``repro_torch::softmax(x, scale)`` and
 ``repro_torch::softmax_masked(x, mask, scale)`` over ``(rows, d)``: the CPU
@@ -40,17 +52,20 @@ import torch
 from . import build
 from . import ref as _ref
 
-__all__ = ["softmax", "softmax_plain", "softmax_masked_plain", "launches",
-           "masked_launches"]
+__all__ = ["softmax", "softmax_plain", "softmax_masked_plain",
+           "softmax_split_plain", "split_plan", "launches", "masked_launches"]
 
 _FLOAT = (torch.float32, torch.bfloat16)
 MAX_ONE_PASS = 8192   # the widest row block of the one-pass layout
-WIDE_BLOCK = 4096     # columns a sweep step of a wider row
+SPLIT_BLOCK = 2048    # columns a program of the split layout
+WIDE_BLOCK = 4096     # columns a sweep step of the single-program wide layout
 
 # kernel launches since the last reset, by build.signature of the arguments
 launches: Counter = Counter()               # _softmax_kernel
 masked_launches: Counter = Counter()        # _softmax_masked_kernel
-_JIT = None
+_JIT = None           # _softmax_kernel
+_PART_JIT = None      # _softmax_partials_kernel
+_SPLIT_JIT = None     # _softmax_split_kernel
 tl = None             # triton.language, bound by build.triton_jit at launch
 
 
@@ -117,6 +132,62 @@ def _softmax_kernel(x_ptr, m_ptr, o_ptr, rows, d, stride_x, stride_m, scale,
             tl.store(o_row + c, y.to(o_ptr.dtype.element_ty), mask=c < d)
 
 
+def _softmax_partials_kernel(x_ptr, m_ptr, part_ptr, d, n_chunks, stride_x,
+                             stride_m, scale, HAS_MASK: tl.constexpr,
+                             BLOCK_D: tl.constexpr):
+    row = tl.program_id(0).to(tl.int64)
+    chunk = tl.program_id(1)
+    c = chunk * BLOCK_D + tl.arange(0, BLOCK_D)
+    inb = c < d
+    x = tl.load(x_ptr + row * stride_x + c, mask=inb,
+                other=0.0).to(tl.float32) * scale
+    valid = inb
+    if HAS_MASK:
+        valid = valid & (tl.load(m_ptr + row * stride_m + c, mask=inb,
+                                 other=0) != 0)
+    x = tl.where(valid, x, float("-inf"))
+    m = tl.max(x, axis=0)
+    # the shift of a chunk of -inf (a masked chunk's non-finite max): its
+    # lanes then add exp(-inf) = 0, not NaN
+    if HAS_MASK:
+        ms = tl.where(tl.abs(m) < float("inf"), m, 0.0)
+    else:
+        ms = tl.where(m == float("-inf"), 0.0, m)
+    l = tl.sum(tl.exp(x - ms), axis=0)
+    at = part_ptr + (row * n_chunks + chunk) * 2
+    tl.store(at, m)
+    tl.store(at + 1, l)
+
+
+def _softmax_split_kernel(x_ptr, m_ptr, part_ptr, o_ptr, d, n_chunks,
+                          stride_x, stride_m, scale, HAS_MASK: tl.constexpr,
+                          BLOCK_D: tl.constexpr, BLOCK_C: tl.constexpr):
+    row = tl.program_id(0).to(tl.int64)
+    chunk = tl.program_id(1)
+    k = tl.arange(0, BLOCK_C)
+    kin = k < n_chunks
+    at = part_ptr + (row * n_chunks + k) * 2
+    mc = tl.load(at, mask=kin, other=float("-inf"))
+    lc = tl.load(at + 1, mask=kin, other=0.0)
+    M = tl.max(mc, axis=0)
+    if HAS_MASK:
+        M = tl.where(tl.abs(M) < float("inf"), M, 0.0)
+    L = tl.sum(tl.where(kin, lc * tl.exp(mc - M), 0.0), axis=0)
+    if HAS_MASK:
+        L = tl.maximum(L, 1e-30, propagate_nan=tl.PropagateNan.ALL)
+    c = chunk * BLOCK_D + tl.arange(0, BLOCK_D)
+    inb = c < d
+    x = tl.load(x_ptr + row * stride_x + c, mask=inb,
+                other=0.0).to(tl.float32) * scale
+    valid = inb
+    if HAS_MASK:
+        valid = valid & (tl.load(m_ptr + row * stride_m + c, mask=inb,
+                                 other=0) != 0)
+    x = tl.where(valid, x, float("-inf"))
+    y = tl.div_rn(tl.exp(x - M), L)
+    tl.store(o_ptr + row * d + c, y.to(o_ptr.dtype.element_ty), mask=inb)
+
+
 def softmax_plain(x, scale: float):
     """The plain version: the reference's ``ref`` oracle."""
     return _ref.softmax(x, scale)
@@ -134,10 +205,48 @@ def softmax_masked_plain(x, mask, scale: float):
     return (e / torch.maximum(s, s.new_tensor(1e-30))).to(x.dtype)
 
 
+def softmax_split_plain(x, scale: float, mask=None,
+                        block: int = SPLIT_BLOCK):
+    """The split layout's algorithm on tensors, every value in f32: each
+    chunk's max and sum of ``exp(x - m_c)``, their fold to (M, L) over the
+    chunk index, then ``exp(x - M) / L``, with the masked variant's rules
+    when ``mask`` is given.  x (rows, d); ``mask`` bool (rows, d)."""
+    rows, d = x.shape
+    n = -(-d // block)
+    xf = x.to(torch.float32) * scale
+    if mask is not None:
+        xf = torch.where(mask, xf, -torch.inf)
+    pad = torch.full((rows, n * block - d), -torch.inf, dtype=torch.float32,
+                     device=x.device)
+    xc = torch.cat([xf, pad], dim=1).reshape(rows, n, block)
+    m = torch.amax(xc, dim=-1)
+    if mask is not None:
+        ms = torch.where(torch.isfinite(m), m, 0.0)
+    else:
+        ms = torch.where(m == -torch.inf, 0.0, m)
+    l = torch.sum(torch.exp(xc - ms[..., None]), dim=-1)
+    M = torch.amax(m, dim=-1, keepdim=True)
+    if mask is not None:
+        M = torch.where(torch.isfinite(M), M, 0.0)
+    L = torch.sum(l * torch.exp(m - M), dim=-1, keepdim=True)
+    if mask is not None:
+        L = torch.maximum(L, L.new_tensor(1e-30))
+    return (torch.exp(xf - M) / L).to(x.dtype)
+
+
+def split_plan(d: int) -> tuple[int, int] | None:
+    """(columns a program, chunks a row) of the split layout for rows of
+    ``d`` columns; None for rows the one-pass layout takes whole."""
+    if build.next_pow2(d) <= MAX_ONE_PASS:
+        return None
+    return SPLIT_BLOCK, -(-d // SPLIT_BLOCK)
+
+
 def _layout(rows: int, d: int) -> tuple[bool, int, int, int]:
-    """(ONE_PASS, BLOCK_R, BLOCK_D, num_warps): whole rows, about a
-    thousand elements a program, up to ``MAX_ONE_PASS`` columns; else one
-    row a program in ``WIDE_BLOCK`` column steps."""
+    """(ONE_PASS, BLOCK_R, BLOCK_D, num_warps) of ``_softmax_kernel``:
+    whole rows, about a thousand elements a program, up to
+    ``MAX_ONE_PASS`` columns; else (the yardstick) one row a program in
+    ``WIDE_BLOCK`` column steps."""
     block_d = build.next_pow2(d)
     if block_d > MAX_ONE_PASS:
         return False, 1, WIDE_BLOCK, 8
@@ -163,20 +272,51 @@ def _check(name, x, mask=None):
                              f"must be contiguous")
 
 
-def _run(x, mask, scale: float):
-    global _JIT
+def _run(x, mask, scale: float, variant: str = "split"):
+    """The kernel on x (and the mask): rows wider than the one-pass block
+    go through the split layout, or with ``variant="wide"`` through the
+    single-program layout it replaced."""
+    global _JIT, _PART_JIT, _SPLIT_JIT
+    if variant not in ("split", "wide"):
+        raise ValueError(f"softmax: unknown variant {variant!r}")
     rows, d = x.shape
     out = torch.empty((rows, d), dtype=x.dtype, device=x.device)
+    # the bool mask is read as bytes
+    m = mask.view(torch.uint8) if mask is not None else x
+    plan = split_plan(d)
+    if plan is not None and variant == "split":
+        block, n = plan
+        if _PART_JIT is None:
+            _PART_JIT = build.triton_jit(_softmax_partials_kernel)
+        if _SPLIT_JIT is None:
+            _SPLIT_JIT = build.triton_jit(_softmax_split_kernel)
+        part = torch.empty((rows, n, 2), dtype=torch.float32, device=x.device)
+        grid = (rows, n)
+        _PART_JIT[grid](x, m, part, d, n, x.stride(0), m.stride(0),
+                        float(scale), HAS_MASK=mask is not None,
+                        BLOCK_D=block, num_warps=4)
+        _SPLIT_JIT[grid](x, m, part, out, d, n, x.stride(0), m.stride(0),
+                         float(scale), HAS_MASK=mask is not None,
+                         BLOCK_D=block, BLOCK_C=build.next_pow2(n),
+                         num_warps=4)
+        return out
     one_pass, block_r, block_d, warps = _layout(rows, d)
     if _JIT is None:
         _JIT = build.triton_jit(_softmax_kernel)
-    # the bool mask is read as bytes
-    m = mask.view(torch.uint8) if mask is not None else x
     _JIT[(-(-rows // block_r),)](
         x, m, out, rows, d, x.stride(0), m.stride(0), float(scale),
         HAS_MASK=mask is not None, ONE_PASS=one_pass, BLOCK_R=block_r,
         BLOCK_D=block_d, num_warps=warps)
     return out
+
+
+def _launch_variant(variant: str, x, mask, scale: float):
+    """One call of the kernel through ``variant`` ("split", the one the
+    ops launch, or "wide", the single-program layout it replaced), with
+    the ops' checks and no launch counted: ``chip_smoke.py`` times the
+    replaced layout with it."""
+    _check("softmax", x, mask)
+    return _run(x, mask, scale, variant)
 
 
 def _launch(x, scale: float):

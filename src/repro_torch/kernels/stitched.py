@@ -21,12 +21,14 @@ Bound.  Every member is memory-bound: the least time is the bytes of the
 external inputs read once plus the outputs written once, over 3.35 TB/s;
 the design keeps every intermediate out of device memory.
 
-Emitted in this stage: ELEMENTWISE (the whole ``EW_OPS`` vocabulary),
-BROADCAST, RESHAPE of trailing power-of-two dims and REDUCTION over
-trailing axes, with every input ROW or INV.  A pattern the reference's
-analysis rejects, or whose rows are too wide for one block, is retried with
-its leading (B, S) dims folded into one row axis (:func:`fold_rows`): one
-row per token, as a prefill's norms and activations need.  Everything else raises
+Emitted in this stage: ELEMENTWISE (the whole ``EW_OPS`` vocabulary, an
+operand with size-1 dims broadcast implicitly as jnp does, lowered as an
+explicit BROADCAST), BROADCAST, RESHAPE of trailing power-of-two dims and
+REDUCTION over trailing axes, with every input ROW or INV.  A pattern the
+reference's analysis rejects, or whose rows are too wide for one block, is
+retried with its leading (B, S) dims folded into one row axis
+(:func:`fold_rows`): one row per token, as a prefill's norms and
+activations need.  Everything else raises
 :class:`StitchInfeasible` from the static check, naming the ROADMAP stage
 that will emit it; the compiler then runs the group as a ``"torch"`` group.
 
@@ -53,7 +55,8 @@ from repro_torch.core.pattern import FusionPattern, PackPattern
 
 __all__ = ["StitchAnalysis", "analyze_pattern", "build_stitched_callable",
            "StitchInfeasible", "StitchedKernel", "check_emittable",
-           "emission_plan", "fold_rows", "reset_launch_counts",
+           "emission_plan", "explicit_broadcasts", "fold_rows",
+           "reset_launch_counts",
            "launch_counts", "MAX_BLOCK_ELEMS"]
 
 
@@ -406,8 +409,11 @@ def check_emittable(p: FusionPattern, ana: StitchAnalysis) -> None:
                 raise StitchInfeasible(f"{node.name}: elementwise op {op!r}")
             for o in node.operands:
                 if g[o].shape and g[o].shape != node.shape:
+                    # size-1 broadcasts are explicit by now
+                    # (explicit_broadcasts); any other mismatch is refused
                     raise StitchInfeasible(
-                        f"{node.name}: implicit broadcast of operand {o}")
+                        f"{node.name}: operand {o} of shape {g[o].shape} does "
+                        f"not broadcast to {node.shape} by size-1 dims")
         elif k is OpKind.RESHAPE:
             src = g[node.operands[0]]
             a = _kernel_dims(src.shape, row)
@@ -576,10 +582,67 @@ def fold_rows(p: FusionPattern) -> tuple[FusionPattern, StitchAnalysis]:
     raise last if last is not None else StitchInfeasible("no rows to fold")
 
 
+def _implicit_dims(shape, out) -> bool:
+    """A same-rank operand whose every dim is 1 or the node's: jnp's
+    implicit size-1 broadcast."""
+    return len(shape) == len(out) and tuple(shape) != tuple(out) and all(
+        a in (1, b) for a, b in zip(shape, out))
+
+
+def explicit_broadcasts(p: FusionPattern) -> FusionPattern:
+    """``p`` with every implicit size-1 broadcast of an elementwise member
+    spelled as the BROADCAST the tracer used to write (identity
+    ``bcast_dims`` to the member's shape, a member named
+    ``<member>.bcast<i>``), so it is analysed and lowered as an explicit
+    BROADCAST of that operand is; ``p`` itself when it has none.  Any other
+    shape mismatch is left for :func:`check_emittable` to refuse."""
+    g = p.graph
+    adds: dict[str, list] = {}
+    for node in p.compute_members:
+        if node.kind is not OpKind.ELEMENTWISE:
+            continue
+        for i, o in enumerate(node.operands):
+            if _implicit_dims(g[o].shape, node.shape):
+                adds.setdefault(node.name, []).append(i)
+    if not adds:
+        return p
+    fg = Graph(f"{g.name}/bcast")
+    for n in p.external_inputs:
+        node = g[n]
+        fg.add(OpNode(n, node.kind if node.is_source() else OpKind.PARAMETER,
+                      node.shape, node.dtype, (), dict(node.attrs)))
+    members = set(p.members)
+    for node in p.nodes:
+        if node.name in fg:
+            continue
+        ops = list(node.operands)
+        for i in adds.get(node.name, ()):
+            src = g[ops[i]]
+            b = f"{node.name}.bcast{i}"
+            fg.add(OpNode(b, OpKind.BROADCAST, node.shape, src.dtype,
+                          (ops[i],),
+                          {"bcast_dims": tuple(range(len(node.shape)))}))
+            members.add(b)
+            ops[i] = b
+        fg.add(OpNode(node.name, node.kind, node.shape, node.dtype,
+                      tuple(ops), dict(node.attrs)))
+    fg.mark_output(*p.external_outputs)
+    groups = getattr(p, "member_groups", None)
+    if groups:
+        groups = tuple(frozenset(grp) | {f"{m}.bcast{i}" for m in grp
+                                         for i in adds.get(m, ())}
+                       for grp in groups)
+        return PackPattern(fg, frozenset(members), p.origin,
+                           member_groups=groups)
+    return FusionPattern(fg, frozenset(members), p.origin)
+
+
 def emission_plan(p: FusionPattern) -> tuple[FusionPattern, StitchAnalysis]:
-    """The pattern the emitter renders and its analysis: ``p`` itself when
-    the reference's analysis admits it, else its row-folded form.  When
-    neither is emitted, the StitchInfeasible names both reasons."""
+    """The pattern the emitter renders and its analysis: ``p`` itself (its
+    implicit size-1 broadcasts spelled out, :func:`explicit_broadcasts`)
+    when the reference's analysis admits it, else its row-folded form.
+    When neither is emitted, the StitchInfeasible names both reasons."""
+    p = explicit_broadcasts(p)
     try:
         ana = analyze_pattern(p)
         check_emittable(p, ana)

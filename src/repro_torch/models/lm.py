@@ -8,7 +8,9 @@ so tracing unrolls it exactly like the reference with ``scan_layers=False``.
 * ``prefill``     — full-sequence causal forward that fills a KV cache;
 * ``decode_step`` — single-token step against a static-shape KV cache;
 * ``lm_loss``     — the chunked cross-entropy of a final hidden state (the
-  ssm family's ``train_forward`` scores through it).
+  ssm family's ``train_forward`` scores through it);
+* ``block_forward`` — one dense layer on its own (the reference's
+  ``Model.block_fn`` of the dense family).
 """
 
 from __future__ import annotations
@@ -118,6 +120,19 @@ def _layer(h, lp: Params, cfg: ModelConfig, positions, cache=None,
         y2d, _ = apply_moe(lp["mlp"], m_in.reshape(B * S, D), cfg)
         return h + y2d.reshape(B, S, D), kv
     return h + apply_mlp(lp["mlp"], m_in, cfg), kv
+
+
+def block_forward(lp: Params, x, cfg: ModelConfig):
+    """One dense layer on its own, the reference's ``block_forward`` (its
+    dense ``Model.block_fn``): x (B, S, D) -> (B, S, D), positions 0 .. S-1
+    in every row.  The MoE block (the reference's dense expert form) is not
+    ported."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"block_forward of the {cfg.family!r} "
+                                  f"family is not ported (dense only)")
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    return _layer(x, lp, cfg, positions)[0]
 
 
 def prefill(params: Params, tokens, cfg: ModelConfig, true_len=None):

@@ -34,6 +34,25 @@ def chain_graph(rows: int, cols: int, dtype: str):
     return b.build(outputs=[out])
 
 
+def implicit_broadcast_graph(builder=GraphBuilder, rows: int = 12,
+                             cols: int = 100, dtype: str = "float32"):
+    """A softmax scaled by a per-column gamma, spelled as jnp traces it:
+    the row max and sum broadcast to (rows, 1) and gamma held as (1, cols),
+    each combined with the (rows, cols) values by an implicit size-1
+    broadcast."""
+    b = builder("implicit")
+    x = b.param("x", (rows, cols), dtype)
+    gam = b.param("gamma", (1, cols), "float32")
+    full = (rows, cols)
+    xf = b.ew("convert", x, dtype="float32") if dtype != "float32" else x
+    m = b.bcast(b.reduce("max", xf, axes=(1,)), (rows, 1), (0,))
+    e = b.ew("exp", b.ew("sub", xf, m, shape=full))
+    s = b.bcast(b.reduce("sum", e, axes=(1,)), (rows, 1), (0,))
+    z = b.ew("mul", b.ew("div", e, s, shape=full), gam, shape=full)
+    out = b.ew("convert", z, dtype=dtype) if dtype != "float32" else z
+    return b.build(outputs=[out])
+
+
 def pack_pattern():
     """Three independent convert -> exp chains as one horizontal pack."""
     b = GraphBuilder("pack")
@@ -90,6 +109,26 @@ def test_generated_kernel_on_card(dtype, tol):
     ref = k.plain(*args)
     assert k.launches == before + 1
     for o, r in zip(out, ref):
+        torch.testing.assert_close(o.float(), r.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 1.6e-2)])
+def test_implicit_broadcast_kernel_on_card(dtype, tol):
+    """Operands with size-1 dims, broadcast implicitly, in a generated
+    kernel against its plain version."""
+    _need_card()
+    g = implicit_broadcast_graph(dtype=dtype)
+    p = FusionPattern(g, frozenset(n.name for n in g.compute_nodes()))
+    k = build_stitched_callable(p)
+    gen = torch.Generator().manual_seed(1)
+    args = [torch.randn(tuple(g[i].shape), generator=gen)
+            .to(getattr(torch, str(g[i].dtype))).cuda()
+            for i in p.external_inputs]
+    before = k.launches
+    out = k(*args)
+    assert k.launches == before + 1
+    for o, r in zip(out, k.plain(*args)):
         torch.testing.assert_close(o.float(), r.float(), rtol=tol, atol=tol)
 
 
@@ -427,6 +466,54 @@ def test_reduced_granite_kernel_mode_on_card():
                                                        prompt_lens=lens))
 
 
+# widening dots (bf16 operands, f32 output) shaped as a matmul: a 3-D x @ w
+# at an LM head's width, a batched product, and a contraction over lhs dim
+# 1, which is not a matmul and upcasts its operands
+WIDENING_DOTS = [
+    ((4, 256, 2048), (2048, 4096), ((2,), (0,)), ((), ()), True),
+    ((8, 128, 64), (8, 64, 128), ((2,), (1,)), ((0,), (0,)), True),
+    ((64, 96), (64, 80), ((0,), (0,)), ((), ()), False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lhs_shape,rhs_shape,contract,batch,matmul",
+                         WIDENING_DOTS, ids=["x3d_at_w", "bmm", "contract_0"])
+def test_widening_dot_on_card(monkeypatch, lhs_shape, rhs_shape, contract,
+                              batch, matmul):
+    """A widening dot shaped as a matmul runs as one bf16 GEMM with an f32
+    output, and agrees with the upcast f32 dot to 1e-5 of its largest
+    value: each product of two bf16 values is exact in f32, so only the
+    order of the f32 sums differs.  Any other contraction upcasts."""
+    _need_card()
+    from repro_torch.core import codegen
+    from repro_torch.core.ir import OpKind, OpNode
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", False)
+    taken = []
+    widening = codegen._widening_matmul
+
+    def spy(*args):
+        out = widening(*args)
+        taken.append(out is not None)
+        return out
+
+    monkeypatch.setattr(codegen, "_widening_matmul", spy)
+    lhs = _rand(lhs_shape, "bfloat16", 1)
+    rhs = _rand(rhs_shape, "bfloat16", 2)
+    want = codegen._dot_general(lhs.float(), rhs.float(), contract, batch)
+    kind = OpKind.BATCHED_GEMM if batch[0] else OpKind.GEMM
+    node = OpNode("dot", kind, tuple(want.shape), "float32", ("a", "b"),
+                  {"contract": contract, "batch": batch})
+    got = codegen.dot_accumulate(node, lhs, rhs,
+                                 dimension_numbers=(contract, batch))
+    assert taken == [matmul]
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= 1e-5, err
+
+
 # selective-scan samples (Bb, L, Dm, N): falcon-mamba-7b's scoring shape, one
 # step, a ragged L, the reduced config's N, several staged chunks
 SCAN_CASES = [(4, 256, 8192, 16), (1, 1, 8192, 16), (2, 33, 128, 16),
@@ -481,6 +568,30 @@ def test_mamba_scan_kernel_on_card(dtype, tol, strided):
         mamba_scan.mamba_scan(x.half(), delta.half(), A, B, C, D)
     with pytest.raises(ValueError, match="empty"):
         mamba_scan.mamba_scan(x[:, :0], delta[:, :0], A, B[:, :0], C[:, :0], D)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
+def test_mamba_scan_variants_on_card(dtype, tol):
+    """The lanes kernel against its lane-order plain version and against
+    the thread kernel it replaced, on the same operands: both add a step's
+    states in increasing n, so their outputs are equal bit for bit.
+    Neither launch is counted."""
+    _need_card()
+    from repro_torch.kernels import mamba_scan
+    for i, case in enumerate(SCAN_CASES):
+        args = _scan_args(*case, dtype, 30 + i, True)
+        before = dict(mamba_scan.launches)
+        new = mamba_scan._launch_variant("lanes", *args)
+        old = mamba_scan._launch_variant("thread", *args)
+        torch.cuda.synchronize()
+        assert dict(mamba_scan.launches) == before
+        want = mamba_scan.mamba_scan_lanes_plain(*args).float()
+        torch.testing.assert_close(new.float(), want, rtol=tol, atol=tol)
+        torch.testing.assert_close(old.float(), want, rtol=tol, atol=tol)
+        assert torch.equal(new, old), case
+    with pytest.raises(ValueError, match="unknown variant"):
+        mamba_scan._launch_variant("warp", *args)
 
 
 @pytest.mark.gpu
@@ -746,6 +857,41 @@ def test_softmax_kernel_on_card(dtype, tol):
         assert torch.isnan(want[1:3]).all() and torch.isnan(out[1:3]).all()
         torch.testing.assert_close(out.float(), want.float(), rtol=tol,
                                    atol=tol, equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+def test_softmax_split_on_card(masked, dtype, tol):
+    """Rows wider than one block: the split layout against its plain
+    version (``softmax_split_plain``) and against the single-program wide
+    layout it replaced, on the same rows, with a row of -inf (NaN) or a
+    fully masked row (0); the yardstick launch is not counted."""
+    _need_card()
+    from repro_torch.kernels import softmax
+    for i, (rows, d, scale) in enumerate([(4, 151936, 1.0), (3, 10001, 0.7),
+                                          (2, 8193, 2.0)]):
+        x = 3.0 * _rand((rows, d), dtype, 70 + i)
+        mask = None
+        if masked:
+            gen = torch.Generator().manual_seed(80 + i)
+            mask = (torch.rand((rows, d), generator=gen) < 0.6).cuda()
+            mask[0] = False
+        else:
+            x[1] = -float("inf")
+        before = (dict(softmax.launches), dict(softmax.masked_launches))
+        new = softmax._launch_variant("split", x, mask, scale)
+        old = softmax._launch_variant("wide", x, mask, scale)
+        torch.cuda.synchronize()
+        assert (dict(softmax.launches), dict(softmax.masked_launches)) == before
+        want = softmax.softmax_split_plain(x, scale, mask).float()
+        for got in (new, old):
+            torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol,
+                                       equal_nan=True)
+        if masked:
+            assert (new[0] == 0).all()
+        else:
+            assert torch.isnan(new[1]).all()
 
 
 @pytest.mark.gpu

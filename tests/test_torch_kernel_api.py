@@ -141,6 +141,55 @@ def test_softmax_masked_plain_matches_reference_kernel(shape, dtype, tol):
         assert (got[~tm] == 0).all()
 
 
+@pytest.mark.parametrize("block", [512, 2048, 4096])
+@pytest.mark.parametrize("dtype,tol", SOFTMAX_DTYPES)
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+@pytest.mark.parametrize("rows,d", [(3, 10001), (4, 8193), (2, 5000)],
+                         ids=["3x10001", "4x8193", "2x5000"])
+def test_softmax_split_matches_reference_kernel(rows, d, masked, dtype, tol,
+                                                block):
+    """The split layout's algorithm (chunk partials, their fold, the
+    write) at ragged widths and several chunk widths against the
+    reference's Pallas kernels (interpret mode): a row of -inf and a row
+    holding a NaN stay NaN unmasked; masked, a fully masked row is 0 and a
+    row masked in its first half (its first chunks all -inf) is finite."""
+    rng = np.random.default_rng(d + block)
+    x = (3.0 * rng.standard_normal((rows, d))).astype(np.float32)
+    m = None
+    if masked:
+        m = rng.random((rows, d)) < 0.6
+        m[0] = False
+        m[1, : d // 2] = False
+    else:
+        x[1] = -np.inf
+        x[-1, d // 3] = np.nan
+    jx, tx = _pair(x, dtype)
+    if masked:
+        jm, tm = _pair(m)
+        want = np.asarray(ref_softmax.softmax(jx, 0.7, jm), np.float32)
+        got = softmax.softmax_split_plain(tx, 0.7, tm, block=block)
+        assert (got[0] == 0).all() and (got[~tm] == 0).all()
+        assert torch.isfinite(got).all()
+    else:
+        want = np.asarray(ref_softmax.softmax(jx, 0.7), np.float32)
+        got = softmax.softmax_split_plain(tx, 0.7, block=block)
+        assert np.isnan(want[1]).all() and torch.isnan(got[1]).all()
+    assert got.dtype == tx.dtype
+    np.testing.assert_array_equal(torch.isnan(got).numpy(), np.isnan(want))
+    _close(torch.nan_to_num(got), np.nan_to_num(want), tol)
+
+
+def test_softmax_split_plan():
+    """Rows up to the one-pass block are taken whole; wider rows split
+    into ``SPLIT_BLOCK`` columns a program: 75 chunks of a 151936 row."""
+    assert softmax.split_plan(softmax.MAX_ONE_PASS) is None
+    assert softmax.split_plan(333) is None
+    assert softmax.split_plan(151936) == (softmax.SPLIT_BLOCK, 75)
+    assert softmax.split_plan(softmax.MAX_ONE_PASS + 1) == (
+        softmax.SPLIT_BLOCK, -(-(softmax.MAX_ONE_PASS + 1)
+                                // softmax.SPLIT_BLOCK))
+
+
 def test_softmax_masked_broadcasts_the_mask():
     """A (B, 1, L, L) mask against (B, H, L, L) scores, as the reference
     wrapper broadcasts it; fully masked query rows give 0."""

@@ -150,6 +150,27 @@ def test_scan_plain_matches_reference_kernel(Bb, L, Dm, N, dtype, tol,
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("Bb,L,Dm,N", SWEEP)
+def test_scan_lane_order_matches_reference_kernel(Bb, L, Dm, N, dtype, tol):
+    """The lanes kernel's arithmetic spelled in PyTorch (the states added
+    one at a time in increasing n, as the lanes kernel hands the sum from
+    lane to lane) against the Pallas scan (interpret mode), B and C as
+    strided views."""
+    (x, dt, A, B, C, D), (tx, tdt, tA, tB, tC, tD) = _scan_inputs(
+        Bb, L, Dm, N, seed=L + Dm, stride_bc=True)
+    jd = getattr(jnp, dtype)
+    want = ref_mamba.mamba_scan(jnp.asarray(x, jd), jnp.asarray(dt, jd),
+                                A, B, C, D)
+    td = getattr(torch, dtype)
+    got = mamba_scan.mamba_scan_lanes_plain(tx.to(td), tdt.to(td), tA, tB, tC,
+                                            tD)
+    assert got.dtype == td and got.shape == tx.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_ref_scan_with_state_matches_reference_oracle(dtype, tol):
     (x, dt, A, B, C, D), (tx, tdt, tA, tB, tC, tD) = _scan_inputs(
         2, 24, 48, 16, seed=3, stride_bc=True)

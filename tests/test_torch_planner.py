@@ -101,9 +101,11 @@ def test_h100_preset():
 
 
 def test_frontend_spells_broadcasts_explicitly():
-    """Implicit ATen broadcasting becomes explicit right-aligned BROADCAST
-    nodes, scalars become shape-() constants, mean is a REDUCTION sum, its
-    broadcast back to the kept rank and a division by a count literal."""
+    """ATen broadcasting is spelled as jnp's: a lower-rank operand gets an
+    explicit rank-promoting BROADCAST (size-1 dims in front, right-aligned
+    ``bcast_dims``), size-1 dims then broadcast implicitly, scalars become
+    shape-() constants, mean is a REDUCTION sum, its broadcast back to the
+    kept rank and a division by a count literal."""
     def fn(x, g):
         return (x - x.mean(-1, keepdim=True)) * g * 0.5
 
@@ -114,12 +116,14 @@ def test_frontend_spells_broadcasts_explicitly():
     kinds = [g[n].kind for n in g.topo_order()]
     assert OpKind.REDUCTION in kinds
     bc = [g[n] for n in g.nodes if g[n].kind is OpKind.BROADCAST]
-    dims = sorted(tuple(b.attrs["bcast_dims"]) for b in bc)
-    assert dims == [(0, 1), (0, 1, 2), (2,)]
+    got = sorted((tuple(b.shape), tuple(b.attrs["bcast_dims"])) for b in bc)
+    assert got == [((1, 1, 8), (2,)), ((4, 3, 1), (0, 1))]
     lits = [g[n] for n in g.nodes if g[n].kind is OpKind.CONSTANT]
     assert sorted(float(c.attrs["value"]) for c in lits) == [0.5, 8.0]
     assert [tuple(c.shape) for c in lits] == [(), ()]
     for node in g.nodes.values():
         if node.kind is OpKind.ELEMENTWISE:
             for o in node.operands:
-                assert g[o].shape in ((), node.shape)
+                shp = g[o].shape
+                assert shp == () or (len(shp) == len(node.shape) and all(
+                    a in (1, b) for a, b in zip(shp, node.shape)))

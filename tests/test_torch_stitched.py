@@ -10,6 +10,10 @@ reference's (``repro.kernels.stitched``).
 * Horizontal packs render one program range per subgraph.
 * Patterns too wide for one block fold their (B, S) rows into B*S rows;
   the folded pattern's plain version equals the reference's graph function.
+* Operands with size-1 dims broadcast implicitly, as jnp traces them: the
+  emitter spells each as an explicit BROADCAST member and renders it; the
+  plain version equals the reference's graph function; any other shape
+  mismatch is refused.
 
 The card-only checks of the same kernels are in ``test_torch_gpu.py``.
 """
@@ -33,8 +37,10 @@ from repro_torch.core import FusionPattern, GraphBuilder, PackPattern
 from repro_torch.kernels.stitched import (MAX_BLOCK_ELEMS, StitchInfeasible,
                                           analyze_pattern,
                                           build_stitched_callable,
-                                          check_emittable, fold_rows)
-from test_torch_gpu import chain_graph, pack_pattern, prefill_norm_graph
+                                          check_emittable, emission_plan,
+                                          explicit_broadcasts, fold_rows)
+from test_torch_gpu import (chain_graph, implicit_broadcast_graph,
+                            pack_pattern, prefill_norm_graph)
 from test_torch_planner import GRAPHS, plans, ref_graph, to_port
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -237,3 +243,51 @@ def test_pack_folds_per_subgraph():
     assert k.emitted.grid == 2 * blocks
     assert f"if prog // {blocks} == 1:" in k.source
     compile(k.source, "<pack_fold>", "exec")
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", TOL),
+                                       ("bfloat16", dict(rtol=1.6e-2,
+                                                         atol=1.6e-2))])
+def test_implicit_broadcast_matches_reference(dtype, tol):
+    """The (rows, 1) statistics and the (1, cols) gamma broadcast
+    implicitly: the emitter spells each as an explicit BROADCAST member,
+    renders the kernel, and its plain version equals the reference's graph
+    function on the same inputs."""
+    g = implicit_broadcast_graph(GraphBuilder, 12, 100, dtype)
+    p = _whole(g)
+    ep = explicit_broadcasts(p)
+    added = sorted(n for n in ep.members if n not in p.members)
+    assert len(added) == 3
+    assert all(ep.graph[n].kind.name == "BROADCAST" for n in added)
+    emit_p, ana = emission_plan(p)
+    assert ana.rows == 12
+    k = build_stitched_callable(p)
+    assert "@triton.jit" in k.source
+    compile(k.source, "<implicit>", "exec")
+
+    rg = implicit_broadcast_graph(RefBuilder, 12, 100, dtype)
+    rng = np.random.default_rng(5)
+    feeds = {n: rng.standard_normal(g[n].shape).astype(np.float32)
+             for n in p.external_inputs}
+    jfeeds = {n: jnp.asarray(v, dtype=str(g[n].dtype)) for n, v in feeds.items()}
+    want = ref_graph_fn(rg)(jfeeds)
+    got = k(*[torch.as_tensor(np.array(jfeeds[n], np.float32))
+              .to(getattr(torch, str(g[n].dtype))) for n in p.external_inputs])
+    for name, val in zip(p.external_outputs, got):
+        np.testing.assert_allclose(val.float().numpy(),
+                                   np.asarray(want[name], np.float32), **tol)
+
+
+@pytest.mark.parametrize("other", [(12, 3), (100,)],
+                         ids=["unequal_dim", "lower_rank"])
+def test_other_shape_mismatch_is_refused(other):
+    """Only a same-rank operand whose dims are 1 or the member's broadcasts
+    implicitly; any other operand shape is refused."""
+    b = GraphBuilder("mismatch")
+    x = b.param("x", (12, 100))
+    y = b.param("y", other)
+    g = b.build(outputs=[b.ew("exp", b.ew("mul", x, y, shape=(12, 100)))])
+    p = _whole(g)
+    assert explicit_broadcasts(p).members == p.members
+    with pytest.raises(StitchInfeasible, match="does not broadcast"):
+        emission_plan(p)
