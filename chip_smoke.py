@@ -22,11 +22,8 @@ result line):
    Flash attention runs its bf16 samples through both kernels (the Hopper
    one, wgmma fed by TMA, and the CUDA-core one it replaced for bf16) and
    its f32 samples through the CUDA-core one; decode attention runs the
-   split kernel and the single-pass one it replaced, with positions on the
-   split's chunk edges; the launches by variant are counted exactly; the
-   selective scan's samples run the lanes kernel and the thread kernel it
-   replaced, and the softmax's wide rows the split layout and the
-   single-program layout it replaced.  Three
+   split kernel with positions on its chunk edges; the launches by variant
+   are counted exactly.  Three
    bf16 faults are planted (the Hopper flash kernel's acc not rescaled and
    its window ignored, the split decode's combine adding a partial without
    its rescale), and the bf16 sample gate must catch each.
@@ -79,8 +76,7 @@ result line):
    scan and 33 RMSNorm launches a call and no other
    hand-written kernel, the call's ms, tokens/s, device busy and peak
    memory, every kernel of the path against its plain version (the scan
-   beside its bound, whose term is the SFU's exponentials, and beside the
-   thread kernel it replaced on the same operands); then
+   beside its bound, whose term is the SFU's exponentials); then
    ``stitch(block_fn)`` on layer 0 (one scan launch a call); bf16 loss and
    block output against the eager ref-mode model over several weight
    seeds; then (with the float32 checks) the model cut to 4 layers in
@@ -88,20 +84,26 @@ result line):
    restart at every chunk of 16 steps).
 7. Hybrid phase (after the ssm phase): the RG-LRU kernel, flash attention
    at head width 256 on one kv head and RoPE on that head at sample shapes
-   (with phase 1's samples); full-width recurrentgemma-9b (38 layers: 26
-   RG-LRU and 12 local-attention layers, random weights from a seed) scored
+   (with phase 1's samples; the RG-LRU's tiles kernel also against the
+   thread kernel it replaced, bit for bit, both timed, and its branch-free
+   reciprocal and square root at every float of their domains); full-width
+   recurrentgemma-9b (38 layers: 26 RG-LRU and 12 local-attention layers,
+   random weights from a seed) scored
    in kernel mode through ``stitch(train_forward)`` at 4 x 256 tokens:
    exactly 26 RG-LRU, 12 flash, 24 RoPE, 77 RMSNorm and 38 GLU launches a
    call and no other hand-written kernel, the call's ms, tokens/s, device
    busy and peak memory, every kernel of the path against its plain version
-   (flash beside ``F.scaled_dot_product_attention``); then
+   (flash beside ``F.scaled_dot_product_attention``; the RG-LRU's tiles
+   kernel beside the thread kernel it replaced on the same operands, whose
+   output must equal its own bit for bit); then
    ``stitch(block_fn)`` on the first recurrent layer (1 RG-LRU, 2 RMSNorm
    and 1 GLU launch a call); bf16 loss and block output against the eager
    ref-mode model over several weight seeds; then (with the float32 checks)
    the model cut to 4 layers in float32 on one sequence of 2560 tokens, so
    that the 2048-token window masks keys: the loss, the recurrent block's
    and the first attention block's output against eager ref mode, with
-   faults planted in the RG-LRU kernel and in flash attention's window.
+   faults planted in the RG-LRU kernel (its chain restarts h at every
+   chunk of 32 steps) and in flash attention's window.
 
 8. Dense LayerNorm phase (after the hybrid phase): LayerNorm and squared
    ReLU at nemotron-4-15b's shapes, decode attention and flash at its GQA
@@ -131,8 +133,7 @@ result line):
    kernel; every kernel against its plain version on the path's operands,
    timed beside its bound and a PyTorch call (the ``x + res ->
    F.rms_norm`` chain, ``F.cross_entropy``, the ``masked_fill -> softmax``
-   and ``mul -> softmax`` chains; the vocabulary softmax, split across the
-   card, also beside the single-program layout it replaced); the outputs
+   and ``mul -> softmax`` chains); the outputs
    against the same functions run eagerly in ref mode over several seeds;
    then in float32 at the same widths, with faults planted in the four
    Triton kernels (the residual norm of x alone, the cross-entropy's
@@ -1038,7 +1039,8 @@ def expected_launches(cfg, bucket: int | None = None) -> tuple[dict, dict]:
 # unrescaled when a later kv tile raises the row max; the router does not
 # mask the column a round chose, so each row picks its top expert k times;
 # the selective scan's lane states restart at every chunk of time steps;
-# the RG-LRU's state restarts at every chunk of steps loaded into registers;
+# the RG-LRU's chain restarts h at every chunk of steps the tiles kernel
+# walks;
 # flash attention ignores the window (every key up to the diagonal is
 # walked and valid); the same two in the Hopper flash kernel; the split
 # decode's combine adds a chunk's partial without its exp(m_c - M) rescale.
@@ -1057,8 +1059,10 @@ FAULTS = {
     "mamba_scan": ("mamba_scan", "const bool more = t0 + kChunk < L;",
                    "const bool more = t0 + kChunk < L;\n"
                    "    for (int i = 0; i < kPer; ++i) h[i] = 0.f;"),
-    "rg_lru": ("rg_lru", "const int steps = min(kChunk, L - t0);",
-               "const int steps = min(kChunk, L - t0);\n    h = 0.f;"),
+    "rg_lru": ("rg_lru",
+               "for (int j0 = 0; j0 < steps; j0 += kChainBatch) {",
+               "h = 0.f;\n      "
+               "for (int j0 = 0; j0 < steps; j0 += kChainBatch) {"),
     "flash_sm90_no_rescale": (
         "flash_attention_sm90",
         "o[c][i] *= (i / 2) % 2 ? alpha_b : alpha_a;", "o[c][i] *= 1.f;"),
@@ -1116,25 +1120,37 @@ def fault_dir(fault: str) -> Path:
     return build.build_dir() / "planted_fault" / fault
 
 
+def fault_source(fault: str) -> tuple[str, str, str]:
+    """(the source a fault is planted in, its sound text, its planted
+    text): the CUDA source's text for a ``FAULTS`` entry, the Triton kernel
+    function's (``inspect.getsource``) for a ``TRITON_FAULTS`` one."""
+    import importlib
+    import inspect
+    from repro_torch.kernels import build
+    if fault in FAULTS:
+        stem, sound, planted = FAULTS[fault]
+        return (build.CSRC / f"{stem}.cu").read_text(), sound, planted
+    stem, fn, sound, planted = TRITON_FAULTS[fault]
+    return (inspect.getsource(getattr(importlib.import_module(
+        f"repro_torch.kernels.{stem}"), fn)), sound, planted)
+
+
 def build_phase() -> float:
     """Build every CUDA library, and a copy of each with its fault planted,
     from an empty ``build/kernels``: one nvcc each, all started together.
     Also write each Triton kernel's source with its fault planted
     (``TRITON_FAULTS``), jitted when the f32 check plants it."""
-    import importlib
-    import inspect
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
     shutil.rmtree(build.build_dir(), ignore_errors=True)
-    for fault, (stem, sound, planted) in FAULTS.items():
-        src = (build.CSRC / f"{stem}.cu").read_text()
+    for fault, (stem, *_) in FAULTS.items():
+        src, sound, planted = fault_source(fault)
         if src.count(sound) != 1:
             fail(f"the {stem} source lost the text fault {fault} is planted in")
         fault_dir(fault).mkdir(parents=True)
         (fault_dir(fault) / f"{stem}.cu").write_text(src.replace(sound, planted))
-    for fault, (stem, fn, sound, planted) in TRITON_FAULTS.items():
-        src = inspect.getsource(getattr(importlib.import_module(
-            f"repro_torch.kernels.{stem}"), fn))
+    for fault, (stem, fn, *_) in TRITON_FAULTS.items():
+        src, sound, planted = fault_source(fault)
         if src.count(sound) != 1:
             fail(f"the {fn} source lost the text fault {fault} is planted in")
         fault_dir(fault).mkdir(parents=True)
@@ -1348,19 +1364,13 @@ def hand_samples(dev):
                           "_flash_kernel",
                           (q.transpose(1, 2), k.transpose(1, 2),
                            v.transpose(1, 2), dh ** -0.5, causal, window, off)))
-    # the replaced kernels on the same inputs: flash on the CUDA cores in
-    # bf16, the single-pass decode (a group of at most 8)
+    # the replaced kernel on the same inputs: flash on the CUDA cores in
+    # bf16
     for name, op, tag, args in list(cases):
         if tag == "_flash_kernel" and args[0].dtype == torch.bfloat16:
             cases.append((name.replace("flash_", "flash_simt_"),
                           functools.partial(flash_attention._launch_variant,
                                             "simt"), tag, args))
-        if tag == "_decode_attn_kernel" and \
-                args[1].shape[1] // args[2].shape[1] <= 8:
-            cases.append((name.replace("decode_attention_",
-                                       "decode_attention_single_"),
-                          functools.partial(decode_attention._launch_variant,
-                                            "single"), tag, args))
     from repro_torch.kernels import ops
     ops.reset_launch_counts()
     errs = {}
@@ -1377,9 +1387,8 @@ def hand_samples(dev):
     n_flash = len(FLASH_SAMPLES)
     want = {"flash_attention": {"sm90": n_flash, "simt": 2 * n_flash},
             "decode_attention": {
-                "split": sum(n.startswith("decode_attention_") and
-                             "_single_" not in n for n, *_ in cases),
-                "single": sum("_single_" in n for n, *_ in cases)}}
+                "split": sum(n.startswith("decode_attention_")
+                             for n, *_ in cases)}}
     if ops.launch_counts_by_variant() != want:
         fail(f"attention samples ran by variant "
              f"{ops.launch_counts_by_variant()}, expected {want}")
@@ -1524,15 +1533,20 @@ def scan_samples(rnd):
 
 
 # RG-LRU samples (B, L, D): recurrentgemma-9b's scoring shape, one step, a
-# ragged L, many chunks of 16 steps (the f32 check's 2560 tokens)
-RGLRU_SAMPLES = [(4, 256, 4096), (1, 1, 4096), (2, 37, 256), (1, 2560, 512)]
+# ragged L, many chunks of 32 steps, the f32 check's (1, 2560, 4096)
+RGLRU_SAMPLES = [(4, 256, 4096), (1, 1, 4096), (2, 37, 256), (1, 2560, 512),
+                 (1, 2560, 4096)]
 
 
 def rglru_samples(rnd):
     """The RG-LRU kernel against its plain version at the sample shapes, x
-    and the gates in f32 and in bf16; Lambda around the model's 0.5."""
+    and the gates in f32 and in bf16; Lambda around the model's 0.5; the
+    thread kernel it replaced on the same inputs, bit for bit, and both
+    kernels' device us a launch.  Then the tiles kernel's branch-free
+    reciprocal and square root against the IEEE ones at every float of
+    their domains."""
     from repro_torch.kernels import rg_lru
-    errs = {}
+    errs, us = {}, {}
     for B, L, D in RGLRU_SAMPLES:
         for dt in (torch.float32, torch.bfloat16):
             x, ig, rg = (rnd(B, L, D, dtype=dt) for _ in range(3))
@@ -1545,8 +1559,26 @@ def rglru_samples(rnd):
             if not within((out,), (ref,)):
                 fail(f"RG-LRU kernel {name} disagrees with its plain version "
                      f"(max err {errs[name]})")
+            runs = {v: functools.partial(rg_lru._launch_variant, v, x, ig, rg,
+                                         lam, 8.0)
+                    for v in ("tiles", "thread")}
+            if not torch.equal(runs["thread"](), out):
+                fail(f"RG-LRU kernel {name}: the tiles kernel differs from "
+                     f"the thread kernel in some bits")
+            us[name] = {v: 1e3 * device_ms(f) for v, f in runs.items()}
     print("rg_lru kernel samples vs plain (f32 2e-5, bf16 1.6e-2): "
           + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
+    print("rg_lru samples, device us a launch (tiles / thread, bit-equal): "
+          + " ".join(f"{k}={v['tiles']:.2f}/{v['thread']:.2f}"
+                     for k, v in us.items()))
+    # the tiles kernel's branch-free reciprocal and square root against the
+    # IEEE operations the thread kernel takes, at every float they meet
+    mismatches = rg_lru.newton_mismatches("cuda")
+    if mismatches != (0, 0):
+        fail(f"the RG-LRU tiles kernel's reciprocal and square root differ "
+             f"from the IEEE ones at {mismatches} floats")
+    print("rg_lru tiles kernel's branch-free reciprocal and square root: "
+          "equal to the IEEE ones at every float of their domains")
 
 
 def api_samples(rnd):
@@ -1814,37 +1846,20 @@ def source_of(tag, args, source):
 def replaced_kernel(tag, args, refs, outs) -> dict:
     """The kernel a rebuild replaced, on the same inputs, timed beside the
     new one: the CUDA-core flash kernel for a bf16 call that runs the
-    Hopper one, the single-pass decode kernel (a GQA group of at most 8)
-    for the split one, the single-program softmax layout for a row the
-    split layout takes, the thread scan kernel for the lanes one; held
-    against the plain version too, and the thread scan kernel against the
-    lanes kernel's ``outs`` bit for bit (both add a step's states in
-    increasing n)."""
-    from repro_torch.kernels import decode_attention, flash_attention
-    from repro_torch.kernels import mamba_scan, softmax
+    Hopper one, the thread RG-LRU kernel for the tiles one; held against
+    the plain version too, and the thread RG-LRU kernel against the tiles
+    kernel's ``outs`` bit for bit (both compute each element with the same
+    rounded operations in the same order)."""
+    from repro_torch.kernels import flash_attention, rg_lru
     if tag == "_flash_kernel":
         variant = flash_variant(args)
         if variant != "sm90":
             return {"variant": variant}
         old, name = functools.partial(flash_attention._launch_variant,
                                       "simt", *args), "simt"
-    elif tag == "_decode_attn_kernel":
-        variant = "split"
-        if args[1].shape[1] // args[2].shape[1] > 8:
-            return {"variant": variant}
-        old, name = functools.partial(decode_attention._launch_variant,
-                                      "single", *args), "single"
-    elif tag in ("_softmax_kernel", "_softmax_masked_kernel"):
-        x, mask, scale = (args if tag == "_softmax_masked_kernel"
-                          else (args[0], None, args[1]))
-        variant = "split"
-        if softmax.split_plan(x.shape[-1]) is None:
-            return {"variant": "one_pass"}
-        old, name = functools.partial(softmax._launch_variant, "wide", x,
-                                      mask, scale), "wide"
-    elif tag == "_mamba_kernel":
-        variant = "lanes"
-        old, name = functools.partial(mamba_scan._launch_variant, "thread",
+    elif tag == "_rglru_kernel":
+        variant = "tiles"
+        old, name = functools.partial(rg_lru._launch_variant, "thread",
                                       *args), "thread"
     else:
         return {}
@@ -1854,9 +1869,9 @@ def replaced_kernel(tag, args, refs, outs) -> dict:
     if not within((out,), refs):
         fail(f"the replaced {name} kernel disagrees with the plain version "
              f"(max err {err})")
-    if tag == "_mamba_kernel" and not torch.equal(out, outs[0]):
-        fail(f"the lanes scan kernel differs from the {name} kernel in some "
-             f"bits (max diff {max_err((out,), outs)})")
+    if tag == "_rglru_kernel" and not torch.equal(out, outs[0]):
+        fail(f"the tiles RG-LRU kernel differs from the {name} kernel in "
+             f"some bits (max diff {max_err((out,), outs)})")
     return {"variant": variant, "old_variant": name, "old_max_abs_err": err,
             "old_ms": timed(old, 50), "old_device_ms": device_ms(old)}
 
@@ -3388,7 +3403,7 @@ def main() -> int:
          "the scan's state restarts at each chunk")])
     scoring_f32(dev, HYBRID_ARCH, "hybrid", HYBRID_F32_BATCH, [
         (rg_lru, "rg_lru", "block",
-         "the RG-LRU's state restarts at each chunk"),
+         "the RG-LRU's chain restarts h at each chunk"),
         (flash_attention, "flash_window", "attn",
          "flash ignores the window")])
     nemotron_f32(dev)

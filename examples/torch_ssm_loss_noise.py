@@ -9,7 +9,6 @@ more seeds with the selective scan on each of these kernels, on the same
 weights and inputs:
 
 * ``lanes``: the lanes kernel, what kernel mode runs;
-* ``thread``: the thread kernel it replaced (one thread a channel);
 * ``lanes_exp2f``: the lanes kernel with its exponential spelled as
   ``exp2f(dt * (A * log2 e))``, the product ``A * log2 e`` hoisted;
 * ``lanes_bf16_state``: a lower-precision control, the lanes kernel with
@@ -82,9 +81,8 @@ def main(seeds: int = 5) -> None:
                                      (params, batch), dev)
     block = chip_smoke.stitched_call("ssm block", model.block_fn, (lp, x), dev)
     sound = mamba_scan._lib()
-    libs = {"lanes": (sound, "lanes"), "thread": (sound, "thread")}
-    libs.update({name: (variant_library(name), "lanes") for name in VARIANTS})
-    launch = mamba_scan._launch_variant
+    libs = {"lanes": sound}
+    libs.update({name: variant_library(name) for name in VARIANTS})
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=False).stdout.strip())
@@ -100,15 +98,12 @@ def main(seeds: int = 5) -> None:
         eager = float(model.train_forward(params, batch)[0])
         eager_block = model.block_fn(lp, x).float()
         row = {}
-        for name, (lib, entry) in libs.items():
+        for name, lib in libs.items():
             mamba_scan._LIB = lib
-            mamba_scan._launch_variant = (
-                lambda _v, *a, _k=entry: launch(_k, *a))
             try:
                 loss = float(score(params, batch)[0])
                 out = block(lp, x).float()
             finally:
-                mamba_scan._launch_variant = launch
                 mamba_scan._LIB = sound
             row[f"{name} loss"] = abs(loss - eager) / abs(eager)
             row[f"{name} block"] = chip_smoke.rel_diff(out, eager_block)

@@ -18,14 +18,12 @@
 //
 // The recurrence is sequential in t and nothing carries a state from one
 // block to the next, so a block owns neighbouring channels of one batch
-// row and walks all of L.  Two kernels share that plan:
-//
-// * mamba_scan_lanes_kernel (the one the wrapper launches): a channel's N
-//   states are spread over kLanes neighbouring lanes of a warp, states
-//   kPer * g .. kPer * g + kPer - 1 on lane g, so at the scoring shape
-//   131072 threads (512 blocks of 256, 4 resident an SM at 64 registers a
-//   thread: 32 warps an SM) keep the SFU fed where one thread a channel
-//   left 8 warps an SM waiting on latency.
+// row and walks all of L.  A channel's N states are spread over kLanes
+// neighbouring lanes of a warp, states kPer * g .. kPer * g + kPer - 1 on
+// lane g, so at the scoring shape 131072 threads (512 blocks of 256, 4
+// resident an SM at 64 registers a thread: 32 warps an SM) keep the SFU
+// fed where one thread a channel (the first design) left 8 warps an SM
+// waiting on latency.
 //   Time advances in chunks of kChunk steps.  Lane g of a channel loads x
 //   and delta of steps g, g + kLanes, ... of the chunk (a shuffle hands
 //   each step's value to the channel's lanes) and owns y of those steps.
@@ -37,20 +35,16 @@
 //   states through the group's steps and leaves each step's h in its
 //   warp's shared rows; after a __syncwarp() the lane that owns a step
 //   adds sum_n h[n] * C[n] from those rows one state at a time in
-//   increasing n, as one thread adds it.  So y is bit for bit the thread
-//   kernel's (no atomics, no other order of sums), and the model's bf16
-//   readings against the eager oracle stay those the thread kernel gave,
-//   at four multiply-adds a lane a step.  The rows are swizzled (block b
+//   increasing n, as one thread adds it.  So y is bit for bit the first
+//   design's (no atomics, no other order of sums), and the model's bf16
+//   readings against the eager oracle stay those it gave, at four
+//   multiply-adds a lane a step.  The rows are swizzled (block b
 //   of step jj at slot jj * kLanes + (b ^ jj), rows 80 floats apart) so
 //   neither the writes of a step nor the owners' reads meet a bank
 //   conflict.  A full chunk is one straight run of steps (no per-step
 //   test), which the compiler schedules across.  The exponential is the
 //   accurate expf of dt * A, and the state update is spelled as in the
-//   thread kernel.
-// * mamba_scan_thread_kernel (the first design, kept as the yardstick that
-//   chip_smoke.py times on the same operands; no path launches it): one
-//   thread a channel holds all N states, B_t and C_t staged between two
-//   __syncthreads() a chunk, the accurate expf.
+//   first design.
 //
 // B and C are read through their strides: the model hands them as column
 // views of one (Bb, L, dt_rank + 2N) projection.
@@ -61,10 +55,9 @@
 
 namespace {
 
-constexpr int kThreads = 128;    // channels a block (thread kernel)
 constexpr int kChunk = 16;       // time steps staged at a time
 constexpr int kMaxState = 16;    // the widest d_state the kernels take
-constexpr int kLanes = 4;        // lanes a channel (lanes kernel)
+constexpr int kLanes = 4;        // lanes a channel
 constexpr int kPer = kMaxState / kLanes;       // states a lane
 constexpr int kLaneThreads = 256;              // threads a block
 constexpr int kLaneChannels = kLaneThreads / kLanes;
@@ -244,111 +237,19 @@ mamba_scan_lanes_kernel(const T* __restrict__ x, const T* __restrict__ dt,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-mamba_scan_thread_kernel(const T* __restrict__ x, const T* __restrict__ dt,
-                  const float* __restrict__ A, const float* __restrict__ Bm,
-                  const float* __restrict__ Cm, const float* __restrict__ Dv,
-                  T* __restrict__ y, int L, int dm, int n_state, Strides s) {
-  __shared__ float sB[kChunk][kMaxState];
-  __shared__ float sC[kChunk][kMaxState];
-  const int b = blockIdx.y;
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = c < dm;   // a dead thread still joins the barriers
-
-  float a[kMaxState], h[kMaxState];
-#pragma unroll
-  for (int n = 0; n < kMaxState; ++n) {
-    a[n] = (live && n < n_state) ? A[(long long)c * n_state + n] : 0.f;
-    h[n] = 0.f;
-  }
-  const float d_skip = live ? Dv[c] : 0.f;
-  const T* xb = x + b * s.x_b + c;
-  const T* db = dt + b * s.d_b + c;
-  const float* Bb = Bm + b * s.b_b;
-  const float* Cb = Cm + b * s.c_b;
-  T* yb = y + (long long)b * L * dm + c;
-
-  for (int t0 = 0; t0 < L; t0 += kChunk) {
-    const int steps = min(kChunk, L - t0);
-    float xs[kChunk], ds[kChunk];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      const bool in = live && j < steps;
-      xs[j] = in ? to_f32(xb[(t0 + j) * s.x_t]) : 0.f;
-      ds[j] = in ? to_f32(db[(t0 + j) * s.d_t]) : 0.f;
-    }
-    __syncthreads();  // the previous chunk's B and C are no longer read
-    for (int i = threadIdx.x; i < steps * n_state; i += kThreads) {
-      const int j = i / n_state;
-      const int n = i - j * n_state;
-      sB[j][n] = Bb[(t0 + j) * s.b_t + n * s.b_n];
-      sC[j][n] = Cb[(t0 + j) * s.c_t + n * s.c_n];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      if (j < steps) {
-        const float dx = ds[j] * xs[j];
-        float acc = 0.f;
-#pragma unroll
-        for (int n = 0; n < kMaxState; ++n) {
-          if (n < n_state) {
-            h[n] = expf(ds[j] * a[n]) * h[n] + dx * sB[j][n];
-            acc += h[n] * sC[j][n];
-          }
-        }
-        if (live) store(yb + (long long)(t0 + j) * dm, acc + d_skip * xs[j]);
-      }
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch(bool lanes, const void* x, const void* delta,
-                   const void* A, const void* B, const void* C,
-                   const void* D, void* y, int batch, int L, int dm,
-                   int n_state, const Strides& s, cudaStream_t stream) {
-  if (lanes) {
-    const dim3 grid((dm + kLaneChannels - 1) / kLaneChannels, batch);
-    auto kernel = n_state == kMaxState ? mamba_scan_lanes_kernel<T, true>
-                                       : mamba_scan_lanes_kernel<T, false>;
-    kernel<<<grid, kLaneThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(delta),
-        static_cast<const float*>(A), static_cast<const float*>(B),
-        static_cast<const float*>(C), static_cast<const float*>(D),
-        static_cast<T*>(y), L, dm, n_state, s);
-    return cudaGetLastError();
-  }
-  const dim3 grid((dm + kThreads - 1) / kThreads, batch);
-  mamba_scan_thread_kernel<T><<<grid, kThreads, 0, stream>>>(
+cudaError_t launch(const void* x, const void* delta, const void* A,
+                   const void* B, const void* C, const void* D, void* y,
+                   int batch, int L, int dm, int n_state, const Strides& s,
+                   cudaStream_t stream) {
+  const dim3 grid((dm + kLaneChannels - 1) / kLaneChannels, batch);
+  auto kernel = n_state == kMaxState ? mamba_scan_lanes_kernel<T, true>
+                                     : mamba_scan_lanes_kernel<T, false>;
+  kernel<<<grid, kLaneThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(delta),
       static_cast<const float*>(A), static_cast<const float*>(B),
       static_cast<const float*>(C), static_cast<const float*>(D),
       static_cast<T*>(y), L, dm, n_state, s);
   return cudaGetLastError();
-}
-
-}  // namespace
-
-namespace {
-
-int scan(bool lanes, const void* x, const void* delta, const void* A,
-         const void* B, const void* C, const void* D, void* y, int x_dtype,
-         int delta_dtype, int batch, int L, int dm, int n_state,
-         const Strides& s, void* stream) {
-  if (n_state < 1 || n_state > kMaxState) return kStateTooWide;
-  if (x_dtype != delta_dtype) return kMixedDtypes;
-  if (x_dtype != 0 && x_dtype != 1) return kBadDtype;
-  if (L < 1 || batch < 1 || dm < 1 || batch > 65535) return kEmpty;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (x_dtype == 0)
-    err = launch<float>(lanes, x, delta, A, B, C, D, y, batch, L, dm,
-                        n_state, s, st);
-  else
-    err = launch<__nv_bfloat16>(lanes, x, delta, A, B, C, D, y, batch, L,
-                                dm, n_state, s, st);
-  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -360,9 +261,7 @@ int scan(bool lanes, const void* x, const void* delta, const void* A,
 // x_dtype != delta_dtype (-2), a dtype other than those two (-3), L, batch
 // or dm below 1, or batch above the grid's 65535 rows (-4).  Otherwise
 // returns the launch's cudaError_t (0 on success); the kernel runs
-// asynchronously on `stream`, on the current device.  repro_mamba_scan
-// launches the lanes kernel, repro_mamba_scan_thread the thread kernel,
-// with the same arguments and refusals.
+// asynchronously on `stream`, on the current device.
 extern "C" int repro_mamba_scan(const void* x, const void* delta,
                                 const void* A, const void* B, const void* C,
                                 const void* D, void* y, int x_dtype,
@@ -371,21 +270,20 @@ extern "C" int repro_mamba_scan(const void* x, const void* delta,
                                 long long d_bs, long long d_ts, long long b_bs,
                                 long long b_ts, long long b_ns, long long c_bs,
                                 long long c_ts, long long c_ns, void* stream) {
+  if (n_state < 1 || n_state > kMaxState) return kStateTooWide;
+  if (x_dtype != delta_dtype) return kMixedDtypes;
+  if (x_dtype != 0 && x_dtype != 1) return kBadDtype;
+  if (L < 1 || batch < 1 || dm < 1 || batch > 65535) return kEmpty;
   const Strides s{x_bs, x_ts, d_bs, d_ts, b_bs, b_ts, b_ns, c_bs, c_ts, c_ns};
-  return scan(true, x, delta, A, B, C, D, y, x_dtype, delta_dtype, batch, L,
-              dm, n_state, s, stream);
-}
-
-extern "C" int repro_mamba_scan_thread(
-    const void* x, const void* delta, const void* A, const void* B,
-    const void* C, const void* D, void* y, int x_dtype, int delta_dtype,
-    int batch, int L, int dm, int n_state, long long x_bs, long long x_ts,
-    long long d_bs, long long d_ts, long long b_bs, long long b_ts,
-    long long b_ns, long long c_bs, long long c_ts, long long c_ns,
-    void* stream) {
-  const Strides s{x_bs, x_ts, d_bs, d_ts, b_bs, b_ts, b_ns, c_bs, c_ts, c_ns};
-  return scan(false, x, delta, A, B, C, D, y, x_dtype, delta_dtype, batch, L,
-              dm, n_state, s, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (x_dtype == 0)
+    err = launch<float>(x, delta, A, B, C, D, y, batch, L, dm, n_state, s,
+                        st);
+  else
+    err = launch<__nv_bfloat16>(x, delta, A, B, C, D, y, batch, L, dm,
+                                n_state, s, st);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

@@ -7,9 +7,8 @@ note gives the bound and the design.  It splits the cache's keys into
 chunks fixed by ``Smax`` (:func:`chunk_plan`; the positions are never read
 on the host), writes each chunk's partial (m, l, acc) to f32 scratch and
 folds them in chunk order in a second kernel;
-:func:`decode_attention_split_plain` is that algorithm in PyTorch.  The
-single-pass kernel it replaced (``"single"``, a GQA group of at most 8)
-stays as the card check's yardstick.  It is the custom op
+:func:`decode_attention_split_plain` is that algorithm in PyTorch.  It is
+the custom op
 ``repro_torch::decode_attention``: the CPU implementation is the plain
 version below, the CUDA implementation launches the kernel, so ``make_fx``
 sees the whole masked-softmax chain as one node, which the tracer tags
@@ -40,10 +39,10 @@ __all__ = ["bind", "chunk_plan", "decode_attention", "decode_attention_plain",
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CHUNK = 32                # keys a chunk of the split kernel (kChunk)
-SINGLE_MAX_GROUP = 8      # the single-pass kernel's largest GQA group
 
 # kernel launches since the last reset, by build.signature of the arguments,
-# and by variant ("split", "single")
+# and by variant (the one kernel, "split", as ops.launch_counts_by_variant
+# reports each attention kernel's)
 launches: Counter = Counter()
 variant_launches: Counter = Counter()
 _LIB: ctypes.CDLL | None = None
@@ -129,9 +128,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_decode_attention.argtypes = (
         [vp] * 6 + [ci] * 6 + [cl] * 9 + [ctypes.c_float, ci, vp])
     lib.repro_decode_attention.restype = ci
-    lib.repro_decode_attention_single.argtypes = (
-        [vp] * 5 + [ci] * 6 + [cl] * 9 + [ctypes.c_float, ci, vp])
-    lib.repro_decode_attention_single.restype = ci
     lib.repro_decode_attention_chunk.argtypes = []
     lib.repro_decode_attention_chunk.restype = ci
     if lib.repro_decode_attention_chunk() != CHUNK:
@@ -151,13 +147,6 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(pos, qt, kt, vt, scale: float, window: Optional[int] = None):
-    return _launch_variant("split", pos, qt, kt, vt, scale, window)
-
-
-def _launch_variant(variant: str, pos, qt, kt, vt, scale: float,
-                    window: Optional[int] = None):
-    """Launch the split kernel (``"split"``) or the single-pass one it
-    replaced (``"single"``, which the card check times it against)."""
     B, Hq, one, Dh = qt.shape
     _, Hkv, Smax, _ = kt.shape
     if one != 1 or tuple(vt.shape) != tuple(kt.shape) or kt.shape[0] != B \
@@ -170,12 +159,9 @@ def _launch_variant(variant: str, pos, qt, kt, vt, scale: float,
                         f"{vt.dtype}; the kernel takes float32 or bfloat16")
     if pos.dtype != torch.int32:
         raise TypeError(f"decode_attention: positions {pos.dtype}, need int32")
-    if Hq % Hkv or Dh > 256 or (variant == "single"
-                                and Hq // Hkv > SINGLE_MAX_GROUP):
+    if Hq % Hkv or Dh > 256:
         raise ValueError(f"decode_attention: Hq={Hq}, Hkv={Hkv}, Dh={Dh}: the "
-                         f"{variant} kernel takes Hq a multiple of Hkv"
-                         + (f", a GQA group of at most {SINGLE_MAX_GROUP}"
-                            if variant == "single" else "") + ", Dh <= 256")
+                         f"kernel takes Hq a multiple of Hkv, Dh <= 256")
     dev = qt.device
     if pos.device != dev:
         raise ValueError(f"decode_attention: positions on {pos.device}, q on {dev}")
@@ -195,21 +181,16 @@ def _launch_variant(variant: str, pos, qt, kt, vt, scale: float,
             int(window) if window is not None else 0,
             torch.cuda.current_stream(dev).cuda_stream]
     lib = _lib()
-    if variant == "split":
-        _, n = chunk_plan(Smax)
-        partials = torch.empty(B * Hq * n * (Dh + 2), dtype=torch.float32,
-                               device=dev)
-        err = lib.repro_decode_attention(*ptrs, partials.data_ptr(), *rest)
-    elif variant == "single":
-        err = lib.repro_decode_attention_single(*ptrs, *rest)
-    else:
-        raise ValueError(f"decode_attention: no variant {variant!r}")
+    _, n = chunk_plan(Smax)
+    partials = torch.empty(B * Hq * n * (Dh + 2), dtype=torch.float32,
+                           device=dev)
+    err = lib.repro_decode_attention(*ptrs, partials.data_ptr(), *rest)
     if err:
         msg = lib.repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"decode_attention {variant} kernel launch failed: "
-                           f"{msg} ({err})")
+        raise RuntimeError(f"decode_attention kernel launch failed: {msg} "
+                           f"({err})")
     launches[build.signature(pos, qt, kt, vt, scale, window)] += 1
-    variant_launches[variant] += 1
+    variant_launches["split"] += 1
     return out
 
 

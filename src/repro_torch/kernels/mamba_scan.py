@@ -4,13 +4,10 @@ an f32 state of ``(channels, d_state)``.
 
 The kernel is CUDA C++ for ``sm_90a`` (``repro_torch/csrc/mamba_scan.cu``,
 built by :mod:`.build` at first use and bound with ``ctypes``); its source
-note gives the bound and the design.  The library holds two kernels: the
-"lanes" kernel, which the op launches (a channel's states spread over 4
-lanes of a warp), and the "thread" kernel it replaced (one thread a
-channel), kept as a yardstick that ``chip_smoke.py`` times on the same
-operands through :func:`_launch_variant`.  Both add a step's states in
-increasing n, so they give the same bits; :func:`mamba_scan_lanes_plain`
-spells that arithmetic and order of sums in PyTorch.  It is the custom op
+note gives the bound and the design.  The kernel spreads a channel's
+states over 4 lanes of a warp and adds a step's states in increasing n, as
+one thread a channel did; :func:`mamba_scan_lanes_plain` spells that
+arithmetic and order of sums in PyTorch.  It is the custom op
 ``repro_torch::mamba_scan``: the CPU implementation is the plain version
 below, the CUDA implementation launches the kernel, so ``make_fx`` sees
 one node, which the tracer tags ``_mamba_kernel``.  The planner's registry
@@ -71,7 +68,7 @@ def mamba_scan_lanes_plain(x, delta, A, B, C, D):
     recurrence as in :func:`mamba_scan_plain`, and ``sum_n h[n] * C[n]``
     added one state at a time in increasing n, the order of one thread's
     loop, which the lanes kernel keeps by handing the sum from lane to
-    lane (as does the thread kernel it replaced)."""
+    lane."""
     xf, df = x.to(torch.float32), delta.to(torch.float32)
     Af = A.to(torch.float32)
     Bf, Cf = B.to(torch.float32), C.to(torch.float32)
@@ -94,9 +91,8 @@ def mamba_scan_lanes_plain(x, delta, A, B, C, D):
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a built ``mamba_scan`` library."""
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fn in (lib.repro_mamba_scan, lib.repro_mamba_scan_thread):
-        fn.argtypes = [vp] * 7 + [ci] * 6 + [cl] * 10 + [vp]
-        fn.restype = ci
+    lib.repro_mamba_scan.argtypes = [vp] * 7 + [ci] * 6 + [cl] * 10 + [vp]
+    lib.repro_mamba_scan.restype = ci
     lib.repro_cuda_error_string.argtypes = [ci]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -110,19 +106,6 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(x, delta, A, B, C, D):
-    y = _launch_variant("lanes", x, delta, A, B, C, D)
-    launches[build.signature(x, delta, A, B, C, D)] += 1
-    return y
-
-
-def _launch_variant(variant: str, x, delta, A, B, C, D):
-    """One launch of the lanes kernel (``variant="lanes"``, the one the op
-    launches) or the thread kernel it replaced (``"thread"``), with the
-    op's checks and no launch counted."""
-    entry = {"lanes": "repro_mamba_scan",
-             "thread": "repro_mamba_scan_thread"}.get(variant)
-    if entry is None:
-        raise ValueError(f"mamba_scan: unknown variant {variant!r}")
     if x.dim() != 3 or tuple(delta.shape) != tuple(x.shape):
         raise ValueError(f"mamba_scan: x {tuple(x.shape)}, delta "
                          f"{tuple(delta.shape)}; need both (Bb, L, Dm)")
@@ -142,7 +125,7 @@ def _launch_variant(variant: str, x, delta, A, B, C, D):
     delta = delta if delta.stride(2) == 1 else delta.contiguous()
     A, D = A.contiguous(), D.contiguous()
     y = torch.empty((Bb, L, Dm), dtype=x.dtype, device=x.device)
-    err = getattr(_lib(), entry)(
+    err = _lib().repro_mamba_scan(
         x.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), D.data_ptr(), y.data_ptr(),
         _DTYPES.get(x.dtype, _UNSUPPORTED), _DTYPES.get(delta.dtype, _UNSUPPORTED),
@@ -155,6 +138,7 @@ def _launch_variant(variant: str, x, delta, A, B, C, D):
             raise ValueError(f"mamba_scan: {msg} (x {x.dtype} {tuple(x.shape)}, "
                              f"delta {delta.dtype}, N={N})")
         raise RuntimeError(f"mamba_scan kernel launch failed: {msg} ({err})")
+    launches[build.signature(x, delta, A, B, C, D)] += 1
     return y
 
 

@@ -124,8 +124,8 @@ def launch_counts_by_signature() -> dict[str, dict[tuple, int]]:
 
 def launch_counts_by_variant() -> dict[str, dict[str, int]]:
     """Launches of flash attention by variant (``"sm90"``: wgmma + TMA,
-    ``"simt"``: CUDA cores) and of decode attention (``"split"``, and the
-    replaced ``"single"`` the card check times it against)."""
+    ``"simt"``: CUDA cores) and of decode attention (``"split"``, its one
+    kernel)."""
     return {name: dict(c) for name, c in _VARIANTS.items()}
 
 

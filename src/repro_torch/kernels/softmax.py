@@ -29,12 +29,7 @@ scores of qwen3-1.7b's long prompts, 6.3 us at 3.35 TB/s.  Design:
   the row's programs agree bit for bit), then writes ``exp(x - M) / L``
   for its chunk.  x is read twice; no atomics, so the result does not
   depend on scheduling.  The masked variant's rules hold in the fold: a
-  non-finite M becomes 0 and L is floored at 1e-30;
-* the single-program wide layout that the split replaced (one row a
-  program, an online max and sum over ``WIDE_BLOCK`` columns at a time,
-  then the write) stays in ``_softmax_kernel`` as the yardstick that
-  ``chip_smoke.py`` times on the same rows (:func:`_launch_variant`); no
-  path launches it.
+  non-finite M becomes 0 and L is floored at 1e-30.
 
 They are the custom ops ``repro_torch::softmax(x, scale)`` and
 ``repro_torch::softmax_masked(x, mask, scale)`` over ``(rows, d)``: the CPU
@@ -58,7 +53,6 @@ __all__ = ["softmax", "softmax_plain", "softmax_masked_plain",
 _FLOAT = (torch.float32, torch.bfloat16)
 MAX_ONE_PASS = 8192   # the widest row block of the one-pass layout
 SPLIT_BLOCK = 2048    # columns a program of the split layout
-WIDE_BLOCK = 4096     # columns a sweep step of the single-program wide layout
 
 # kernel launches since the last reset, by build.signature of the arguments
 launches: Counter = Counter()               # _softmax_kernel
@@ -70,66 +64,28 @@ tl = None             # triton.language, bound by build.triton_jit at launch
 
 
 def _softmax_kernel(x_ptr, m_ptr, o_ptr, rows, d, stride_x, stride_m, scale,
-                    HAS_MASK: tl.constexpr, ONE_PASS: tl.constexpr,
-                    BLOCK_R: tl.constexpr, BLOCK_D: tl.constexpr):
-    if ONE_PASS:
-        r = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)[:, None]
-        c = tl.arange(0, BLOCK_D)[None, :]
-        inb = (r < rows) & (c < d)
-        r64 = r.to(tl.int64)
-        x = tl.load(x_ptr + r64 * stride_x + c, mask=inb,
-                    other=0.0).to(tl.float32) * scale
-        valid = inb
-        if HAS_MASK:
-            keep = tl.load(m_ptr + r64 * stride_m + c, mask=inb, other=0)
-            valid = valid & (keep != 0)
-        x = tl.where(valid, x, float("-inf"))
-        mx = tl.max(x, axis=1)[:, None]
-        if HAS_MASK:
-            mx = tl.where(tl.abs(mx) < float("inf"), mx, 0.0)
-        e = tl.exp(x - mx)
-        s = tl.sum(e, axis=1)[:, None]
-        if HAS_MASK:
-            s = tl.maximum(s, 1e-30, propagate_nan=tl.PropagateNan.ALL)
-        tl.store(o_ptr + r64 * d + c, tl.div_rn(e, s).to(o_ptr.dtype.element_ty),
-                 mask=inb)
-    else:
-        row = tl.program_id(0).to(tl.int64)
-        x_row = x_ptr + row * stride_x
-        m_row = m_ptr + row * stride_m
-        o_row = o_ptr + row * d
-        zero = tl.zeros([BLOCK_D], tl.float32)
-        # f32 scalars, typed as the loop carries them
-        m = tl.max(zero, axis=0) - float("inf")
-        l = tl.sum(zero, axis=0)
-        for c0 in range(0, d, BLOCK_D):
-            c = c0 + tl.arange(0, BLOCK_D)
-            valid = c < d
-            x = tl.load(x_row + c, mask=valid, other=0.0).to(tl.float32) * scale
-            if HAS_MASK:
-                valid = valid & (tl.load(m_row + c, mask=c < d, other=0) != 0)
-            x = tl.where(valid, x, float("-inf"))
-            m_new = tl.maximum(m, tl.max(x, axis=0))
-            # the shift a row of -inf so far (or a masked row's non-finite
-            # max) takes: its lanes then add exp(-inf) = 0, not NaN
-            if HAS_MASK:
-                ms = tl.where(tl.abs(m_new) < float("inf"), m_new, 0.0)
-            else:
-                ms = tl.where(m_new == float("-inf"), 0.0, m_new)
-            l = l * tl.exp(m - ms) + tl.sum(tl.exp(x - ms), axis=0)
-            m = m_new
-        if HAS_MASK:
-            m = tl.where(tl.abs(m) < float("inf"), m, 0.0)
-            l = tl.maximum(l, 1e-30, propagate_nan=tl.PropagateNan.ALL)
-        for c0 in range(0, d, BLOCK_D):
-            c = c0 + tl.arange(0, BLOCK_D)
-            valid = c < d
-            x = tl.load(x_row + c, mask=valid, other=0.0).to(tl.float32) * scale
-            if HAS_MASK:
-                valid = valid & (tl.load(m_row + c, mask=c < d, other=0) != 0)
-            x = tl.where(valid, x, float("-inf"))
-            y = tl.div_rn(tl.exp(x - m), l)
-            tl.store(o_row + c, y.to(o_ptr.dtype.element_ty), mask=c < d)
+                    HAS_MASK: tl.constexpr, BLOCK_R: tl.constexpr,
+                    BLOCK_D: tl.constexpr):
+    r = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)[:, None]
+    c = tl.arange(0, BLOCK_D)[None, :]
+    inb = (r < rows) & (c < d)
+    r64 = r.to(tl.int64)
+    x = tl.load(x_ptr + r64 * stride_x + c, mask=inb,
+                other=0.0).to(tl.float32) * scale
+    valid = inb
+    if HAS_MASK:
+        keep = tl.load(m_ptr + r64 * stride_m + c, mask=inb, other=0)
+        valid = valid & (keep != 0)
+    x = tl.where(valid, x, float("-inf"))
+    mx = tl.max(x, axis=1)[:, None]
+    if HAS_MASK:
+        mx = tl.where(tl.abs(mx) < float("inf"), mx, 0.0)
+    e = tl.exp(x - mx)
+    s = tl.sum(e, axis=1)[:, None]
+    if HAS_MASK:
+        s = tl.maximum(s, 1e-30, propagate_nan=tl.PropagateNan.ALL)
+    tl.store(o_ptr + r64 * d + c, tl.div_rn(e, s).to(o_ptr.dtype.element_ty),
+             mask=inb)
 
 
 def _softmax_partials_kernel(x_ptr, m_ptr, part_ptr, d, n_chunks, stride_x,
@@ -242,16 +198,13 @@ def split_plan(d: int) -> tuple[int, int] | None:
     return SPLIT_BLOCK, -(-d // SPLIT_BLOCK)
 
 
-def _layout(rows: int, d: int) -> tuple[bool, int, int, int]:
-    """(ONE_PASS, BLOCK_R, BLOCK_D, num_warps) of ``_softmax_kernel``:
-    whole rows, about a thousand elements a program, up to
-    ``MAX_ONE_PASS`` columns; else (the yardstick) one row a program in
-    ``WIDE_BLOCK`` column steps."""
+def _layout(rows: int, d: int) -> tuple[int, int, int]:
+    """(BLOCK_R, BLOCK_D, num_warps) of ``_softmax_kernel`` for rows of at
+    most ``MAX_ONE_PASS`` columns: whole rows, about a thousand elements a
+    program."""
     block_d = build.next_pow2(d)
-    if block_d > MAX_ONE_PASS:
-        return False, 1, WIDE_BLOCK, 8
     block_r = min(max(1, 1024 // block_d), build.next_pow2(rows))
-    return True, block_r, block_d, 4 if block_r * block_d <= 2048 else 8
+    return block_r, block_d, 4 if block_r * block_d <= 2048 else 8
 
 
 def _check(name, x, mask=None):
@@ -272,19 +225,16 @@ def _check(name, x, mask=None):
                              f"must be contiguous")
 
 
-def _run(x, mask, scale: float, variant: str = "split"):
+def _run(x, mask, scale: float):
     """The kernel on x (and the mask): rows wider than the one-pass block
-    go through the split layout, or with ``variant="wide"`` through the
-    single-program layout it replaced."""
+    go through the split layout."""
     global _JIT, _PART_JIT, _SPLIT_JIT
-    if variant not in ("split", "wide"):
-        raise ValueError(f"softmax: unknown variant {variant!r}")
     rows, d = x.shape
     out = torch.empty((rows, d), dtype=x.dtype, device=x.device)
     # the bool mask is read as bytes
     m = mask.view(torch.uint8) if mask is not None else x
     plan = split_plan(d)
-    if plan is not None and variant == "split":
+    if plan is not None:
         block, n = plan
         if _PART_JIT is None:
             _PART_JIT = build.triton_jit(_softmax_partials_kernel)
@@ -300,23 +250,14 @@ def _run(x, mask, scale: float, variant: str = "split"):
                          BLOCK_D=block, BLOCK_C=build.next_pow2(n),
                          num_warps=4)
         return out
-    one_pass, block_r, block_d, warps = _layout(rows, d)
+    block_r, block_d, warps = _layout(rows, d)
     if _JIT is None:
         _JIT = build.triton_jit(_softmax_kernel)
     _JIT[(-(-rows // block_r),)](
         x, m, out, rows, d, x.stride(0), m.stride(0), float(scale),
-        HAS_MASK=mask is not None, ONE_PASS=one_pass, BLOCK_R=block_r,
-        BLOCK_D=block_d, num_warps=warps)
+        HAS_MASK=mask is not None, BLOCK_R=block_r, BLOCK_D=block_d,
+        num_warps=warps)
     return out
-
-
-def _launch_variant(variant: str, x, mask, scale: float):
-    """One call of the kernel through ``variant`` ("split", the one the
-    ops launch, or "wide", the single-program layout it replaced), with
-    the ops' checks and no launch counted: ``chip_smoke.py`` times the
-    replaced layout with it."""
-    _check("softmax", x, mask)
-    return _run(x, mask, scale, variant)
 
 
 def _launch(x, scale: float):

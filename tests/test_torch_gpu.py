@@ -361,7 +361,7 @@ def test_flash_attention_variants_on_card(variant):
 
 # split decode: (Hq, Hkv, Smax, Dh, positions, window): positions on chunk
 # edges (0, C - 1, C, Smax - 1) at GQA groups 1, 6 and 8, a window across
-# two chunks, a group of 16 (above the single-pass kernel's 8), head width
+# two chunks, a group of 16 (more than one block's 8 heads), head width
 # 64, and rows without a valid key (a position past the window's reach)
 def _decode_cases(C):
     return [(8, 8, 4 * C, 128, [0, C - 1, C, 4 * C - 1], None),
@@ -393,15 +393,6 @@ def test_decode_attention_split_on_card(dtype, tol):
         torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
         # deterministic: no atomics, the same bits on a second call
         assert torch.equal(da.decode_attention_op(*args), out)
-        if hq // hkv > da.SINGLE_MAX_GROUP:
-            with pytest.raises(ValueError, match="at most"):
-                da._launch_variant("single", *args)
-        elif window is None:
-            # the replaced kernel, on rows that have a valid key (it gives
-            # 0 where the reference gives the mean of V)
-            torch.testing.assert_close(
-                da._launch_variant("single", *args).float(), ref,
-                rtol=tol, atol=tol)
 
 
 # (T, E, k): a granite decode step and its bucket-256 prefill, a ragged E
@@ -573,25 +564,19 @@ def test_mamba_scan_kernel_on_card(dtype, tol, strided):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
 def test_mamba_scan_variants_on_card(dtype, tol):
-    """The lanes kernel against its lane-order plain version and against
-    the thread kernel it replaced, on the same operands: both add a step's
-    states in increasing n, so their outputs are equal bit for bit.
-    Neither launch is counted."""
+    """The lanes kernel against its lane-order plain version (a step's
+    states added in increasing n), with B and C as strided views; one
+    launch counted a call."""
     _need_card()
     from repro_torch.kernels import mamba_scan
     for i, case in enumerate(SCAN_CASES):
         args = _scan_args(*case, dtype, 30 + i, True)
-        before = dict(mamba_scan.launches)
-        new = mamba_scan._launch_variant("lanes", *args)
-        old = mamba_scan._launch_variant("thread", *args)
+        before = sum(mamba_scan.launches.values())
+        new = mamba_scan.mamba_scan_op(*args)
         torch.cuda.synchronize()
-        assert dict(mamba_scan.launches) == before
+        assert sum(mamba_scan.launches.values()) == before + 1
         want = mamba_scan.mamba_scan_lanes_plain(*args).float()
         torch.testing.assert_close(new.float(), want, rtol=tol, atol=tol)
-        torch.testing.assert_close(old.float(), want, rtol=tol, atol=tol)
-        assert torch.equal(new, old), case
-    with pytest.raises(ValueError, match="unknown variant"):
-        mamba_scan._launch_variant("warp", *args)
 
 
 @pytest.mark.gpu
@@ -654,6 +639,8 @@ def test_rg_lru_kernel_on_card(dtype, tol):
     x, ig, rg = (_rand((2, 8, 64), dtype, j) for j in range(3))
     lam = _rand((64,), "float32", 3)
     other = torch.bfloat16 if dtype == "float32" else torch.float32
+    with pytest.raises(ValueError, match="unknown variant"):
+        rg_lru._launch_variant("warp", x, ig, rg, lam)
     with pytest.raises(ValueError, match="differ in dtype"):
         rg_lru.rg_lru(x, ig.to(other), rg, lam)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -665,6 +652,53 @@ def test_rg_lru_kernel_on_card(dtype, tol):
                     for t in (x, ig, rg))
     with pytest.raises(ValueError, match="contiguous"):
         rg_lru.rg_lru(xs, igs, rgs, lam)
+
+
+# (B, L, D) at the tiles kernel's edges: D off its 64-channel tile (and off
+# a 16-byte load: the scalar path), L one step short of a 32-step chunk, a
+# whole chunk, one step past it; and the gates as strided views (columns of
+# one projection), which the 16-byte path takes where their strides allow
+RGLRU_EDGES = [(2, 31, 4096), (2, 32, 4096), (2, 33, 4096), (3, 65, 100),
+               (1, 129, 40), (2, 64, 33)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
+def test_rg_lru_variants_on_card(dtype, tol):
+    """The tiles kernel against the thread kernel it replaced, on the same
+    operands: both compute each element with the same rounded operations
+    in the same order, so their outputs are equal bit for bit; both within
+    the tolerance of the plain version; neither launch is counted.  A few
+    gate inputs sit below -87.3, where the tiles kernel leaves its
+    branch-free operations for the IEEE ones."""
+    _need_card()
+    from repro_torch.kernels import rg_lru
+    for i, (B, L, D) in enumerate(RGLRU_CASES + RGLRU_EDGES):
+        x, ig, rg = (_rand((B, L, D), dtype, 60 + 4 * i + j) for j in range(3))
+        lam = _rand((D,), "float32", 63 + 4 * i)
+        if i % 2:   # the gates as views of one (B, L, 2D) projection
+            gates = _rand((B, L, 2 * D), dtype, 90 + i)
+            ig, rg = gates[..., :D], gates[..., D:]
+        ig[..., ::37] = -88.0    # 1 + exp(88) lies in [2^126, inf)
+        rg[:, ::5, ::29] = -100.0  # 1 + exp(100) is inf
+        before = dict(rg_lru.launches)
+        new = rg_lru._launch_variant("tiles", x, ig, rg, lam)
+        old = rg_lru._launch_variant("thread", x, ig, rg, lam)
+        torch.cuda.synchronize()
+        assert dict(rg_lru.launches) == before
+        want = rg_lru.rg_lru_plain(x, ig, rg, lam).float()
+        torch.testing.assert_close(new.float(), want, rtol=tol, atol=tol)
+        torch.testing.assert_close(old.float(), want, rtol=tol, atol=tol)
+        assert torch.equal(new, old), (B, L, D)
+
+
+@pytest.mark.gpu
+def test_rg_lru_newton_ops_exact_on_card():
+    """The tiles kernel's branch-free reciprocal and square root equal the
+    IEEE division and sqrtf at every float of their domains."""
+    _need_card()
+    from repro_torch.kernels import rg_lru
+    assert rg_lru.newton_mismatches("cuda") == (0, 0)
 
 
 @pytest.mark.gpu
@@ -864,9 +898,8 @@ def test_softmax_kernel_on_card(dtype, tol):
 @pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
 def test_softmax_split_on_card(masked, dtype, tol):
     """Rows wider than one block: the split layout against its plain
-    version (``softmax_split_plain``) and against the single-program wide
-    layout it replaced, on the same rows, with a row of -inf (NaN) or a
-    fully masked row (0); the yardstick launch is not counted."""
+    version (``softmax_split_plain``), with a row of -inf (NaN) or a
+    fully masked row (0); one launch counted a call."""
     _need_card()
     from repro_torch.kernels import softmax
     for i, (rows, d, scale) in enumerate([(4, 151936, 1.0), (3, 10001, 0.7),
@@ -879,15 +912,15 @@ def test_softmax_split_on_card(masked, dtype, tol):
             mask[0] = False
         else:
             x[1] = -float("inf")
-        before = (dict(softmax.launches), dict(softmax.masked_launches))
-        new = softmax._launch_variant("split", x, mask, scale)
-        old = softmax._launch_variant("wide", x, mask, scale)
+        counts = softmax.masked_launches if masked else softmax.launches
+        before = sum(counts.values())
+        new = (softmax.softmax_masked_op(x, mask, scale) if masked
+               else softmax.softmax_op(x, scale))
         torch.cuda.synchronize()
-        assert (dict(softmax.launches), dict(softmax.masked_launches)) == before
+        assert sum(counts.values()) == before + 1
         want = softmax.softmax_split_plain(x, scale, mask).float()
-        for got in (new, old):
-            torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol,
-                                       equal_nan=True)
+        torch.testing.assert_close(new.float(), want, rtol=tol, atol=tol,
+                                   equal_nan=True)
         if masked:
             assert (new[0] == 0).all()
         else:
@@ -1001,12 +1034,12 @@ def test_cuda_library_builds_from_an_empty_directory(tmp_path):
             for p in build.CSRC.glob("*.cu")}
     assert all(path.parent == tmp_path for path in libs.values())
     for stem, fn in (("decode_attention", "repro_decode_attention"),
-                     ("decode_attention", "repro_decode_attention_single"),
                      ("flash_attention", "repro_flash_attention"),
                      ("flash_attention_sm90", "repro_flash_attention_sm90"),
                      ("router", "repro_topk_router"),
                      ("mamba_scan", "repro_mamba_scan"),
-                     ("rg_lru", "repro_rg_lru")):
+                     ("rg_lru", "repro_rg_lru"),
+                     ("rg_lru", "repro_rg_lru_thread")):
         lib = ctypes.CDLL(str(libs[stem]))
         assert hasattr(lib, fn)
         assert "registers" in libs[stem].with_suffix(".log").read_text()
