@@ -8,7 +8,9 @@ result line):
 0. Build: the CUDA C++ libraries (``src/repro_torch/csrc``) and their
    planted-fault copies from an empty ``build/kernels``, one nvcc each, all
    started together, with each one's build seconds and ptxas report; the
-   Triton kernels' planted-fault sources.
+   Triton kernels' planted-fault sources.  Then the floor of a launch: an
+   empty kernel's device us a launch, back to back and in a CUDA-graph
+   replay.
 1. Sample kernels: generated Triton stitched kernels for a softmax, an
    RMSNorm chain, a SwiGLU chain and a scaled softmax whose row statistics
    and column scale broadcast implicitly (size-1 dims), and the fourteen
@@ -26,7 +28,11 @@ result line):
    are counted exactly.  Three
    bf16 faults are planted (the Hopper flash kernel's acc not rescaled and
    its window ignored, the split decode's combine adding a partial without
-   its rescale), and the bf16 sample gate must catch each.
+   its rescale), and the bf16 sample gate must catch each.  RoPE runs at
+   every path's q and k shapes and on the scalar path, its CUDA kernel
+   against the Triton kernel it replaced bit for bit, both timed; a fault
+   planted in it (each row of a block reading its first row's angles)
+   must fail the sample gate.
 2. Ref-mode path: full-width qwen3-1.7b (random weights from a seed)
    answers 4 requests through ``Engine(stitch_execute=True)``: the stitched
    prefill and the stitched decode on every step.  Launch counts are zeroed
@@ -47,8 +53,9 @@ result line):
    prefill).  Every kernel of the path, generated and hand-written, is held
    against its plain version on the path's own operands and timed beside its
    bound and, where one PyTorch call computes the same function, that call
-   (``F.rms_norm``, ``F.scaled_dot_product_attention``); the attention
-   kernels also beside the kernels they replaced, on the same operands.  On
+   (``F.rms_norm``, ``F.scaled_dot_product_attention``); the Hopper flash
+   kernel and RoPE also beside the kernels they replaced, on the same
+   operands (RoPE's two outputs equal bit for bit).  On
    every path the launches by variant are gated: every bf16 flash launch
    the Hopper kernel's, every f32 one the CUDA-core kernel's, every decode
    launch the split kernel's.  Both decode plans
@@ -57,8 +64,9 @@ result line):
 4. Float32 checks: full width cut to 4 layers, the first decode step of the
    stitched ref-mode and kernel-mode engines against the eager one over
    several weight seeds, with faults planted in the stitched RMSNorm
-   kernels and in the decode-attention kernel (``kpos < pos``); and a
-   reduced model served stitched (both modes) vs eager.
+   kernels, in the decode-attention kernel (``kpos < pos``) and in RoPE
+   (rows reading their block's first row's angles); and a reduced model
+   served stitched (both modes) vs eager.
 5. MoE phase (after the long-prompt phase): full-width granite-moe-1b-a400m
    (24 layers, 32 experts top-8, random weights from a seed) served in
    kernel mode at the long prompts (bucket 256): exact launches per prefill
@@ -84,18 +92,15 @@ result line):
    restart at every chunk of 16 steps).
 7. Hybrid phase (after the ssm phase): the RG-LRU kernel, flash attention
    at head width 256 on one kv head and RoPE on that head at sample shapes
-   (with phase 1's samples; the RG-LRU's tiles kernel also against the
-   thread kernel it replaced, bit for bit, both timed, and its branch-free
-   reciprocal and square root at every float of their domains); full-width
+   (with phase 1's samples; the RG-LRU's branch-free reciprocal and square
+   root at every float of their domains); full-width
    recurrentgemma-9b (38 layers: 26 RG-LRU and 12 local-attention layers,
    random weights from a seed) scored
    in kernel mode through ``stitch(train_forward)`` at 4 x 256 tokens:
    exactly 26 RG-LRU, 12 flash, 24 RoPE, 77 RMSNorm and 38 GLU launches a
    call and no other hand-written kernel, the call's ms, tokens/s, device
    busy and peak memory, every kernel of the path against its plain version
-   (flash beside ``F.scaled_dot_product_attention``; the RG-LRU's tiles
-   kernel beside the thread kernel it replaced on the same operands, whose
-   output must equal its own bit for bit); then
+   (flash beside ``F.scaled_dot_product_attention``); then
    ``stitch(block_fn)`` on the first recurrent layer (1 RG-LRU, 2 RMSNorm
    and 1 GLU launch a call); bf16 loss and block output against the eager
    ref-mode model over several weight seeds; then (with the float32 checks)
@@ -951,7 +956,7 @@ HAND = {
                         "src/repro/kernels/norms.py:44"),
     "_glu_kernel": ("glu", "triton", "src/repro_torch/kernels/activations.py",
                     "src/repro/kernels/activations.py:32"),
-    "_rope_kernel": ("rope", "triton", "src/repro_torch/kernels/rope.py",
+    "_rope_kernel": ("rope", "cuda", "src/repro_torch/csrc/rope.cu",
                      "src/repro/kernels/rope.py:44"),
     "_decode_attn_kernel": ("decode_attention", "cuda",
                             "src/repro_torch/csrc/decode_attention.cu",
@@ -1039,11 +1044,12 @@ def expected_launches(cfg, bucket: int | None = None) -> tuple[dict, dict]:
 # unrescaled when a later kv tile raises the row max; the router does not
 # mask the column a round chose, so each row picks its top expert k times;
 # the selective scan's lane states restart at every chunk of time steps;
-# the RG-LRU's chain restarts h at every chunk of steps the tiles kernel
+# the RG-LRU's chain restarts h at every chunk of steps the kernel
 # walks;
 # flash attention ignores the window (every key up to the diagonal is
 # walked and valid); the same two in the Hopper flash kernel; the split
-# decode's combine adds a chunk's partial without its exp(m_c - M) rescale.
+# decode's combine adds a chunk's partial without its exp(m_c - M) rescale;
+# every row of a RoPE block reads the angle table of the block's first row.
 # Keyed by fault: (CUDA source stem, sound text, planted text)
 FAULTS = {
     "decode_attention": ("decode_attention",
@@ -1071,6 +1077,8 @@ FAULTS = {
         "  window = 0;\n  const int q0 = blockIdx.x * kBlockM;\n"),
     "decode_combine_no_rescale": (
         "decode_attention", "wa += a[j] * w;", "wa += a[j];"),
+    "rope_row_table": ("rope", "const float2* t = cs + r * a.half + lane * V;",
+                       "const float2* t = cs + lane * V;"),
 }
 
 
@@ -1284,7 +1292,7 @@ def hand_samples(dev):
     middle and at Smax-1, with and without a window; the flash cases above;
     LayerNorm and squared ReLU at nemotron-4-15b's rows and a ragged width),
     in f32 and bf16."""
-    from repro_torch.kernels import activations, decode_attention, norms, rope
+    from repro_torch.kernels import activations, decode_attention, norms
     from repro_torch.kernels import flash_attention
     gen = torch.Generator().manual_seed(SEED)
 
@@ -1301,15 +1309,6 @@ def hand_samples(dev):
             cases.append((f"glu_{act}_{t}_7x333", activations.glu_op,
                           "_glu_kernel", (rnd(7, 333, dtype=dt),
                                           rnd(7, 333, dtype=dt), act)))
-        pos = torch.tensor([0, 5, 17, 63, 100, 127], dtype=torch.int32,
-                           device=dev)
-        cases.append((f"rope_{t}_6x3x64", rope.rope_op, "_rope_kernel",
-                      (rnd(6, 192, dtype=dt), pos, 1e4, 64)))
-        # k of recurrentgemma at its scoring shape: (4, 256, 1, 256), one
-        # head of width 256 (a block of one head and a half of 128)
-        kpos = torch.arange(256, dtype=torch.int32, device=dev).repeat(4)
-        cases.append((f"rope_{t}_1024x1x256", rope.rope_op, "_rope_kernel",
-                      (rnd(1024, 256, dtype=dt), kpos, 1e4, 256)))
         q, k, v = (rnd(3, 1, 8, 128, dtype=dt), rnd(3, 96, 2, 128, dtype=dt),
                    rnd(3, 96, 2, 128, dtype=dt))
         dpos = torch.tensor([[0], [47], [95]], dtype=torch.int32, device=dev)
@@ -1393,19 +1392,11 @@ def hand_samples(dev):
         fail(f"attention samples ran by variant "
              f"{ops.launch_counts_by_variant()}, expected {want}")
     attention_faults(cases)
+    rope_samples(rnd)
     router_samples(rnd)
     scan_samples(rnd)
     rglru_samples(rnd)
     api_samples(rnd)
-    # RoPE in f32 against the rotation computed in f64 from exact angles:
-    # how far the kernel and its plain version each are from exact
-    x, pos, theta, hd = next(a for n, _, _, a in cases
-                             if n.startswith("rope_float32"))
-    exact = rope_f64(x, pos, theta, hd)
-    dist = {k: float((f(x, pos, theta, hd).double() - exact).abs().max())
-            for k, f in (("kernel", rope.rope_op), ("plain", rope.rope_plain))}
-    print(f"rope f32 vs f64 at positions up to {int(pos.max())}: "
-          + " ".join(f"{k}={v:.3g}" for k, v in dist.items()))
 
 
 # bf16 faults planted in the Hopper flash kernel and the split decode's
@@ -1452,6 +1443,146 @@ def attention_faults(cases):
               + " ".join(f"{k}={v:.4g}" for k, v in readings.items()))
         if not caught:
             fail(f"the bf16 sample gate missed the planted fault {fault}")
+
+
+# RoPE samples (name, rows, heads, head_dim, theta, row stride past the
+# row): 3 heads of 64 at ragged positions; every path's q and k: qwen3's
+# decode step (4 rows at positions past the prompts), nemotron's prefill
+# (48 q heads and 8 kv heads of 128, 4 x 256 rows), recurrentgemma's
+# scoring call (16 q heads and one kv head of 256), granite-moe's head
+# width 64; and head_dim 8 in rows 2 elements wider than the row, which
+# no 16-byte load fits (the kernel's scalar path)
+ROPE_SAMPLES = [
+    ("3x64", 6, 3, 64, 1e4, 0),
+    ("qwen3_decode_q", 4, 16, 128, 1e6, 0),
+    ("qwen3_decode_k", 4, 8, 128, 1e6, 0),
+    ("nemotron_prefill_q", 1024, 48, 128, 1e4, 0),
+    ("nemotron_prefill_k", 1024, 8, 128, 1e4, 0),
+    ("recurrentgemma_q", 1024, 16, 256, 1e4, 0),
+    ("recurrentgemma_k", 1024, 1, 256, 1e4, 0),
+    ("granite_moe_prefill_q", 1024, 16, 64, 1e4, 0),
+    ("granite_moe_decode_k", 4, 8, 64, 1e4, 0),
+    ("scalar_4x8_stride34", 7, 4, 8, 1e4, 2),
+]
+
+
+def rope_samples(rnd):
+    """The RoPE kernel at ``ROPE_SAMPLES``, f32 and bf16: against its plain
+    version within ``TOL``, against the Triton kernel it replaced bit for
+    bit, both kernels' device us a launch, the Triton kernel's registers
+    and spills; then the planted fault ``rope_row_table``, which the
+    samples' gate must catch; the two kernels' angle tables alone, bit for
+    bit; the f32 kernels and the plain version against the rotation
+    computed in f64 from exact angles."""
+    from repro_torch.kernels import rope
+    gen = torch.Generator().manual_seed(SEED + 3)
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        for name, rows, heads, hd, theta, pad in ROPE_SAMPLES:
+            x = rnd(rows, heads * hd + pad, dtype=dt)[:, :heads * hd]
+            pos = (torch.arange(256).repeat(rows // 256) if rows % 256 == 0
+                   else torch.randint(0, 512, (rows,), generator=gen))
+            cases.append((f"rope_{str(dt).replace('torch.', '')}_{name}", x,
+                          pos.to(torch.int32).to(x.device), theta, hd))
+    errs, us = {}, {}
+    for name, *args in cases:
+        out = rope.rope_op(*args)
+        torch.cuda.synchronize()
+        ref = rope.rope_plain(*args)
+        errs[name] = max_err((out,), (ref,))
+        if not within((out,), (ref,)):
+            fail(f"RoPE kernel {name} disagrees with its plain version "
+                 f"(max err {errs[name]})")
+        runs = {v: functools.partial(rope._launch_variant, v, *args)
+                for v in ("cuda", "triton")}
+        if not torch.equal(runs["triton"](), out):
+            fail(f"RoPE kernel {name}: the CUDA kernel differs from the "
+                 f"Triton kernel in some bits")
+        us[name] = {v: 1e3 * device_ms(f) for v, f in runs.items()}
+    print("rope kernel samples vs plain (f32 2e-5, bf16 1.6e-2): "
+          + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
+    print("rope samples, device us a launch (cuda / triton, bit-equal): "
+          + " ".join(f"{k}={v['cuda']:.2f}/{v['triton']:.2f}"
+                     for k, v in us.items()))
+    # the Triton kernel's registers and spills: its launch in
+    # rope._launch_variant("triton", ...) at nemotron's prefill q, whose
+    # compiled kernel Triton returns
+    from repro_torch.kernels import build
+    report = {}
+    for name, x, pos, theta, hd in cases:
+        if name.endswith("nemotron_prefill_q"):
+            H, half = x.shape[1] // hd, hd // 2
+            k = rope._JIT[(x.shape[0],)](
+                x, pos, torch.empty_like(x), x.stride(0), pos.stride(0),
+                float(theta), H, HALF=half, BLOCK_H=build.next_pow2(H),
+                BLOCK_HALF=build.next_pow2(half), num_warps=4)
+            report[name] = f"{k.n_regs} registers, {k.n_spills} spills"
+    print("rope Triton kernel: " + "; ".join(f"{k} {v}"
+                                            for k, v in report.items()))
+    rope._lib()
+    sound = rope._LIB
+    rope._LIB = faulted_library(rope, "rope_row_table")
+    readings = {}
+    try:
+        for name, *args in cases:
+            out = rope.rope_op(*args)
+            torch.cuda.synchronize()
+            ref = rope.rope_plain(*args)
+            readings[name] = (max_err((out,), (ref,)), within((out,), (ref,)))
+    finally:
+        rope._LIB = sound
+    print("planted fault rope_row_table (f32 2e-5, bf16 1.6e-2): "
+          + " ".join(f"{k}={v:.4g}" for k, (v, _) in readings.items()))
+    if all(ok for _, ok in readings.values()):
+        fail("the RoPE sample gate missed the planted fault rope_row_table")
+    # the angle tables alone: x1 = 1 and x2 = 0 make the outputs c and s,
+    # at positions 0 to 2^17 - 1, for each (theta, head_dim) of the samples
+    dev = cases[0][1].device
+    pos = torch.arange(1 << 17, dtype=torch.int32, device=dev)
+    for theta, hd in sorted({(t, h) for _, _, _, h, t, _ in ROPE_SAMPLES}):
+        ones = torch.zeros(1 << 17, hd, device=dev)
+        ones[:, :hd // 2] = 1.0
+        if not torch.equal(rope.rope_op(ones, pos, theta, hd),
+                           rope._launch_variant("triton", ones, pos, theta, hd)):
+            fail(f"the RoPE CUDA kernel's angles differ from the Triton "
+                 f"kernel's at theta {theta:g}, head_dim {hd}")
+    print("rope angle tables (cos, sin) equal the Triton kernel's at positions "
+          "0 to 131071 for every (theta, head_dim) of the samples")
+    # f32 against the rotation in f64 from exact angles: how far each is
+    # from exact
+    x, pos, theta, hd = next(a for n, *a in cases
+                             if n.startswith("rope_float32"))
+    exact = rope_f64(x, pos, theta, hd)
+    dist = {k: float((f(x, pos, theta, hd).double() - exact).abs().max())
+            for k, f in (("cuda", rope.rope_op),
+                         ("triton", functools.partial(rope._launch_variant,
+                                                      "triton")),
+                         ("plain", rope.rope_plain))}
+    print(f"rope f32 vs f64 at positions up to {int(pos.max())}: "
+          + " ".join(f"{k}={v:.3g}" for k, v in dist.items()))
+
+
+def launch_floor():
+    """The floor of a launch: an empty kernel of one warp a block, at one
+    block and at 2 blocks an SM, in device us a launch, back to back
+    (CUDA events around 1000 launches) and in a CUDA-graph replay."""
+    from repro_torch.kernels import rope
+    lib = rope._lib()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    floor = {}
+    for blocks in (1, 2 * sms):
+        def empty():
+            err = lib.repro_empty_kernel(blocks,
+                                         torch.cuda.current_stream().cuda_stream)
+            if err:
+                fail(f"empty kernel launch failed: "
+                     f"{lib.repro_cuda_error_string(err).decode()}")
+        floor[blocks] = {"back_to_back_us": 1e3 * timed(empty, 1000),
+                         "graph_us": 1e3 * device_ms(empty, 1000)}
+    print("launch floor, an empty kernel, device us a launch (back to back "
+          "/ CUDA-graph replay): " + " ".join(
+              f"{b}_blocks={v['back_to_back_us']:.3f}/{v['graph_us']:.3f}"
+              for b, v in floor.items()))
 
 
 # router samples (T, E, k): a granite decode step and bucket-256 prefill, a
@@ -1540,13 +1671,11 @@ RGLRU_SAMPLES = [(4, 256, 4096), (1, 1, 4096), (2, 37, 256), (1, 2560, 512),
 
 def rglru_samples(rnd):
     """The RG-LRU kernel against its plain version at the sample shapes, x
-    and the gates in f32 and in bf16; Lambda around the model's 0.5; the
-    thread kernel it replaced on the same inputs, bit for bit, and both
-    kernels' device us a launch.  Then the tiles kernel's branch-free
-    reciprocal and square root against the IEEE ones at every float of
-    their domains."""
+    and the gates in f32 and in bf16; Lambda around the model's 0.5.  Then
+    the kernel's branch-free reciprocal and square root against the IEEE
+    ones at every float of their domains."""
     from repro_torch.kernels import rg_lru
-    errs, us = {}, {}
+    errs = {}
     for B, L, D in RGLRU_SAMPLES:
         for dt in (torch.float32, torch.bfloat16):
             x, ig, rg = (rnd(B, L, D, dtype=dt) for _ in range(3))
@@ -1559,26 +1688,16 @@ def rglru_samples(rnd):
             if not within((out,), (ref,)):
                 fail(f"RG-LRU kernel {name} disagrees with its plain version "
                      f"(max err {errs[name]})")
-            runs = {v: functools.partial(rg_lru._launch_variant, v, x, ig, rg,
-                                         lam, 8.0)
-                    for v in ("tiles", "thread")}
-            if not torch.equal(runs["thread"](), out):
-                fail(f"RG-LRU kernel {name}: the tiles kernel differs from "
-                     f"the thread kernel in some bits")
-            us[name] = {v: 1e3 * device_ms(f) for v, f in runs.items()}
     print("rg_lru kernel samples vs plain (f32 2e-5, bf16 1.6e-2): "
           + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
-    print("rg_lru samples, device us a launch (tiles / thread, bit-equal): "
-          + " ".join(f"{k}={v['tiles']:.2f}/{v['thread']:.2f}"
-                     for k, v in us.items()))
-    # the tiles kernel's branch-free reciprocal and square root against the
-    # IEEE operations the thread kernel takes, at every float they meet
+    # the kernel's branch-free reciprocal and square root against the IEEE
+    # operations they stand for, at every float they meet
     mismatches = rg_lru.newton_mismatches("cuda")
     if mismatches != (0, 0):
-        fail(f"the RG-LRU tiles kernel's reciprocal and square root differ "
-             f"from the IEEE ones at {mismatches} floats")
-    print("rg_lru tiles kernel's branch-free reciprocal and square root: "
-          "equal to the IEEE ones at every float of their domains")
+        fail(f"the RG-LRU kernel's reciprocal and square root differ from "
+             f"the IEEE ones at {mismatches} floats")
+    print("rg_lru kernel's branch-free reciprocal and square root: equal to "
+          "the IEEE ones at every float of their domains")
 
 
 def api_samples(rnd):
@@ -1846,21 +1965,21 @@ def source_of(tag, args, source):
 def replaced_kernel(tag, args, refs, outs) -> dict:
     """The kernel a rebuild replaced, on the same inputs, timed beside the
     new one: the CUDA-core flash kernel for a bf16 call that runs the
-    Hopper one, the thread RG-LRU kernel for the tiles one; held against
-    the plain version too, and the thread RG-LRU kernel against the tiles
+    Hopper one, the Triton RoPE kernel for the CUDA one; held against the
+    plain version too, and the Triton RoPE kernel against the CUDA
     kernel's ``outs`` bit for bit (both compute each element with the same
-    rounded operations in the same order)."""
-    from repro_torch.kernels import flash_attention, rg_lru
+    rounded operations)."""
+    from repro_torch.kernels import flash_attention, rope
     if tag == "_flash_kernel":
         variant = flash_variant(args)
         if variant != "sm90":
             return {"variant": variant}
         old, name = functools.partial(flash_attention._launch_variant,
                                       "simt", *args), "simt"
-    elif tag == "_rglru_kernel":
-        variant = "tiles"
-        old, name = functools.partial(rg_lru._launch_variant, "thread",
-                                      *args), "thread"
+    elif tag == "_rope_kernel":
+        variant = "cuda"
+        old, name = functools.partial(rope._launch_variant, "triton",
+                                      *args), "triton"
     else:
         return {}
     out = old()
@@ -1869,9 +1988,9 @@ def replaced_kernel(tag, args, refs, outs) -> dict:
     if not within((out,), refs):
         fail(f"the replaced {name} kernel disagrees with the plain version "
              f"(max err {err})")
-    if tag == "_rglru_kernel" and not torch.equal(out, outs[0]):
-        fail(f"the tiles RG-LRU kernel differs from the {name} kernel in "
-             f"some bits (max diff {max_err((out,), outs)})")
+    if tag == "_rope_kernel" and not torch.equal(out, outs[0]):
+        fail(f"the CUDA RoPE kernel differs from the {name} kernel in some "
+             f"bits (max diff {max_err((out,), outs)})")
     return {"variant": variant, "old_variant": name, "old_max_abs_err": err,
             "old_ms": timed(old, 50), "old_device_ms": device_ms(old)}
 
@@ -3154,14 +3273,14 @@ def full_width_f32(dev):
     """qwen3-1.7b at full width, cut to 4 layers, in float32: the stitched
     first decode step, ref mode and kernel mode, against the eager ref-mode
     one over several weight seeds; then faults planted in the stitched
-    RMSNorm kernels (ref mode) and in the decode-attention kernel (kernel
-    mode).  Then the kernel-mode prefill at the 256 bucket (the flash
+    RMSNorm kernels (ref mode) and in the decode-attention and RoPE kernels
+    (kernel mode), each of which must read over 100x the limit.  Then the kernel-mode prefill at the 256 bucket (the flash
     kernel in every layer) and its first decode step against the eager
     ones, and a fault planted in the flash kernel."""
     from dataclasses import replace
     from repro_torch.configs import get_config
     from repro_torch.core import StitchCompiler
-    from repro_torch.kernels import decode_attention, flash_attention, ops
+    from repro_torch.kernels import decode_attention, flash_attention, ops, rope
     from repro_torch.models import build_model
     from repro_torch.serve import Engine, ServeConfig
     cfg = replace(get_config("qwen3-1.7b"), n_layers=4, dtype="float32")
@@ -3202,22 +3321,27 @@ def full_width_f32(dev):
           f"max={max(readings):.6g} planted faults {faults}")
     if not all(r <= F32_LOGIT_TOL for r in readings):
         fail("full-width f32 stitched logits disagree with eager")
-    decode_attention._lib()
-    sound_lib, decode_attention._LIB = (
-        decode_attention._LIB,
-        faulted_library(decode_attention, "decode_attention"))
-    try:
-        with ops.kernel_mode("kernels"):
-            planted = rel_diff(first_step_logits(km, ref0[0], lens), ref0[1])
-    finally:
-        decode_attention._LIB = sound_lib
+    planted = {}
+    for mod, fault in ((decode_attention, "decode_attention"),
+                       (rope, "rope_row_table")):
+        mod._lib()
+        sound_lib, mod._LIB = mod._LIB, faulted_library(mod, fault)
+        try:
+            with ops.kernel_mode("kernels"):
+                planted[fault] = rel_diff(first_step_logits(km, ref0[0], lens),
+                                          ref0[1])
+        finally:
+            mod._LIB = sound_lib
     print(f"full-width 4-layer f32 kernel-mode logits: tol={F32_LOGIT_TOL} "
-          f"sound max={max(km_readings):.6g} planted decode-attention fault "
-          f"(kpos < pos) {planted:.6g}")
+          f"sound max={max(km_readings):.6g} planted faults (decode attention "
+          f"kpos < pos; RoPE rows reading their block's first row's angles) "
+          + " ".join(f"{k}={v:.6g}" for k, v in planted.items()))
     if not all(r <= F32_LOGIT_TOL for r in km_readings):
         fail("full-width f32 kernel-mode logits disagree with eager")
-    if not planted > F32_LOGIT_TOL:
-        fail("the f32 logit check missed the planted decode-attention fault")
+    for fault, reading in planted.items():
+        if not reading > 100 * F32_LOGIT_TOL:
+            fail(f"the f32 logit check missed the planted {fault} fault by "
+                 f"100x its limit ({reading:.6g})")
 
     long = dict(batch=4, max_len=LONG_MAX_LEN, max_new_tokens=2)
     km_long = Engine(model, params, ServeConfig(**long, stitch_execute=True),
@@ -3336,6 +3460,7 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     build_phase()
+    launch_floor()
     samples = sample_kernels(dev)
     print(json.dumps({"sample_kernels": samples}))
     hand_samples(dev)

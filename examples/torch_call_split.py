@@ -40,8 +40,9 @@ CLASSES = [
     ("mamba_scan", ("mamba_scan",)),
     ("decode_attention", ("decode_attn", "decode_attention")),
     ("router", ("router",)),
-    ("hand_triton", ("_rmsnorm", "_glu_kernel", "_rope_kernel",
-                     "_layernorm", "_sqrelu", "_softmax", "_xent")),
+    ("rope", ("rope_kernel",)),
+    ("hand_triton", ("_rmsnorm", "_glu_kernel", "_layernorm", "_sqrelu",
+                     "_softmax", "_xent")),
     ("reduce", ("reduce_kernel",)),
     ("copy", ("copy", "Copy", "cat")),
     ("elementwise", ("elementwise",)),

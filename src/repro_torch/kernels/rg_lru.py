@@ -4,13 +4,8 @@ recurrence with an f32 state of ``(batch, channels)``.
 
 The kernel is CUDA C++ for ``sm_90a`` (``repro_torch/csrc/rg_lru.cu``,
 built by :mod:`.build` at first use and bound with ``ctypes``); its source
-note gives the bound and the design.  The library holds two kernels: the
-"tiles" kernel, which the op launches (a block's warps compute the gates of
-a tile of channels and steps, two of them walk its chain), and the
-"thread" kernel it replaced (one thread walks all of L for a channel),
-kept as a yardstick that ``chip_smoke.py`` times on the same operands
-through :func:`_launch_variant`.  Both compute each element with the same
-rounded operations in the same order, so they give the same bits.  It is
+note gives the bound and the design: a block's warps compute the gates of
+a tile of channels and steps, two of them walk its chain.  It is
 the custom op ``repro_torch::rg_lru``: the CPU implementation is the plain
 version below, the CUDA implementation launches the kernel, so ``make_fx``
 sees one node, which the tracer tags ``_rglru_kernel``.  The planner's
@@ -65,9 +60,9 @@ def rg_lru_plain(x, input_gate, rec_gate, Lambda, c: float = 8.0):
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a built ``rg_lru`` library."""
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fn in (lib.repro_rg_lru, lib.repro_rg_lru_thread):
-        fn.argtypes = [vp] * 5 + [ci] * 6 + [ctypes.c_float] + [cl] * 9 + [vp]
-        fn.restype = ci
+    lib.repro_rg_lru.argtypes = ([vp] * 5 + [ci] * 6 + [ctypes.c_float]
+                                 + [cl] * 9 + [vp])
+    lib.repro_rg_lru.restype = ci
     lib.repro_rg_lru_newton_mismatches.argtypes = [vp, vp]
     lib.repro_rg_lru_newton_mismatches.restype = ci
     lib.repro_cuda_error_string.argtypes = [ci]
@@ -83,20 +78,6 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(x, input_gate, rec_gate, Lambda, c: float = 8.0):
-    y = _launch_variant("tiles", x, input_gate, rec_gate, Lambda, c)
-    launches[build.signature(x, input_gate, rec_gate, Lambda, c)] += 1
-    return y
-
-
-def _launch_variant(variant: str, x, input_gate, rec_gate, Lambda,
-                    c: float = 8.0):
-    """One launch of the tiles kernel (``variant="tiles"``, the one the op
-    launches) or the thread kernel it replaced (``"thread"``), with the
-    op's checks and no launch counted."""
-    entry = {"tiles": "repro_rg_lru",
-             "thread": "repro_rg_lru_thread"}.get(variant)
-    if entry is None:
-        raise ValueError(f"rg_lru: unknown variant {variant!r}")
     if x.dim() != 3 or tuple(input_gate.shape) != tuple(x.shape) \
             or tuple(rec_gate.shape) != tuple(x.shape):
         raise ValueError(f"rg_lru: x {tuple(x.shape)}, input_gate "
@@ -111,7 +92,7 @@ def _launch_variant(variant: str, x, input_gate, rec_gate, Lambda,
     Lambda = Lambda.contiguous()
     y = torch.empty((B, L, D), dtype=x.dtype, device=x.device)
     code = lambda t: _DTYPES.get(t.dtype, _UNSUPPORTED)  # noqa: E731
-    err = getattr(_lib(), entry)(
+    err = _lib().repro_rg_lru(
         x.data_ptr(), input_gate.data_ptr(), rec_gate.data_ptr(),
         Lambda.data_ptr(), y.data_ptr(), code(x), code(input_gate),
         code(rec_gate), B, L, D, float(c), *x.stride(), *input_gate.stride(),
@@ -122,8 +103,8 @@ def _launch_variant(variant: str, x, input_gate, rec_gate, Lambda,
             raise ValueError(f"rg_lru: {msg} (x {x.dtype} {tuple(x.shape)} "
                              f"strides {x.stride()}, gates {input_gate.dtype}, "
                              f"{rec_gate.dtype})")
-        raise RuntimeError(f"rg_lru {variant} kernel launch failed: {msg} "
-                           f"({err})")
+        raise RuntimeError(f"rg_lru kernel launch failed: {msg} ({err})")
+    launches[build.signature(x, input_gate, rec_gate, Lambda, c)] += 1
     return y
 
 
@@ -131,8 +112,8 @@ def newton_mismatches(device) -> tuple[int, int]:
     """The floats where the tiles kernel's branch-free reciprocal (on
     [1, 2^126)) and square root (on [1e-12, 1]) differ from the IEEE
     division and ``sqrtf`` they stand for, counted on ``device`` over every
-    float of those domains: (0, 0) when the tiles kernel's gates are the
-    thread kernel's bit for bit."""
+    float of those domains: (0, 0) when the kernel's gates are the IEEE
+    operations' bit for bit."""
     out = torch.zeros(2, dtype=torch.int64, device=device)
     err = _lib().repro_rg_lru_newton_mismatches(
         out.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream)

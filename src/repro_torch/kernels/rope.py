@@ -1,17 +1,19 @@
 """Rotary position embedding: the port of the reference's ``_rope_kernel``
-(``src/repro/kernels/rope.py:19``), a Triton kernel.
+(``src/repro/kernels/rope.py:19``).
 
-Bound on this card: bytes.  The kernel reads x once and writes it once; the
-angle tables are recomputed in registers from each row's position (compute
-is free beside the traffic), so no cos/sin table is materialized.  Design:
-one program per token row of ``(B*L, H*Dh)``; it computes
-``freq = theta^(-i/half)`` and ``cos``/``sin`` of ``pos * freq`` once for
-the row, as a ``(1, half)`` tile (the power and the trig functions in f64,
-rounded to f32 once: ``half`` values a row, nothing beside the row's
-traffic), and rotates the two halves of every head
-(``[x1*c - x2*s, x2*c + x1*s]``, not interleaved pairs) as an
-``(H, half)`` tile.  Positions are cast to f32 in the kernel, as the
-reference does.
+The kernel is CUDA C++ for ``sm_90a`` (``repro_torch/csrc/rope.cu``, built
+by :mod:`.build` at first use and bound with ``ctypes``); its source note
+gives the bound and the design.  ``freq = theta^(-i/half)`` is computed
+once on the card for each (theta, half) and kept (:func:`_freq`).  A block
+takes R token rows of ``(B*L, H*Dh)`` and a chunk of Hc heads
+(:func:`block_plan`); its threads issue their 16-byte loads of x first,
+compute the ``cos``/``sin`` table of its rows once (the power and the trig
+functions in f64, rounded to f32 once, as the reference's f32 values),
+then rotate the two halves of every head (``[x1*c - x2*s, x2*c + x1*s]``,
+not interleaved pairs).  Positions are cast to f32 in the kernel, as the
+reference does.  The Triton kernel it replaced (one program a row)
+is kept as a yardstick, ``_launch_variant("triton", ...)``: the two give
+the same bits.
 
 It is the custom op ``repro_torch::rope(x, positions, theta, head_dim)``
 over ``x (B*L, H*Dh)``, ``positions (B*L,)``: the CPU implementation is the
@@ -21,6 +23,8 @@ makes the 2-D views outside the op, as the reference wrapper does.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from collections import Counter
 
 import torch
@@ -28,19 +32,30 @@ import torch
 from . import build
 from . import ref as _ref
 
-__all__ = ["rope", "rope_plain", "launches"]
+__all__ = ["bind", "block_plan", "rope", "rope_plain", "launches",
+           "vector_width"]
 
-_FLOAT = (torch.float32, torch.bfloat16)
+_FLOAT = {torch.float32: 0, torch.bfloat16: 1}
+_POSITIONS = {torch.int32: 0, torch.int64: 1}
+SMS = 132            # the H100 SXM's SMs: a grid aims at 2 blocks each
+ROWS = 2             # token rows a block
+ROW_THREADS = 128    # rotating threads a row of a block, where heads allow
+MAX_THREADS = 512    # rope.cu's kMaxThreads: ROWS rows of a head's threads
 
 # kernel launches since the last reset, by build.signature of the arguments
 launches: Counter = Counter()
+_LIB: ctypes.CDLL | None = None
+# freq = 1 / theta^(i / half) on the card, by (device, theta, half)
+_FREQ: dict = {}
 _JIT = None
-tl = libdevice = None  # bound by build.triton_jit at the first launch
+tl = libdevice = None  # bound by build.triton_jit at the Triton kernel's launch
 
 
 def _rope_kernel(x_ptr, pos_ptr, o_ptr, stride_x, stride_pos, theta, H,
                  HALF: tl.constexpr, BLOCK_H: tl.constexpr,
                  BLOCK_HALF: tl.constexpr):
+    # the Triton kernel csrc/rope.cu replaced, a yardstick: one program a
+    # token row, heads padded to BLOCK_H
     row = tl.program_id(0).to(tl.int64)
     h = tl.arange(0, BLOCK_H)[:, None]
     i = tl.arange(0, BLOCK_HALF)[None, :]
@@ -73,14 +88,105 @@ def rope_plain(x, positions, theta: float, head_dim: int):
     return _ref.rope(xr, positions, theta).reshape(rows, width)
 
 
+def vector_width(half: int, itemsize: int, ptr: int, row_stride: int) -> int:
+    """Elements a thread of the kernel loads at once: 16 bytes' worth (8 bf16,
+    4 f32) where a half-head is a whole number of them and x's pointer and
+    row stride (in elements) keep every load 16-byte aligned; else 1, the
+    kernel's scalar path."""
+    v = 16 // itemsize
+    aligned = half % v == 0 and ptr % 16 == 0 and row_stride * itemsize % 16 == 0
+    return v if aligned else 1
+
+
+@functools.lru_cache(maxsize=1024)
+def block_plan(rows: int, heads: int, half: int, vec: int) -> tuple[int, int]:
+    """(R rows, Hc heads) a block of the kernel, its threads loading ``vec``
+    elements each.  R is ``ROWS`` (fewer only where ``rows`` is), so a
+    block's table holds rows at different positions.  Hc is the widest
+    divisor of ``heads`` whose threads fit ``ROW_THREADS`` a row (one head
+    where none does): no head is padded, and a row's table serves as many
+    heads as fit.  Only while the grid holds fewer than 2 blocks an SM (a
+    decode step's few rows) do the heads split, to the next smaller
+    divisor.  How this plan compares with the others on the card:
+    ``examples/torch_rope_plans.py``."""
+    lanes = half // vec
+    if rows < 1 or heads < 1:
+        raise ValueError(f"rope: {rows} rows of {heads} heads: nothing to "
+                         f"rotate")
+    if half % vec or not 1 <= lanes <= MAX_THREADS // ROWS:
+        raise ValueError(f"rope: half {half} takes {half / vec:g} threads of "
+                         f"{vec} elements, need a whole number up to "
+                         f"{MAX_THREADS // ROWS}")
+    divisors = [d for d in range(heads, 0, -1) if heads % d == 0]
+    hc = next(d for d in divisors if d * lanes <= ROW_THREADS or d == 1)
+    r = min(rows, ROWS)
+    while hc > 1 and -(-rows // r) * (heads // hc) < 2 * SMS:
+        hc = next(d for d in divisors if d < hc)
+    return r, hc
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built ``rope`` library."""
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.repro_rope.argtypes = [vp, vp, vp, vp, ci, ci, cl, ci, ci, cl, cl,
+                               ci, ci, ci, vp]
+    lib.repro_rope.restype = ci
+    lib.repro_rope_freq.argtypes = [vp, ci, ctypes.c_float, vp]
+    lib.repro_rope_freq.restype = ci
+    lib.repro_empty_kernel.argtypes = [ci, vp]
+    lib.repro_empty_kernel.restype = ci
+    lib.repro_cuda_error_string.argtypes = [ci]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        _LIB = bind(ctypes.CDLL(str(build.library("rope"))))
+    return _LIB
+
+
+def _freq(device, theta: float, half: int) -> torch.Tensor:
+    """``1 / theta^(i / half)`` for i < half, f32 on ``device``: computed on
+    the card at the first call for (theta, half) with the Triton kernel's
+    operations (``repro_rope_freq``), then kept.  The first call waits for
+    the table (so it cannot come inside a CUDA-graph capture), and a launch
+    on any stream may then read it."""
+    key = (torch.device(device), float(theta), half)
+    if key not in _FREQ:
+        freq = torch.empty(half, dtype=torch.float32, device=device)
+        stream = torch.cuda.current_stream(device)
+        err = _lib().repro_rope_freq(freq.data_ptr(), half, float(theta),
+                                     stream.cuda_stream)
+        if err:
+            raise RuntimeError(f"rope freq kernel launch failed: "
+                               f"{_lib().repro_cuda_error_string(err).decode()}")
+        stream.synchronize()
+        _FREQ[key] = freq
+    return _FREQ[key]
+
+
 def _launch(x, positions, theta: float, head_dim: int):
+    out = _launch_variant("cuda", x, positions, theta, head_dim)
+    launches[build.signature(x, positions, theta, head_dim)] += 1
+    return out
+
+
+def _launch_variant(variant: str, x, positions, theta: float, head_dim: int):
+    """One launch of the CUDA kernel (``variant="cuda"``, the one the op
+    launches) or the Triton kernel it replaced (``"triton"``), with the
+    op's checks and no launch counted."""
     global _JIT
+    if variant not in ("cuda", "triton"):
+        raise ValueError(f"rope: unknown variant {variant!r}")
     if x.dim() != 2 or head_dim % 2 or x.shape[1] % head_dim \
             or tuple(positions.shape) != (x.shape[0],):
         raise ValueError(f"rope: x {tuple(x.shape)}, positions "
                          f"{tuple(positions.shape)}, head_dim {head_dim}")
-    if x.dtype not in _FLOAT or positions.dtype.is_floating_point:
-        raise TypeError(f"rope: x {x.dtype}, positions {positions.dtype}")
+    if x.dtype not in _FLOAT or positions.dtype not in _POSITIONS:
+        raise TypeError(f"rope: x {x.dtype}, positions {positions.dtype}: "
+                        f"need float32 or bfloat16, int32 or int64")
     if positions.device != x.device:
         raise ValueError(f"rope: positions on {positions.device}, x on {x.device}")
     if x.stride(1) != 1:
@@ -88,13 +194,29 @@ def _launch(x, positions, theta: float, head_dim: int):
     rows, width = x.shape
     H, half = width // head_dim, head_dim // 2
     out = torch.empty((rows, width), dtype=x.dtype, device=x.device)
-    if _JIT is None:
-        _JIT = build.triton_jit(_rope_kernel)
-    _JIT[(rows,)](x, positions, out, x.stride(0), positions.stride(0),
-                  float(theta), H,
-                  HALF=half, BLOCK_H=build.next_pow2(H),
-                  BLOCK_HALF=build.next_pow2(half), num_warps=4)
-    launches[build.signature(x, positions, theta, head_dim)] += 1
+    if variant == "triton":
+        if _JIT is None:
+            _JIT = build.triton_jit(_rope_kernel)
+        _JIT[(rows,)](x, positions, out, x.stride(0), positions.stride(0),
+                      float(theta), H,
+                      HALF=half, BLOCK_H=build.next_pow2(H),
+                      BLOCK_HALF=build.next_pow2(half), num_warps=4)
+        return out
+    vec = vector_width(half, x.element_size(), x.data_ptr(), x.stride(0))
+    R, Hc = block_plan(rows, H, half, vec)
+    freq = _freq(x.device, theta, half)
+    err = _lib().repro_rope(
+        x.data_ptr(), positions.data_ptr(), freq.data_ptr(), out.data_ptr(),
+        _FLOAT[x.dtype], _POSITIONS[positions.dtype], rows, H, half,
+        x.stride(0), positions.stride(0), R, Hc, vec,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        msg = _lib().repro_cuda_error_string(err).decode()
+        if err < 0:
+            raise ValueError(f"rope: {msg} (x {x.dtype} {tuple(x.shape)} "
+                             f"strides {x.stride()}, head_dim {head_dim}, "
+                             f"plan R {R} Hc {Hc} vec {vec})")
+        raise RuntimeError(f"rope kernel launch failed: {msg} ({err})")
     return out
 
 

@@ -249,6 +249,89 @@ def test_rope_kernel_on_card(dtype, tol):
             rtol=tol, atol=tol)
 
 
+# (rows, heads, head_dim, row stride past the row): ROPE_SHAPES, nemotron's
+# 48 q heads, head widths 64 and 256, one head (recurrentgemma's k), head_dim
+# 8 (16 bytes of f32, 8 of bf16: bf16 takes the scalar path), and rows
+# wider than the row, by 8 elements (16-byte loads) and by 3 (scalar)
+ROPE_CASES = [(r, h, 128, 0) for r, h in ROPE_SHAPES] + [
+    (4, 48, 128, 0), (1024, 48, 128, 0), (64, 16, 64, 0), (1024, 16, 256, 0),
+    (1024, 1, 256, 0), (37, 1, 128, 0), (6, 4, 8, 0), (64, 16, 128, 8),
+    (33, 3, 64, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
+def test_rope_cuda_equals_triton_on_card(dtype, tol):
+    """The CUDA kernel against the Triton kernel it replaced, on the same
+    operands: both round each element's operations alike, so their outputs
+    are equal bit for bit, at positions up to 2^17; neither launch is
+    counted.  At positions below 512, where the plain version's f32 angles
+    stay within the tolerance, the kernel (the op, one launch counted) is
+    held against the plain version."""
+    _need_card()
+    from repro_torch.kernels import rope
+    gen = torch.Generator().manual_seed(5)
+    for i, (rows, heads, hd, pad) in enumerate(ROPE_CASES):
+        x = _rand((rows, heads * hd + pad), dtype, 70 + i)[:, :heads * hd]
+        far = torch.randint(0, 1 << 17, (rows,), generator=gen)
+        far = (far if i % 2 else far.to(torch.int32)).cuda()
+        before = dict(rope.launches)
+        new = rope._launch_variant("cuda", x, far, 1e4, hd)
+        old = rope._launch_variant("triton", x, far, 1e4, hd)
+        torch.cuda.synchronize()
+        assert dict(rope.launches) == before
+        assert torch.equal(new, old), (rows, heads, hd, pad)
+        pos = torch.randint(0, 512, (rows,), generator=gen).cuda()
+        new = rope._launch_variant("cuda", x, pos, 1e4, hd)
+        assert torch.equal(new, rope._launch_variant("triton", x, pos, 1e4, hd))
+        want = rope.rope_plain(x, pos, 1e4, hd).float()
+        torch.testing.assert_close(new.float(), want, rtol=tol, atol=tol)
+        out = rope.rope_op(x, pos, 1e4, hd)
+        assert sum(rope.launches.values()) == sum(before.values()) + 1
+        assert torch.equal(out, new) and out.is_contiguous()
+
+
+@pytest.mark.gpu
+def test_rope_kernel_refusals_on_card():
+    """What the kernel does not take raises, in the wrapper or in the C entry
+    point; no call falls back to another kernel."""
+    _need_card()
+    from repro_torch.kernels import rope
+    x = _rand((8, 4 * 128), "bfloat16")
+    pos = torch.arange(8, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="unknown variant"):
+        rope._launch_variant("warp", x, pos, 1e4, 128)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rope.rope_op(x.half(), pos, 1e4, 128)
+    with pytest.raises(TypeError, match="int32 or int64"):
+        rope.rope_op(x, pos.float(), 1e4, 128)
+    with pytest.raises(ValueError, match="head_dim"):
+        rope.rope_op(x, pos, 1e4, 127)
+    with pytest.raises(ValueError, match="nothing to rotate"):
+        rope.rope_op(x[:0], pos[:0], 1e4, 128)
+    with pytest.raises(ValueError, match="rows must be contiguous"):
+        rope.rope_op(x.t().contiguous().t(), pos, 1e4, 128)
+    with pytest.raises(ValueError, match="need a whole number"):
+        rope.rope_op(_rand((2, 8192), "float32"), pos[:2], 1e4, 8192)
+    # the C entry point refuses a plan that pads a head or leaves one out,
+    # and 16-byte loads on a misaligned row
+    lib, out = rope._lib(), torch.empty_like(x)
+    freq = rope._freq(x.device, 1e4, 64)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(xp, R, Hc, vec):
+        return lib.repro_rope(xp, pos.data_ptr(), freq.data_ptr(),
+                              out.data_ptr(), 1, 0, 8, 4, 64, 512, 1, R, Hc,
+                              vec, stream)
+    assert call(x.data_ptr(), 2, 3, 8) == -4
+    assert call(x.data_ptr(), 2, 4, 3) == -4
+    assert call(x.data_ptr() + 2, 2, 4, 8) == -5
+    assert b"aligned" in lib.repro_cuda_error_string(-5)
+    assert call(x.data_ptr(), 2, 4, 8) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, rope._launch_variant("triton", x, pos, 1e4, 128))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
 @pytest.mark.parametrize("window", [None, 32])
@@ -639,8 +722,6 @@ def test_rg_lru_kernel_on_card(dtype, tol):
     x, ig, rg = (_rand((2, 8, 64), dtype, j) for j in range(3))
     lam = _rand((64,), "float32", 3)
     other = torch.bfloat16 if dtype == "float32" else torch.float32
-    with pytest.raises(ValueError, match="unknown variant"):
-        rg_lru._launch_variant("warp", x, ig, rg, lam)
     with pytest.raises(ValueError, match="differ in dtype"):
         rg_lru.rg_lru(x, ig.to(other), rg, lam)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -665,12 +746,10 @@ RGLRU_EDGES = [(2, 31, 4096), (2, 32, 4096), (2, 33, 4096), (3, 65, 100),
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
 def test_rg_lru_variants_on_card(dtype, tol):
-    """The tiles kernel against the thread kernel it replaced, on the same
-    operands: both compute each element with the same rounded operations
-    in the same order, so their outputs are equal bit for bit; both within
-    the tolerance of the plain version; neither launch is counted.  A few
-    gate inputs sit below -87.3, where the tiles kernel leaves its
-    branch-free operations for the IEEE ones."""
+    """The kernel at its tiles' edges and on strided gates, against the
+    plain version, one launch counted each.  A few gate inputs sit below
+    -87.3, where the kernel leaves its branch-free operations for the IEEE
+    ones."""
     _need_card()
     from repro_torch.kernels import rg_lru
     for i, (B, L, D) in enumerate(RGLRU_CASES + RGLRU_EDGES):
@@ -681,15 +760,12 @@ def test_rg_lru_variants_on_card(dtype, tol):
             ig, rg = gates[..., :D], gates[..., D:]
         ig[..., ::37] = -88.0    # 1 + exp(88) lies in [2^126, inf)
         rg[:, ::5, ::29] = -100.0  # 1 + exp(100) is inf
-        before = dict(rg_lru.launches)
-        new = rg_lru._launch_variant("tiles", x, ig, rg, lam)
-        old = rg_lru._launch_variant("thread", x, ig, rg, lam)
+        before = sum(rg_lru.launches.values())
+        new = rg_lru.rg_lru(x, ig, rg, lam)
         torch.cuda.synchronize()
-        assert dict(rg_lru.launches) == before
+        assert sum(rg_lru.launches.values()) == before + 1
         want = rg_lru.rg_lru_plain(x, ig, rg, lam).float()
         torch.testing.assert_close(new.float(), want, rtol=tol, atol=tol)
-        torch.testing.assert_close(old.float(), want, rtol=tol, atol=tol)
-        assert torch.equal(new, old), (B, L, D)
 
 
 @pytest.mark.gpu
@@ -1039,7 +1115,7 @@ def test_cuda_library_builds_from_an_empty_directory(tmp_path):
                      ("router", "repro_topk_router"),
                      ("mamba_scan", "repro_mamba_scan"),
                      ("rg_lru", "repro_rg_lru"),
-                     ("rg_lru", "repro_rg_lru_thread")):
+                     ("rope", "repro_rope")):
         lib = ctypes.CDLL(str(libs[stem]))
         assert hasattr(lib, fn)
         assert "registers" in libs[stem].with_suffix(".log").read_text()

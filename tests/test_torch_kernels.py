@@ -78,16 +78,80 @@ def test_glu_plain_matches_reference_kernel(act, dtype, tol):
     _close(out, getattr(ref_act, act)(jg, ju, block_rows=4), tol)
 
 
-@pytest.mark.parametrize("dtype,tol", DTYPES)
-def test_rope_plain_matches_reference_kernel(dtype, tol):
+# (B, L, H, Dh): a small case, nemotron's 48 q heads, head widths 64
+# (granite-moe) and 256 (recurrentgemma, one kv head)
+ROPE_REF_CASES = [pytest.param(dt, tol, (2, 5, 4, 16), id=f"{dt}-{tol}")
+                  for dt, tol in DTYPES] + [
+    pytest.param(dt, tol, shape, id=f"{dt}-{tol}-{'x'.join(map(str, shape))}")
+    for shape in ((1, 3, 48, 16), (2, 3, 4, 64), (1, 4, 1, 256))
+    for dt, tol in DTYPES]
+
+
+@pytest.mark.parametrize("dtype,tol,shape", ROPE_REF_CASES)
+def test_rope_plain_matches_reference_kernel(dtype, tol, shape):
     rng = np.random.default_rng(2)
-    x = rng.standard_normal((2, 5, 4, 16)).astype(np.float32)
-    pos = rng.integers(0, 127, (2, 5)).astype(np.int32)
+    x = rng.standard_normal(shape).astype(np.float32)
+    pos = rng.integers(0, 127, shape[:2]).astype(np.int32)
     jx, tx = _pair(x, dtype)
     jp, tp = _pair(pos, dtype)
     out = rope.rope(tx, tp, 1e6)
     assert out.shape == tx.shape and out.dtype == tx.dtype
     _close(out, ref_rope.rope(jx, jp, 1e6, block_rows=4), tol)
+
+
+# (rows, heads, half, vec): every path's q and k at a decode step (4 rows)
+# and a bucket-256 prefill (1024), in bf16 (8 elements a 16-byte load) and
+# f32 (4); qwen3's bucket-64 prefill; ragged heads and rows; the scalar path
+ROPE_PLANS = [(rows, heads, half, vec)
+              for rows in (4, 1024)
+              for heads, half in ((16, 64), (8, 64), (48, 64), (16, 128),
+                                  (1, 128), (16, 32), (8, 32))
+              for vec in (8, 4)] + [
+    (256, 16, 64, 8), (256, 8, 64, 8), (6, 3, 32, 8), (7, 5, 4, 1),
+    (1, 4, 64, 8), (3, 2, 128, 1)]
+
+
+@pytest.mark.parametrize("rows,heads,half,vec", ROPE_PLANS)
+def test_rope_block_plan(rows, heads, half, vec):
+    """The CUDA kernel's blocks: whole heads (Hc divides H, no head padded),
+    2 rows a block, a row's heads whole where they fit 128 threads, at
+    least 8 blocks at a decode step's 4 rows and at least 2 an SM once the
+    heads allow, and no block past the kernel's 512 rotating threads."""
+    R, Hc = rope.block_plan(rows, heads, half, vec)
+    lanes = half // vec
+    blocks = -(-rows // R) * (heads // Hc)
+    assert heads % Hc == 0 and R == min(rows, 2)
+    assert R * Hc * lanes <= 512
+    assert Hc * lanes <= 128 or Hc == 1
+    if rows == 4 and heads >= 4:
+        assert blocks >= 8
+    if Hc > 1:
+        assert blocks >= 2 * rope.SMS
+    if rows == 1024:   # prefill: the widest chunk of heads that fits
+        wider = [d for d in range(Hc + 1, heads + 1) if heads % d == 0]
+        assert not wider or wider[0] * lanes > 128
+
+
+def test_rope_block_plan_refuses_what_no_block_takes():
+    with pytest.raises(ValueError, match="whole number"):
+        rope.block_plan(4, 8, 4, 8)            # half 4 of a 16-byte load
+    with pytest.raises(ValueError, match="whole number"):
+        rope.block_plan(4, 1, 1024, 1)         # 1024 threads a half-head
+    with pytest.raises(ValueError, match="nothing to rotate"):
+        rope.block_plan(0, 8, 64, 8)
+
+
+@pytest.mark.parametrize("half,itemsize,ptr,stride,vec", [
+    (64, 2, 0x1000, 2048, 8), (64, 4, 0x1000, 2048, 4),
+    (4, 2, 0x1000, 32, 1),          # bf16 head_dim 8: 8 bytes a half
+    (4, 4, 0x1000, 32, 4),          # f32 head_dim 8: 16 bytes
+    (64, 2, 0x1002, 2048, 1),       # x 2 bytes off 16
+    (64, 2, 0x1000, 2051, 1),       # a row 6 bytes past 16
+    (64, 2, 0x1000, 2056, 8),       # rows wider by 16 bytes
+    (3, 4, 0x1000, 12, 1)])
+def test_rope_vector_width(half, itemsize, ptr, stride, vec):
+    """16-byte loads only where every load is 16-byte aligned."""
+    assert rope.vector_width(half, itemsize, ptr, stride) == vec
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
@@ -424,6 +488,6 @@ def test_build_failure_raises_with_nvcc_output(tmp_path, monkeypatch):
 def test_csrc_sources_are_found():
     stems = {p.stem for p in build.CSRC.glob("*.cu")}
     assert {"decode_attention", "flash_attention", "flash_attention_sm90",
-            "router", "mamba_scan", "rg_lru"} <= stems
+            "router", "mamba_scan", "rg_lru", "rope"} <= stems
     assert build.build_dir().parts[-2:] == ("build", "kernels")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
