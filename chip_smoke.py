@@ -29,10 +29,10 @@ result line):
    bf16 faults are planted (the Hopper flash kernel's acc not rescaled and
    its window ignored, the split decode's combine adding a partial without
    its rescale), and the bf16 sample gate must catch each.  RoPE runs at
-   every path's q and k shapes and on the scalar path, its CUDA kernel
-   against the Triton kernel it replaced bit for bit, both timed; a fault
-   planted in it (each row of a block reading its first row's angles)
-   must fail the sample gate.
+   every path's q and k shapes and on the scalar path, at positions up to
+   4096, timed; its angle tables equal the spec computed in numpy at
+   positions up to 2^17 (one ulp at most); a fault planted in it (each row
+   of a block reading its first row's angles) must fail the sample gate.
 2. Ref-mode path: full-width qwen3-1.7b (random weights from a seed)
    answers 4 requests through ``Engine(stitch_execute=True)``: the stitched
    prefill and the stitched decode on every step.  Launch counts are zeroed
@@ -40,8 +40,18 @@ result line):
    decode and prefill plans is then called on the inputs the main path gives
    it and held against its plain version; its time, its bound and its
    launches go into the ``kernels`` line.  A generated kernel that computes
-   an RMSNorm chain is also timed against ``F.rms_norm``.  Per plan, the
-   bytes moved by generated kernels, fused-torch groups and single ops.
+   an RMSNorm chain is also timed against ``F.rms_norm``, one of a single
+   elementwise op and views against that op's PyTorch call; one in the
+   flat layout is held bit for bit against the rows layout it had, both
+   timed.  A layout-only pattern launches nothing: its calls are counted
+   apart from the launches (a pattern of the path never called fails as a
+   kernel never launched does), its outputs held bit for bit against its
+   plain version and the rows-layout kernel it replaced (timed).  Every
+   path prints a line per generated kernel or view pattern (members and
+   shapes, layout, launches or views a call, device us beside the bound,
+   layout-only or not) and a tally a call: launched, views, view copies.
+   Per plan, the bytes moved by generated kernels, fused-torch groups and
+   single ops.
    Then the first decode step's bf16 logits against the eager decode over
    several weight seeds, with faults planted in the stitched RMSNorm
    kernels.
@@ -54,8 +64,7 @@ result line):
    against its plain version on the path's own operands and timed beside its
    bound and, where one PyTorch call computes the same function, that call
    (``F.rms_norm``, ``F.scaled_dot_product_attention``); the Hopper flash
-   kernel and RoPE also beside the kernels they replaced, on the same
-   operands (RoPE's two outputs equal bit for bit).  On
+   kernel also beside the kernel it replaced, on the same operands.  On
    every path the launches by variant are gated: every bf16 flash launch
    the Hopper kernel's, every f32 one the CUDA-core kernel's, every decode
    launch the split kernel's.  Both decode plans
@@ -468,7 +477,8 @@ def check_kernel(name, k, args, library=None, launches=None):
     ms = timed(lambda: k.launch(*args), 50)
     dev_ms = device_ms(lambda: k.launch(*args))
     plain_ms = timed(lambda: k.plain(*args), 20)
-    lib = library if library is not None else rms_library(k, args)
+    lib = library if library is not None else (
+        rms_library(k, args) or single_op_library(k, args))
     lib_ms = lib_dev_ms = lib_err = None
     if lib is not None:
         lib_out = lib()
@@ -493,7 +503,18 @@ def check_kernel(name, k, args, library=None, launches=None):
                 "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
                 "library_max_abs_err": lib_err,
                 "ops": len(k.pattern.compute_members),
-                "grid": k.emitted.grid, "block_r": k.emitted.block_r})
+                "layout": k.emitted.layout, "grid": k.emitted.grid,
+                "block_r": k.emitted.block_r, "block": k.emitted.block,
+                "num_warps": k.emitted.num_warps})
+    if k.emitted.layout != "rows":
+        old_out, old = rows_layout(k, args)
+        if not all(bits_equal(o, c) for o, c in zip(out, old_out)):
+            fail(f"kernel {name} in the {k.emitted.layout} layout differs "
+                 f"from the rows layout in some bits")
+        row.update({"bits_equal_rows_layout": True,
+                    "rows_layout_ms": timed(lambda: old.launch(*args), 50),
+                    "rows_layout_device_ms": device_ms(
+                        lambda: old.launch(*args))})
     return row
 
 
@@ -722,6 +743,7 @@ def measured_serve(eng, prompts, lens, steps, dev, tag, vocab):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     counts = stitched.launch_counts()
+    views, view_copies = stitched.view_counts(), stitched.view_copy_counts()
     hand_total = ops.launch_counts()
     hand_total_sig = ops.launch_counts_by_signature()
     variant_gate(tag)
@@ -742,6 +764,7 @@ def measured_serve(eng, prompts, lens, steps, dev, tag, vocab):
           f"tokens_per_s={tokens / (prefill_ms / 1e3 + (t2 - t1b)):.2f} "
           f"peak_mem_gb={peak / 2**30:.2f} "
           f"stitched_launches={sum(counts.values())} "
+          f"stitched_views={sum(views.values())} "
           f"hand_launches={sum(hand_total.values())}")
     print(f"{tag} decode step device busy: {busy} ms of {wall:.2f} ms wall "
           f"(profiled)")
@@ -755,7 +778,8 @@ def measured_serve(eng, prompts, lens, steps, dev, tag, vocab):
     if eng.report()["prefill"]["calls"]["fallback"]:
         fail(f"{tag} prefill fell back to eager")
     return {"px": px, "cache_before": cache_before, "tok_before": tok_before,
-            "counts": counts, "hand_prefill": hand_prefill,
+            "counts": counts, "views": views, "view_copies": view_copies,
+            "hand_prefill": hand_prefill,
             "hand_total": hand_total, "hand_prefill_sig": hand_prefill_sig,
             "hand_total_sig": hand_total_sig, "prefill_ms": prefill_ms,
             "decode_ms": decode_ms, "busy_ms": busy, "steps": steps}
@@ -777,37 +801,155 @@ def path_inputs(eng, params, prompts, run, dev):
     return pre, dec, dec_in
 
 
-def stitched_rows(parts, counts, tag, checked):
-    """Every generated kernel of the path's plans not checked yet: held
-    against its plain version, timed, and its launches in this path's run
-    (fatal when a kernel of the path was never launched).  ``parts`` are
-    (what a call is, the plan's ``group_inputs``)."""
+def shape_str(node) -> str:
+    return "x".join(map(str, node.shape)) + ":" + str(node.dtype)
+
+
+def layout_line(k, row) -> str:
+    """A generated kernel's members and shapes (the first 6 members), its
+    layout (``block_r``, ``grid``, ``num_warps``), device us a launch
+    beside its bound, and whether every member is layout-only."""
+    from repro_torch.kernels.stitched import layout_only
+    g = k.pattern.graph
+    members = [f"{m.attrs.get('op') or m.kind.value}("
+               + ",".join(shape_str(g[o]) for o in m.operands)
+               + f")->{shape_str(m)}" for m in k.pattern.compute_members]
+    if len(members) > 6:
+        members = members[:6] + [f"+{len(members) - 6} more"]
+    em = getattr(k, "emitted", None)
+    lay = (f"layout={em.layout} block_r={em.block_r} block={em.block} "
+           f"grid={em.grid} num_warps={em.num_warps}"
+           if em is not None else
+           f"layout=view host_us={row['host_us']:.2f} "
+           f"outputs_sharing_an_input={row['outputs_sharing_an_input']}")
+    old = row.get("rows_layout_device_ms")
+    return (f"members=[{' '.join(members)}] {lay} "
+            f"device_us={row['device_ms'] * 1e3:.3f} "
+            + (f"rows_layout_device_us={old * 1e3:.3f} " if old is not None
+               else "")
+            + f"bound_us={row['bound_ms'] * 1e3:.5f} "
+            f"layout_only={layout_only(k.pattern)}")
+
+
+def stitched_rows(parts, run, tag, checked):
+    """Every generated kernel and view pattern of the path's plans not
+    checked yet.  A kernel is held against its plain version and timed
+    (``check_kernel``), with its launches in this path's run; a view
+    pattern is held against its plain version exactly (``check_view``),
+    with its calls in the run.  Fatal when a kernel of the path was never
+    launched, or a view pattern never called.  ``parts`` are (what a call
+    is, the plan's ``group_inputs``); ``run`` holds the run's launch counts
+    (``counts``), view calls (``views``) and view copies (``view_copies``).
+    Returns the kernels' rows (the ``kernels`` line's)."""
+    from repro_torch.kernels.stitched import StitchedView
     rows = []
     seen = {}
     for _, res in parts:
         seen.update(res[0])
     for digest, (k, args) in seen.items():
-        n = counts.get(digest, 0)
+        view = isinstance(k, StitchedView)
+        n = (run["views"] if view else run["counts"]).get(digest, 0)
         if n <= 0:
-            fail(f"{tag}: kernel {digest} of the path was never launched")
+            fail(f"{tag}: " + (f"view pattern {digest} of the path was never "
+                               f"called" if view else
+                               f"kernel {digest} of the path was never "
+                               f"launched"))
         if digest in checked:
-            checked[digest]["launches"] += n
+            checked[digest]["views" if view else "launches"] += n
             continue
         members = sorted({m.attrs.get("op") or m.kind.value
                           for m in k.pattern.compute_members})
-        row = check_kernel(f"stitched_{digest}[{','.join(members)}]", k, args,
-                           launches=n)
-        checked[digest] = row
-        rows.append(row)
-    print(f"{tag} path kernels: {len(seen)} distinct generated kernels, "
-          f"{len(rows)} new")
-    for what, (_, per_call, _) in parts:
-        agg = {key: sum(n * checked[d][key] for d, n in per_call.items())
+        name = f"stitched_{digest}[{','.join(members)}]"
+        if view:
+            checked[digest] = check_view(name, k, args, n)
+        else:
+            checked[digest] = check_kernel(name, k, args, launches=n)
+            rows.append(checked[digest])
+    print(f"{tag} path kernels: {len(seen)} distinct generated kernels and "
+          f"view patterns, {len(rows)} new kernels")
+    for what, (kernels, per_call, _) in parts:
+        for digest, n in per_call.items():
+            print(f"{tag} stitched kernel per {what}: {digest} "
+                  f"{'views' if checked[digest].get('view') else 'launches'}"
+                  f"={n} " + layout_line(kernels[digest][0], checked[digest]))
+        kern = {d: n for d, n in per_call.items()
+                if not checked[d].get("view")}
+        views = {d: n for d, n in per_call.items() if checked[d].get("view")}
+        copies = sum(run["view_copies"].get(d, 0) for d in views)
+        print(f"{tag} stitched per {what}: launched {sum(kern.values())}, "
+              f"views {sum(views.values())}, view copies {copies} (in the "
+              f"whole run)")
+        agg = {key: sum(n * checked[d][key] for d, n in kern.items())
                for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
-        print(f"{tag} stitched kernels per {what}: kernels={len(per_call)} "
-              f"launches={sum(per_call.values())} "
+        agg["rows_layout_device_ms"] = sum(
+            n * checked[d].get("rows_layout_device_ms", checked[d]["device_ms"])
+            for d, n in per_call.items())
+        print(f"{tag} stitched kernels per {what}: kernels={len(kern)} "
+              f"launches={sum(kern.values())} "
               + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
     return rows
+
+
+def bits_equal(a, b) -> bool:
+    """Same dtype, shape and bits (NaNs included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bool:
+        return torch.equal(a, b)
+    return torch.equal(a.reshape(-1).view(torch.uint8),
+                       b.reshape(-1).view(torch.uint8))
+
+
+def rows_layout(k, args) -> tuple:
+    """The pattern of ``k`` emitted in the rows layout (the one every
+    generated kernel had before the flat layout and the views), launched
+    on ``args``: its outputs and its kernel."""
+    from repro_torch.kernels.stitched import build_stitched_callable
+    old = build_stitched_callable(k.pattern, layout="rows")
+    out = old.launch(*args)
+    torch.cuda.synchronize()
+    return out, old
+
+
+def check_view(name, k, args, calls):
+    """A view pattern on the path's operands: its outputs the plain
+    version's bit for bit and contiguous, as the rows-layout kernel it no
+    longer launches (timed: what the view saves) gives them too; the
+    view's host us a call."""
+    out = k(*args)
+    ref = k.plain(*args)
+    old_out, old = rows_layout(k, args)
+    for o, r, c in zip(out, ref, old_out):
+        if not (bits_equal(o, r) and bits_equal(c, r) and o.is_contiguous()):
+            fail(f"view pattern {name} differs from its plain version or "
+                 f"from the rows-layout kernel")
+    shared = sum(o.untyped_storage().data_ptr() == a.untyped_storage().data_ptr()
+                 for o in out for a in args)
+    reps = 1000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        k(*args)
+    host_us = (time.perf_counter() - t0) * 1e6 / reps
+    bound_ms, bound_by = kernel_bound(k)
+    return {"name": name, "view": True, "views": calls,
+            "outputs_sharing_an_input": shared, "host_us": host_us,
+            "device_ms": 0.0, "bound_ms": bound_ms, "bound_by": bound_by,
+            "rows_layout_device_ms": device_ms(lambda: old.launch(*args)),
+            "rows_layout_ms": timed(lambda: old.launch(*args), 50)}
+
+
+def single_op_library(k, args):
+    """The one PyTorch call that computes a pattern whose compute members
+    are one elementwise op and layout members (an ``[add, reshape]``: the
+    ``torch.add``, then a view): the plain version is that call; else
+    None."""
+    from repro_torch.core.ir import OpKind
+    from repro_torch.kernels.stitched import layout_member
+    g = k.pattern.graph
+    ops = [m for m in k.pattern.compute_members if not layout_member(m, g)]
+    if len(ops) != 1 or ops[0].kind is not OpKind.ELEMENTWISE:
+        return None
+    return lambda: k.plain(*args)
 
 
 def group_kind(grp, g) -> str:
@@ -913,7 +1055,7 @@ def serve_phase(dev, model, params, lens, prompts, checked):
         fail("no Triton stitched launch on the ref-mode path")
     pre, dec, dec_in = path_inputs(eng, params, prompts, run, dev)
     kernels = stitched_rows([("prefill call", pre), ("decode step", dec)],
-                            run["counts"], "ref-mode", checked)
+                            run, "ref-mode", checked)
     summary = plan_summary(eng, run, dec_in)
     del pre, dec, dec_in, run
 
@@ -1467,21 +1609,21 @@ ROPE_SAMPLES = [
 
 
 def rope_samples(rnd):
-    """The RoPE kernel at ``ROPE_SAMPLES``, f32 and bf16: against its plain
-    version within ``TOL``, against the Triton kernel it replaced bit for
-    bit, both kernels' device us a launch, the Triton kernel's registers
-    and spills; then the planted fault ``rope_row_table``, which the
-    samples' gate must catch; the two kernels' angle tables alone, bit for
-    bit; the f32 kernels and the plain version against the rotation
-    computed in f64 from exact angles."""
+    """The RoPE kernel at ``ROPE_SAMPLES``, f32 and bf16, at positions up
+    to 4096: against its plain version within ``TOL``, device us a launch;
+    then the planted fault ``rope_row_table``, which the samples' gate
+    must catch; the kernel's angle tables alone against the spec computed
+    in numpy (f64 power and trig functions, each rounded once to f32) at
+    positions 0 to 2^17 - 1; the f32 kernel and the plain version against
+    the rotation computed in f64 from exact angles."""
     from repro_torch.kernels import rope
     gen = torch.Generator().manual_seed(SEED + 3)
     cases = []
     for dt in (torch.float32, torch.bfloat16):
         for name, rows, heads, hd, theta, pad in ROPE_SAMPLES:
             x = rnd(rows, heads * hd + pad, dtype=dt)[:, :heads * hd]
-            pos = (torch.arange(256).repeat(rows // 256) if rows % 256 == 0
-                   else torch.randint(0, 512, (rows,), generator=gen))
+            pos = torch.randint(0, 4097, (rows,), generator=gen)
+            pos[0] = 4096
             cases.append((f"rope_{str(dt).replace('torch.', '')}_{name}", x,
                           pos.to(torch.int32).to(x.device), theta, hd))
     errs, us = {}, {}
@@ -1493,32 +1635,12 @@ def rope_samples(rnd):
         if not within((out,), (ref,)):
             fail(f"RoPE kernel {name} disagrees with its plain version "
                  f"(max err {errs[name]})")
-        runs = {v: functools.partial(rope._launch_variant, v, *args)
-                for v in ("cuda", "triton")}
-        if not torch.equal(runs["triton"](), out):
-            fail(f"RoPE kernel {name}: the CUDA kernel differs from the "
-                 f"Triton kernel in some bits")
-        us[name] = {v: 1e3 * device_ms(f) for v, f in runs.items()}
-    print("rope kernel samples vs plain (f32 2e-5, bf16 1.6e-2): "
-          + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
-    print("rope samples, device us a launch (cuda / triton, bit-equal): "
-          + " ".join(f"{k}={v['cuda']:.2f}/{v['triton']:.2f}"
-                     for k, v in us.items()))
-    # the Triton kernel's registers and spills: its launch in
-    # rope._launch_variant("triton", ...) at nemotron's prefill q, whose
-    # compiled kernel Triton returns
-    from repro_torch.kernels import build
-    report = {}
-    for name, x, pos, theta, hd in cases:
-        if name.endswith("nemotron_prefill_q"):
-            H, half = x.shape[1] // hd, hd // 2
-            k = rope._JIT[(x.shape[0],)](
-                x, pos, torch.empty_like(x), x.stride(0), pos.stride(0),
-                float(theta), H, HALF=half, BLOCK_H=build.next_pow2(H),
-                BLOCK_HALF=build.next_pow2(half), num_warps=4)
-            report[name] = f"{k.n_regs} registers, {k.n_spills} spills"
-    print("rope Triton kernel: " + "; ".join(f"{k} {v}"
-                                            for k, v in report.items()))
+        us[name] = 1e3 * device_ms(functools.partial(rope._launch_kernel,
+                                                     *args))
+    print("rope kernel samples vs plain at positions to 4096 (f32 2e-5, "
+          "bf16 1.6e-2): " + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
+    print("rope samples, device us a launch: "
+          + " ".join(f"{k}={v:.2f}" for k, v in us.items()))
     rope._lib()
     sound = rope._LIB
     rope._LIB = faulted_library(rope, "rope_row_table")
@@ -1536,28 +1658,41 @@ def rope_samples(rnd):
     if all(ok for _, ok in readings.values()):
         fail("the RoPE sample gate missed the planted fault rope_row_table")
     # the angle tables alone: x1 = 1 and x2 = 0 make the outputs c and s,
-    # at positions 0 to 2^17 - 1, for each (theta, head_dim) of the samples
+    # at positions 0 to 2^17 - 1, for each (theta, head_dim) of the samples,
+    # against the spec in numpy: freq = f32(theta^-e) and c, s = f32 of the
+    # f64 cos and sin of the f32 angle
     dev = cases[0][1].device
-    pos = torch.arange(1 << 17, dtype=torch.int32, device=dev)
+    n = 1 << 17
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    off = {}
     for theta, hd in sorted({(t, h) for _, _, _, h, t, _ in ROPE_SAMPLES}):
-        ones = torch.zeros(1 << 17, hd, device=dev)
-        ones[:, :hd // 2] = 1.0
-        if not torch.equal(rope.rope_op(ones, pos, theta, hd),
-                           rope._launch_variant("triton", ones, pos, theta, hd)):
-            fail(f"the RoPE CUDA kernel's angles differ from the Triton "
-                 f"kernel's at theta {theta:g}, head_dim {hd}")
-    print("rope angle tables (cos, sin) equal the Triton kernel's at positions "
-          "0 to 131071 for every (theta, head_dim) of the samples")
+        half = hd // 2
+        ones = torch.zeros(n, hd, device=dev)
+        ones[:, :half] = 1.0
+        got = rope.rope_op(ones, pos, theta, hd).cpu().numpy()
+        e = np.arange(half, dtype=np.float32) / np.float32(half)
+        freq = np.power(np.float64(theta), -e.astype(np.float64)).astype(
+            np.float32)
+        ang = np.arange(n, dtype=np.float32)[:, None] * freq[None, :]
+        want = np.concatenate([np.cos(ang.astype(np.float64)),
+                               np.sin(ang.astype(np.float64))],
+                              axis=1).astype(np.float32)
+        ulps = np.abs(got.view(np.int32).astype(np.int64)
+                      - want.view(np.int32).astype(np.int64))
+        off[f"theta={theta:g},head_dim={hd}"] = int((ulps > 0).sum())
+        if ulps.max() > 1:
+            fail(f"the RoPE kernel's angle table departs from the spec by "
+                 f"{int(ulps.max())} ulps at theta {theta:g}, head_dim {hd}")
+    print(f"rope angle tables (cos, sin) against the spec in numpy at "
+          f"positions 0 to {n - 1}: values one ulp off (none more) " + " ".join(
+              f"{k}:{v}" for k, v in off.items()))
     # f32 against the rotation in f64 from exact angles: how far each is
     # from exact
     x, pos, theta, hd = next(a for n, *a in cases
                              if n.startswith("rope_float32"))
     exact = rope_f64(x, pos, theta, hd)
     dist = {k: float((f(x, pos, theta, hd).double() - exact).abs().max())
-            for k, f in (("cuda", rope.rope_op),
-                         ("triton", functools.partial(rope._launch_variant,
-                                                      "triton")),
-                         ("plain", rope.rope_plain))}
+            for k, f in (("cuda", rope.rope_op), ("plain", rope.rope_plain))}
     print(f"rope f32 vs f64 at positions up to {int(pos.max())}: "
           + " ".join(f"{k}={v:.3g}" for k, v in dist.items()))
 
@@ -1965,21 +2100,14 @@ def source_of(tag, args, source):
 def replaced_kernel(tag, args, refs, outs) -> dict:
     """The kernel a rebuild replaced, on the same inputs, timed beside the
     new one: the CUDA-core flash kernel for a bf16 call that runs the
-    Hopper one, the Triton RoPE kernel for the CUDA one; held against the
-    plain version too, and the Triton RoPE kernel against the CUDA
-    kernel's ``outs`` bit for bit (both compute each element with the same
-    rounded operations)."""
-    from repro_torch.kernels import flash_attention, rope
+    Hopper one; held against the plain version too."""
+    from repro_torch.kernels import flash_attention
     if tag == "_flash_kernel":
         variant = flash_variant(args)
         if variant != "sm90":
             return {"variant": variant}
         old, name = functools.partial(flash_attention._launch_variant,
                                       "simt", *args), "simt"
-    elif tag == "_rope_kernel":
-        variant = "cuda"
-        old, name = functools.partial(rope._launch_variant, "triton",
-                                      *args), "triton"
     else:
         return {}
     out = old()
@@ -1988,9 +2116,6 @@ def replaced_kernel(tag, args, refs, outs) -> dict:
     if not within((out,), refs):
         fail(f"the replaced {name} kernel disagrees with the plain version "
              f"(max err {err})")
-    if tag == "_rope_kernel" and not torch.equal(out, outs[0]):
-        fail(f"the CUDA RoPE kernel differs from the {name} kernel in some "
-             f"bits (max diff {max_err((out,), outs)})")
     return {"variant": variant, "old_variant": name, "old_max_abs_err": err,
             "old_ms": timed(old, 50), "old_device_ms": device_ms(old)}
 
@@ -2190,7 +2315,7 @@ def serve_kernel_mode(dev, model, params, lens, prompts, max_len, tag,
                  f"{steps} steps, expected {n} a step")
     pre, dec, dec_in = path_inputs(eng, params, prompts, run, dev)
     parts = [("prefill call", pre), ("decode step", dec)]
-    kernels = stitched_rows(parts, run["counts"], tag, checked)
+    kernels = stitched_rows(parts, run, tag, checked)
     prefill_sig = run["hand_prefill_sig"]
     decode_sig = {k: dict(Counter(c) - Counter(prefill_sig[k]))
                   for k, c in run["hand_total_sig"].items()}
@@ -2420,6 +2545,12 @@ SSM_TOL = {"loss": 5.5e-4, "block": 3.8e-3}
 # takes the neighbouring bf16 value); each limit is 1.35x its largest
 # reading, rounded up.
 HYBRID_TOL = {"loss": 6.8e-5, "block": 3.8e-3}
+# the hybrid bf16 check takes seeds 0-4: the Hopper flash kernel, summing
+# S over the head width and O over the key tiles inside the tensor core,
+# read the loss up to 1.8e-4 at seed 4 and was less accurate than the
+# CUDA-core kernel against f64; with both sums by f32 adds it is the more
+# accurate of the two on every launch (examples/torch_hybrid_loss_noise.py)
+HYBRID_SEEDS = 5
 # the hybrid f32 check: one sequence of 2560 tokens, so that the 2048-token
 # window masks keys in the flash kernel (the eager side takes the chunked
 # attention, 512 query rows a chunk)
@@ -2475,6 +2606,8 @@ def measured_calls(sf, args, calls):
         times.append((time.perf_counter() - t0) * 1e3)
     variant_gate("measured calls")
     return {"out": out, "ms": times, "counts": stitched.launch_counts(),
+            "views": stitched.view_counts(),
+            "view_copies": stitched.view_copy_counts(),
             "hand": ops.launch_counts(),
             "hand_sig": ops.launch_counts_by_signature(),
             "peak": torch.cuda.max_memory_allocated()}
@@ -2521,13 +2654,14 @@ def init_line(cfg, params, secs):
           f"in {secs:.1f}s")
 
 
-def scoring_phase(dev, checked, arch, name, tol, n_layers=None):
+def scoring_phase(dev, checked, arch, name, tol, n_layers=None,
+                  seeds=LOGIT_SEEDS):
     """Full-width ``arch`` (random weights from a seed; ``n_layers`` of
     them when given) scored in kernel
     mode through ``stitch(train_forward)`` at 4 x 256 tokens: exactly the
     config's launches a call (``expected_launches``); every kernel of the
     path against its plain version and timed.  Then ``stitch(block_fn)``
-    on the first block (``block_launches`` a call).  Then, over several
+    on the first block (``block_launches`` a call).  Then, over ``seeds``
     weight seeds, the bf16 loss and the block output against the eager
     ref-mode model, each under ``tol``."""
     from dataclasses import replace
@@ -2566,7 +2700,7 @@ def scoring_phase(dev, checked, arch, name, tol, n_layers=None):
     if run["hand"] != want:
         fail(f"{tag}: {SCORE_CALLS} calls launched {run['hand']}, expected {want}")
     res = group_inputs(sf.compiled, spec_inputs(sf, (params, batch)))
-    kernels = stitched_rows([("scoring call", res)], run["counts"], tag, checked)
+    kernels = stitched_rows([("scoring call", res)], run, tag, checked)
     hand = hand_rows([("scoring call", res, SCORE_CALLS, run["hand_sig"])],
                      tag)
     kernels += hand
@@ -2598,14 +2732,14 @@ def scoring_phase(dev, checked, arch, name, tol, n_layers=None):
         fail(f"{btag}: {BLOCK_CALLS} calls launched {brun['hand']}, expected "
              f"{want}")
     bres = group_inputs(bf.compiled, spec_inputs(bf, (lp, x)))
-    kernels += stitched_rows([("block call", bres)], brun["counts"], btag,
+    kernels += stitched_rows([("block call", bres)], brun, btag,
                              checked)
     kernels += hand_rows([("block call", bres, BLOCK_CALLS, brun["hand_sig"])],
                          btag)
     del bres, brun, run
 
     readings = {"loss": [], "block": []}
-    for s in range(LOGIT_SEEDS):
+    for s in range(seeds):
         if s:
             # the old weights go first: two full-width f32 copies do not
             # fit beside the activations
@@ -3068,7 +3202,7 @@ def kernel_api_phase(dev, checked):
             fail(f"{tag} fell back to eager")
         api_readings(path, args, run["out"], fn(*args))
         res = group_inputs(sf.compiled, spec_inputs(sf, args))
-        rows += stitched_rows([("call", res)], run["counts"], tag, checked)
+        rows += stitched_rows([("call", res)], run, tag, checked)
         hand = hand_rows([("call", res, API_CALLS, run["hand_sig"])], tag)
         rows += hand
         del res
@@ -3496,10 +3630,11 @@ def main() -> int:
     kernels += rows
     print(f"moe phase: {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
-    for name, arch, tol, layers in (("ssm", SSM_ARCH, SSM_TOL, SSM_LAYERS),
-                                    ("hybrid", HYBRID_ARCH, HYBRID_TOL, None)):
+    for name, arch, tol, layers, seeds in (
+            ("ssm", SSM_ARCH, SSM_TOL, SSM_LAYERS, LOGIT_SEEDS),
+            ("hybrid", HYBRID_ARCH, HYBRID_TOL, None, HYBRID_SEEDS)):
         t0 = time.perf_counter()
-        kernels += scoring_phase(dev, checked, arch, name, tol, layers)
+        kernels += scoring_phase(dev, checked, arch, name, tol, layers, seeds)
         # the phase's weights go before the next one's are made
         gc.collect()
         torch.cuda.empty_cache()

@@ -1,18 +1,39 @@
-"""The spread of the card check's recurrentgemma bf16 loss reading.
+"""The spread of the card check's recurrentgemma bf16 loss reading, and
+each flash kernel's error against an f64 attention.
 
 ``chip_smoke.py`` holds full-width recurrentgemma-9b's kernel-mode scoring
-loss against the eager ref-mode model's over three weight seeds, at a
+loss against the eager ref-mode model's over several weight seeds, at a
 limit of 6.8e-5 (|diff| / |eager|).  This script takes the same reading
 over more seeds with flash attention on each of its two kernels: the
 Hopper one (``"sm90"``, what kernel mode runs) and the CUDA-core one
-(``"simt"``), so the reading's spread can be set beside the limit.  Needs
-one card:
+(``"simt"``), and on probes of the Hopper kernel that change one term of
+its arithmetic each (copies of its source under ``build/flash_probe``,
+never a switch of the program):
+
+* ``sm90_s_tc``: S = Q K^T summed over the head width inside the tensor
+  core, one ``wgmma`` group, as the kernel did before its repair (it now
+  adds each 16-wide k-step's product to S by f32 adds);
+* ``sm90_pv_tc``: O summed over the key tiles inside the tensor core, as
+  before the repair (each tile's P V now goes to a zeroed fragment, added
+  to O by f32 adds);
+* ``sm90_expf``: the softmax on the unfolded scores, ``expf`` of their
+  difference from the row's max, as the CUDA-core kernel takes it (the
+  kernel folds log2(e) into the scale and calls ``exp2f``).
+
+For every seed it also holds each flash launch of the scoring call, every
+kernel on the same operands, against an f64 attention: the largest error
+over the largest |f64| value, and the share of outputs that are not the
+f64 value rounded to bf16, and on how many launches the Hopper kernel's
+share exceeds the CUDA-core kernel's; and each kernel's device us a
+launch on the first seed's first launch (a CUDA-graph replay).  Needs one card:
 
     PYTHONPATH=src python3 examples/torch_hybrid_loss_noise.py [seeds]
 """
 
+import ctypes
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -21,8 +42,212 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (the card check's batch and stitch helpers)
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels import flash_attention  # noqa: E402
+from repro_torch.kernels import build, flash_attention  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+
+# the sound text of the Hopper kernel and what each probe puts in its place
+# (every occurrence)
+_SCORES = """#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+#pragma unroll 1
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      float st[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = 0.f;
+      fence_regs(st);
+      wgmma_fence();
+      wgmma_ss(st,
+               desc(q_addr + (kk / 4) * L::kQChunk + (kk % 4) * 32, 16, 1024),
+               desc(k_addr + (kk / 4) * L::kKVChunk + (kk % 4) * 32, 16,
+                    1024),
+               0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(st);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] += st[i];
+    }
+"""
+_SCORES_TC = """    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss(sc,
+               desc(q_addr + (kk / 4) * L::kQChunk + (kk % 4) * 32, 16, 1024),
+               desc(k_addr + (kk / 4) * L::kKVChunk + (kk % 4) * 32, 16,
+                    1024),
+               kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+"""
+_PV = """    float pv[kPv][32];
+#pragma unroll
+    for (int c0 = 0; c0 < L::kChunks; c0 += kPv) {
+#pragma unroll
+      for (int j = 0; j < kPv; ++j) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) pv[j][i] = 0.f;
+        fence_regs(pv[j]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int j = 0; j < kPv; ++j) {
+          const uint64_t dv = desc(
+              v_addr + (c0 + j) * L::kKVChunk + ks * 16 * kChunkRowBytes,
+              L::kKVChunk, 1024);
+#pragma unroll
+          for (int i = 0; i < 3; ++i)
+            wgmma_rs(pv[j], pa[ks][0][i], pa[ks][1][i], pa[ks][2][i],
+                     pa[ks][3][i], dv);
+        }
+      wgmma_commit();
+      if (c0 + kPv < L::kChunks || !kPvBesideScores) {
+        wgmma_wait_all();
+#pragma unroll
+        for (int j = 0; j < kPv; ++j) {
+          fence_regs(pv[j]);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) o[c0 + j][i] += pv[j][i];
+        }
+      }
+    }
+    if (more) {
+      mbar_wait(k_full + (t + 1) % kStages, ((t + 1) / kStages) & 1);
+      scores(sn, t + 1);
+    }
+    wgmma_wait_all();
+    if (kPvBesideScores) {
+#pragma unroll
+      for (int j = 0; j < kPv; ++j) {
+        fence_regs(pv[j]);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          o[L::kChunks - kPv + j][i] += pv[j][i];
+      }
+    }
+"""
+_PV_TC = """#pragma unroll
+    for (int c = 0; c < L::kChunks; ++c) fence_regs(o[c]);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int c = 0; c < L::kChunks; ++c) {
+        const uint64_t dv =
+            desc(v_addr + c * L::kKVChunk + ks * 16 * kChunkRowBytes,
+                 L::kKVChunk, 1024);
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          wgmma_rs(o[c], pa[ks][0][i], pa[ks][1][i], pa[ks][2][i],
+                   pa[ks][3][i], dv);
+      }
+    wgmma_commit();
+    if (more) {
+      mbar_wait(k_full + (t + 1) % kStages, ((t + 1) / kStages) & 1);
+      scores(sn, t + 1);
+    }
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < L::kChunks; ++c) fence_regs(o[c]);
+"""
+PROBES = {
+    "sm90_s_tc": [(_SCORES, _SCORES_TC)],
+    "sm90_pv_tc": [(_PV, _PV_TC)],
+    "sm90_expf": [("scale * kLog2e, causal", "scale, causal"),
+                  ("exp2f(", "expf(")],
+}
+KERNELS = ("sm90", *PROBES, "simt")
+
+
+def probe_libraries() -> dict:
+    """Each probe's copy of the Hopper kernel's source, built with nvcc
+    (all at once) into ``build/flash_probe/<probe>``."""
+    src = (build.CSRC / "flash_attention_sm90.cu").read_text()
+    dirs = {}
+    for name, edits in PROBES.items():
+        text = src
+        for sound, probe in edits:
+            if sound not in text:
+                raise SystemExit(f"probe {name}: the kernel lost {sound!r}")
+            text = text.replace(sound, probe)
+        d = build.build_dir().parent / "flash_probe" / name
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "flash_attention_sm90.cu").write_text(text)
+        dirs[name] = d
+    with ThreadPoolExecutor(len(dirs)) as ex:
+        paths = dict(zip(dirs, ex.map(
+            lambda d: build.library("flash_attention_sm90", d, d),
+            dirs.values())))
+    return {name: flash_attention.bind(ctypes.CDLL(str(p)))
+            for name, p in paths.items()}
+
+
+def attention_f64(qt, kt, vt, scale, causal=True, window=None, q_offset=0):
+    """The plain version's function in f64: masked scores -1e30."""
+    B, Hq, Lq, Dh = qt.shape
+    Hkv, Lkv = kt.shape[1], kt.shape[2]
+    g = Hq // Hkv
+    q = qt.double().reshape(B, Hkv, g, Lq, Dh)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", q, kt.double()) * scale
+    qpos = q_offset + torch.arange(Lq, device=qt.device)[:, None]
+    kpos = torch.arange(Lkv, device=qt.device)[None, :]
+    valid = torch.ones(Lq, Lkv, dtype=torch.bool, device=qt.device)
+    if causal:
+        valid &= qpos >= kpos
+    if window is not None:
+        valid &= qpos - kpos < window
+    s = torch.where(valid, s, torch.full_like(s, -1e30))
+    o = torch.einsum("bhgqk,bhkd->bhgqd", torch.softmax(s, -1), vt.double())
+    return o.reshape(B, Hq, Lq, Dh)
+
+
+class Kernels:
+    """Runs flash attention on one named kernel; records the operands of
+    the launches while ``recording``."""
+
+    def __init__(self, libs):
+        self.libs = libs
+        self.kernel = "sm90"
+        self.recording = None
+        self._launch = flash_attention._launch_variant
+        self._sm90 = flash_attention._lib_sm90()
+        flash_attention._launch_variant = self.launch_variant
+
+    def launch_variant(self, variant, qt, kt, vt, *rest):
+        if self.recording is not None:
+            self.recording.append((qt.clone(), kt.clone(), vt.clone(), *rest))
+        return self.run(self.kernel, qt, kt, vt, *rest)
+
+    def run(self, kernel, qt, kt, vt, *rest):
+        flash_attention._LIB_SM90 = self.libs.get(kernel, self._sm90)
+        try:
+            return self._launch("simt" if kernel == "simt" else "sm90",
+                                qt, kt, vt, *rest)
+        finally:
+            flash_attention._LIB_SM90 = self._sm90
+
+
+def launch_errors(kern, launches) -> tuple[dict, int]:
+    """Per kernel, over the recorded launches: the largest max |out - f64|
+    / max |f64|, and the largest share of outputs that are not the f64
+    value rounded to bf16; and on how many launches the Hopper kernel's
+    share exceeds the CUDA-core kernel's."""
+    out = {k: [0.0, 0.0] for k in KERNELS}
+    worse = 0
+    for qt, kt, vt, *rest in launches:
+        ref = attention_f64(qt, kt, vt, *rest)
+        ref_bf16 = ref.to(torch.bfloat16)
+        top = float(ref.abs().max())
+        share = {}
+        for k in KERNELS:
+            o = kern.run(k, qt, kt, vt, *rest)
+            err = float((o.double() - ref).abs().max()) / top
+            share[k] = float((o != ref_bf16).double().mean())
+            out[k][0] = max(out[k][0], err)
+            out[k][1] = max(out[k][1], share[k])
+        worse += share["sm90"] > share["simt"]
+    return out, worse
 
 
 def main(seeds: int = 5) -> None:
@@ -31,16 +256,17 @@ def main(seeds: int = 5) -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=False).stdout.strip())
+    kern = Kernels(probe_libraries())
     cfg = get_config("recurrentgemma-9b")
     model = build_model(cfg)
     params = model.init(0, dev)
     batch = chip_smoke.score_batch(cfg, 0, dev)
     score = chip_smoke.stitched_call("hybrid score", model.train_forward,
                                      (params, batch), dev)
-    dispatch = flash_attention._variant
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=False).stdout.strip())
+    worst = dict.fromkeys(KERNELS, 0.0)
     for seed in range(seeds):
         if seed:
             params = None
@@ -49,16 +275,36 @@ def main(seeds: int = 5) -> None:
         batch = chip_smoke.score_batch(cfg, seed, dev)
         eager = float(model.train_forward(params, batch)[0])
         row = {}
-        for variant in ("sm90", "simt"):
-            flash_attention._variant = (
-                dispatch if variant == "sm90" else lambda *a: "simt")
+        for k in KERNELS:
+            kern.kernel = k
+            kern.recording = [] if k == "sm90" else None
             try:
                 loss = float(score(params, batch)[0])
             finally:
-                flash_attention._variant = dispatch
-            row[variant] = abs(loss - eager) / abs(eager)
+                kern.kernel = "sm90"
+            if k == "sm90":
+                launches, kern.recording = kern.recording, None
+            row[k] = abs(loss - eager) / abs(eager)
+            worst[k] = max(worst[k], row[k])
+        (errs, worse), n = launch_errors(kern, launches), len(launches)
+        if seed == 0:
+            qt, kt, vt, *rest = launches[0]
+            print(f"flash device us a launch at {tuple(qt.shape)} / "
+                  f"{tuple(kt.shape)}: " + " ".join(
+                      f"{k}={1e3 * chip_smoke.device_ms(lambda k=k: kern.run(k, qt, kt, vt, *rest)):.2f}"
+                      for k in KERNELS), flush=True)
+        del launches
         print(f"seed {seed}: loss reading "
               + " ".join(f"{k}={v:.4g}" for k, v in row.items()), flush=True)
+        print(f"seed {seed}: flash launches vs f64 (max err / max |f64|, "
+              f"share not the f64 value in bf16), worst of "
+              f"{n} launches: "
+              + " ".join(f"{k}={e:.4g}/{f:.4g}" for k, (e, f) in errs.items())
+              + f"; launches where sm90's share exceeds simt's: {worse} of {n}",
+              flush=True)
+    print("largest loss reading over seeds 0-%d: " % (seeds - 1)
+          + " ".join(f"{k}={v:.4g}" for k, v in worst.items())
+          + f" (limit {chip_smoke.HYBRID_TOL['loss']})")
 
 
 if __name__ == "__main__":

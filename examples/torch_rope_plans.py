@@ -2,8 +2,8 @@
 (``csrc/rope.cu``) at every (R rows, Hc heads) a block of R 1, 2 and 4 and
 each divisor Hc of the heads, at the q and k shapes of every path's decode
 step and prefill (bf16, batch 4), beside the plan ``rope.block_plan``
-picks and the Triton kernel it replaced.  Times are CUDA-graph replays
-(L2-warm).  Prints the card's name and power limit first.  Needs one card:
+picks; every plan's output is held against the default plan's bit for
+bit.  Times are CUDA-graph replays (L2-warm).  Prints the card's name and power limit first.  Needs one card:
 
     PYTHONPATH=src python3 examples/torch_rope_plans.py
 """
@@ -77,7 +77,7 @@ def main() -> None:
         x = torch.randn(rows, heads * hd, generator=gen).to(torch.bfloat16).cuda()
         pos = (torch.arange(rows, dtype=torch.int32) % 256
                + (300 if rows == 4 else 0)).cuda()
-        want = rope._launch_variant("triton", x, pos, theta, hd)
+        want = rope._launch_kernel(x, pos, theta, hd)
         plan = rope.block_plan(rows, heads, hd // 2, 8)
         times = {}
         for R in (1, 2, 4):
@@ -86,14 +86,13 @@ def main() -> None:
                     continue
                 if not torch.equal(launch(x, pos, theta, hd, R, Hc), want):
                     raise SystemExit(f"{name}: plan R{R} Hc{Hc} differs from "
-                                     f"the Triton kernel")
+                                     f"the default plan")
                 times[R, Hc] = device_us(lambda: launch(x, pos, theta, hd, R, Hc))
         best = min(times, key=times.get)
-        triton = device_us(lambda: rope._launch_variant("triton", x, pos, theta, hd))
         print(f"{name} ({rows}, {heads}x{hd}): plan R{plan[0]} Hc{plan[1]} "
               f"{times[plan]:.2f} us, best R{best[0]} Hc{best[1]} "
-              f"{times[best]:.2f} us ({times[plan] / times[best] - 1:+.1%}), "
-              f"triton {triton:.2f} us; all: " + " ".join(
+              f"{times[best]:.2f} us ({times[plan] / times[best] - 1:+.1%}); "
+              f"all: " + " ".join(
                   f"R{r}Hc{h}={t:.2f}" for (r, h), t in times.items()))
 
 

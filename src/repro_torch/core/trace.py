@@ -179,10 +179,31 @@ class _JnpDots(torch.overrides.TorchFunctionMode):
     """Active while the tracer runs the function: ``einsum`` of two
     operands and ``x @ w`` with x of rank >= 3 and w a matrix go through
     ``repro_torch::dot_general``, so ``make_fx`` records one node where the
-    ATen decomposition would record permutes, reshapes and ``bmm``/``mm``."""
+    ATen decomposition would record permutes, reshapes and ``bmm``/``mm``.
+    Every ATen node records the serial of the torch call it came from
+    (``node.meta["repro_call"]``): one indexing expression is one call."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = 0
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
+        from torch.fx.experimental.proxy_tensor import get_proxy_mode
+        mode = get_proxy_mode()
+        graph = mode.tracer.graph if mode is not None else None
+        last = (next(iter(reversed(graph.nodes)), None) if graph is not None
+                else None)
+        out = self._call(func, args, kwargs or {})
+        if graph is not None:
+            self.calls += 1
+            for node in reversed(graph.nodes):
+                if node is last:
+                    break
+                node.meta["repro_call"] = self.calls
+        return out
+
+    @staticmethod
+    def _call(func, args, kwargs):
         if func is torch.einsum and not kwargs:
             out = _einsum_as_dot(*args)
             if out is not None:
@@ -600,12 +621,15 @@ class _Translator:
 
     def op_unsqueeze(self, node):
         """``x[..., None]``: a BROADCAST adding a size-1 dim.  An unsqueeze
-        of the unsqueeze just before it in the graph (one indexing
-        expression, ``x[:, None, :, None]``) extends that BROADCAST."""
+        of the unsqueeze just before it in the graph, from the same torch
+        call (one indexing expression, ``x[:, None, :, None]``), extends
+        that BROADCAST; two expressions' unsqueezes stay two."""
         shape = tuple(int(d) for d in _meta(node).shape)
         dim = int(node.args[1]) % len(shape)
         prev, base, dims = self._unsqueezed(node.args[0])
-        if base is not None and self._last is prev:
+        call = node.meta.get("repro_call")
+        if (base is not None and self._last is prev and call is not None
+                and prev.meta.get("repro_call") == call):
             src = self.g[base]
         else:
             base = self.env[node.args[0]]

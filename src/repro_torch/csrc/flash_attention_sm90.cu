@@ -35,7 +35,11 @@
 //   chunk of shared memory.
 // - S = Q K^T: wgmma.m64n64k16 with both operands K-major in shared memory
 //   (128-byte swizzle; a k-step of 16 moves the descriptor's start by 32
-//   bytes inside a chunk).
+//   bytes inside a chunk).  Each k-step is a wgmma of its own into a zeroed
+//   fragment, added to S by f32 adds: the tensor core's own accumulation
+//   over the head width (its adds are not f32's round-to-nearest) spread
+//   recurrentgemma's bf16 scoring loss past its gate at some seeds, where
+//   these adds keep it inside (examples/torch_hybrid_loss_noise.py).
 // - Softmax: f32, with exp2f and log2(e) folded into the scale, in the
 //   accumulator fragment (each row's max and sum over its 4 lanes).  The
 //   masking is skipped on tiles whose every key is valid for every row.
@@ -45,14 +49,19 @@
 //   reference keeps (one bf16 p moved recurrentgemma's scoring loss past
 //   its bf16 gate).  V is read from shared memory as an MN-major B operand
 //   through the descriptor's transpose bit, one m64n64k16 per part and
-//   64-column chunk of V.
-// - Overlap: a warpgroup issues the next tile's Q K^T with this tile's
-//   P V, so both run together; the two warpgroups of a CTA interleave on
-//   the SM's tensor cores.
+//   64-column chunk of V.  A tile's P V goes into zeroed fragments, up to
+//   two chunks at a time, and is added to O by f32 adds: O summed over
+//   the key tiles inside the tensor core, like S over the head width,
+//   left the kernel less accurate than the CUDA-core one against f64.
+// - Overlap: a warpgroup issues this tile's (last) P V group, then the
+//   next tile's Q K^T k-steps, so the two run together (at Dh 64 and 128);
+//   the two warpgroups of a CTA interleave on the SM's tensor cores.
 // - Registers: O stays in registers (Dh/2 floats a thread: 128 at Dh=256,
-//   with S 32 and P's three parts 16 each).  384 threads start at 168 registers;
-//   the producer warpgroup drops to 40 (setmaxnreg) so the consumers rise
-//   to 232, where Dh=256 does not spill.  Shared memory: 32 KB of Q and
+//   with S 32, a k-step's 32, P's three parts 16 each and a P V group 32
+//   or 64).  384 threads start at 168 registers; the producer warpgroup
+//   drops to 40 (setmaxnreg) so the consumers rise to 232, where the f32
+//   adds' fragments spill a few (ptxas's report, in chip_smoke.py's build
+//   lines).  Shared memory: 32 KB of Q and
 //   64 KB of K and V stages at Dh=128, 64 KB and 128 KB at Dh=256; one CTA
 //   an SM.
 
@@ -328,6 +337,10 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint32_t q_addr = smem_u32(sq) + wg * 64 * kChunkRowBytes;
 
   float o[L::kChunks][32];
+  // P V's chunks a wgmma group (up to 2); at Dh=256, O's 128 registers
+  // leave no room to keep a group in flight beside the next tile's scores
+  constexpr int kPv = L::kChunks < 2 ? L::kChunks : 2;
+  constexpr bool kPvBesideScores = L::kChunks <= 2;
 #pragma unroll
   for (int c = 0; c < L::kChunks; ++c)
 #pragma unroll
@@ -335,18 +348,30 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
   float alpha_a = 1.f, alpha_b = 1.f;
 
-  // S = Q K^T of tile t over Dh in k-steps of 16, committed as one group
-  auto issue_scores = [&](float (&sc)[32], int t) {
+  // S = Q K^T of tile t over Dh in k-steps of 16, each a wgmma into st
+  // alone, its result added to S in f32; waits for every wgmma in flight
+  auto scores = [&](float (&sc)[32], int t) {
     const uint32_t k_addr = smem_u32(sk + (t % kStages) * L::kTileBytes);
-    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)
-      wgmma_ss(sc,
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+#pragma unroll 1
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      float st[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = 0.f;
+      fence_regs(st);
+      wgmma_fence();
+      wgmma_ss(st,
                desc(q_addr + (kk / 4) * L::kQChunk + (kk % 4) * 32, 16, 1024),
                desc(k_addr + (kk / 4) * L::kKVChunk + (kk % 4) * 32, 16,
                     1024),
-               kk > 0);
-    wgmma_commit();
+               0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(st);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] += st[i];
+    }
   };
 
   // tile t's scores, in the log2 domain (masked -1e30, past Lkv -inf), to
@@ -399,50 +424,76 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
         split_bf16(sc[8 * ks + 2 * r], sc[8 * ks + 2 * r + 1], pa[ks][r]);
   };
 
-  // Each step issues the next tile's scores and this tile's O += P V
-  // together, waits for both, then takes the next tile's softmax.  (A
-  // softmax while P V runs, after waiting for the scores alone, made ptxas
-  // serialize the wgmmas and ran slower on the card.)
+  // Each step issues this tile's O += P V, then the next tile's scores
+  // (their first k-step beside P V), waits for both, then takes the next
+  // tile's softmax.  (A softmax while P V runs, after waiting for the
+  // scores alone, made ptxas serialize the wgmmas and ran slower on the
+  // card.)
   float sc[32];
   uint32_t pa[4][4][3];
   mbar_wait(q_full, 0);
   if (n_tiles > 0) {
     mbar_wait(k_full, 0);
-    issue_scores(sc, 0);
-    wgmma_wait_all();
-    fence_regs(sc);
+    scores(sc, 0);
     softmax(sc, pa, 0);
   }
   for (int t = 0; t < n_tiles; ++t) {
     const int s = t % kStages;
     const bool more = t + 1 < n_tiles;
     float sn[32];
-    if (more) {
-      mbar_wait(k_full + (t + 1) % kStages, ((t + 1) / kStages) & 1);
-      issue_scores(sn, t + 1);
-    }
-    // O += P V: V's rows are keys (K), its 64-column chunks N, MN-major
+    // O += P V: V's rows are keys (K), its 64-column chunks N, MN-major.
+    // Chunks kPv at a time: their product over the tile's keys summed in
+    // the tensor core into pv (zeroed), then added to O by f32 adds; the
+    // last group runs beside the next tile's scores where registers allow
     mbar_wait(v_full + s, (t / kStages) & 1);
     const uint32_t v_addr = smem_u32(sv + s * L::kTileBytes);
+    float pv[kPv][32];
 #pragma unroll
-    for (int c = 0; c < L::kChunks; ++c) fence_regs(o[c]);
-    wgmma_fence();
+    for (int c0 = 0; c0 < L::kChunks; c0 += kPv) {
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
+      for (int j = 0; j < kPv; ++j) {
 #pragma unroll
-      for (int c = 0; c < L::kChunks; ++c) {
-        const uint64_t dv =
-            desc(v_addr + c * L::kKVChunk + ks * 16 * kChunkRowBytes,
-                 L::kKVChunk, 1024);
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-          wgmma_rs(o[c], pa[ks][0][i], pa[ks][1][i], pa[ks][2][i],
-                   pa[ks][3][i], dv);
+        for (int i = 0; i < 32; ++i) pv[j][i] = 0.f;
+        fence_regs(pv[j]);
       }
-    wgmma_commit();
-    wgmma_wait_all();
+      wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < L::kChunks; ++c) fence_regs(o[c]);
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int j = 0; j < kPv; ++j) {
+          const uint64_t dv = desc(
+              v_addr + (c0 + j) * L::kKVChunk + ks * 16 * kChunkRowBytes,
+              L::kKVChunk, 1024);
+#pragma unroll
+          for (int i = 0; i < 3; ++i)
+            wgmma_rs(pv[j], pa[ks][0][i], pa[ks][1][i], pa[ks][2][i],
+                     pa[ks][3][i], dv);
+        }
+      wgmma_commit();
+      if (c0 + kPv < L::kChunks || !kPvBesideScores) {
+        wgmma_wait_all();
+#pragma unroll
+        for (int j = 0; j < kPv; ++j) {
+          fence_regs(pv[j]);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) o[c0 + j][i] += pv[j][i];
+        }
+      }
+    }
+    if (more) {
+      mbar_wait(k_full + (t + 1) % kStages, ((t + 1) / kStages) & 1);
+      scores(sn, t + 1);
+    }
+    wgmma_wait_all();
+    if (kPvBesideScores) {
+#pragma unroll
+      for (int j = 0; j < kPv; ++j) {
+        fence_regs(pv[j]);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          o[L::kChunks - kPv + j][i] += pv[j][i];
+      }
+    }
     fence_frags(pa);
     mbar_arrive(empty + s);
     if (more) {

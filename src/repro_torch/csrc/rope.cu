@@ -8,18 +8,19 @@
 // x_stride and positions (rows,) of int32 or int64, half = head_dim / 2 and
 // every value in f32:
 //   e = i / half                      (IEEE division)
-//   p = (float)pow((double)theta, (double)e)
-//   freq = 1 / p                      (IEEE division)
+//   freq = (float)pow((double)theta, -(double)e)
 //   ang = (float)pos * freq
 //   c = (float)cos((double)ang);  s = (float)sin((double)ang)
 //   out[row, h, i]        = x1 * c - x2 * s
 //   out[row, h, half + i] = x2 * c + x1 * s
 // with x1 = x[row, h, i], x2 = x[row, h, half + i], each output rounded once
 // to x's dtype; out is contiguous (rows, H * head_dim).  These are the
-// reference's f32 steps (the power and the trig functions through f64, so
+// reference's f32 steps as XLA compiles them (its 1 / theta^e becomes
+// theta^-e, one rounding; the power and the trig functions through f64, so
 // that their f32 values are correctly rounded), and the operations of the
-// Triton kernel this one replaced, rounding for rounding, so the two give
-// the same bits.
+// Triton kernel this one replaced (since retired), rounding for rounding:
+// the two gave the same bits.  rope_plain (kernels/rope.py) computes the
+// same steps.
 //
 // Bound on this card: the bytes.  x read once, out written once: at
 // nemotron-4-15b's prefill (1024 rows of 48 q heads of 128, bf16) 25.2 MB,
@@ -140,14 +141,13 @@ struct Shape {
   int H, half, R, Hc;
 };
 
-// freq[i] = 1 / (float)pow((double)theta, (double)(i / half))
+// freq[i] = (float)pow((double)theta, -(double)(i / half))
 __global__ void freq_kernel(float* __restrict__ freq, int half, float theta) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= half) return;
   const float e = __fdiv_rn(static_cast<float>(i), static_cast<float>(half));
-  const float p = static_cast<float>(
-      pow(static_cast<double>(theta), static_cast<double>(e)));
-  freq[i] = __fdiv_rn(1.f, p);
+  freq[i] = static_cast<float>(
+      pow(static_cast<double>(theta), -static_cast<double>(e)));
 }
 
 // one block: rows [blockIdx.x * R, + R) and heads [blockIdx.y * Hc, + Hc);
@@ -232,7 +232,7 @@ __global__ void empty_kernel() {}
 
 }  // namespace
 
-// freq (half,) f32: 1 / theta^(i / half) with the operations of the note
+// freq (half,) f32: theta^-(i / half) with the operations of the note
 // above, which repro_rope takes.  Refuses half < 1 (-3); else returns the
 // launch's cudaError_t.
 extern "C" int repro_rope_freq(void* freq, int half, float theta,

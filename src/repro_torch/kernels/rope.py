@@ -11,9 +11,8 @@ compute the ``cos``/``sin`` table of its rows once (the power and the trig
 functions in f64, rounded to f32 once, as the reference's f32 values),
 then rotate the two halves of every head (``[x1*c - x2*s, x2*c + x1*s]``,
 not interleaved pairs).  Positions are cast to f32 in the kernel, as the
-reference does.  The Triton kernel it replaced (one program a row)
-is kept as a yardstick, ``_launch_variant("triton", ...)``: the two give
-the same bits.
+reference does.  :func:`rope_plain` computes the same steps, each rounded
+where the kernel rounds it.
 
 It is the custom op ``repro_torch::rope(x, positions, theta, head_dim)``
 over ``x (B*L, H*Dh)``, ``positions (B*L,)``: the CPU implementation is the
@@ -30,7 +29,6 @@ from collections import Counter
 import torch
 
 from . import build
-from . import ref as _ref
 
 __all__ = ["bind", "block_plan", "rope", "rope_plain", "launches",
            "vector_width"]
@@ -45,47 +43,31 @@ MAX_THREADS = 512    # rope.cu's kMaxThreads: ROWS rows of a head's threads
 # kernel launches since the last reset, by build.signature of the arguments
 launches: Counter = Counter()
 _LIB: ctypes.CDLL | None = None
-# freq = 1 / theta^(i / half) on the card, by (device, theta, half)
+# freq = theta^-(i / half) on the card, by (device, theta, half)
 _FREQ: dict = {}
-_JIT = None
-tl = libdevice = None  # bound by build.triton_jit at the Triton kernel's launch
-
-
-def _rope_kernel(x_ptr, pos_ptr, o_ptr, stride_x, stride_pos, theta, H,
-                 HALF: tl.constexpr, BLOCK_H: tl.constexpr,
-                 BLOCK_HALF: tl.constexpr):
-    # the Triton kernel csrc/rope.cu replaced, a yardstick: one program a
-    # token row, heads padded to BLOCK_H
-    row = tl.program_id(0).to(tl.int64)
-    h = tl.arange(0, BLOCK_H)[:, None]
-    i = tl.arange(0, BLOCK_HALF)[None, :]
-    mask = (h < H) & (i < HALF)
-    pos = tl.load(pos_ptr + row * stride_pos).to(tl.float32)
-    # the f32 steps of the reference, each rounded once: e = i / half,
-    # p = theta^e, freq = 1 / p, ang = pos * freq, then cos and sin.  The
-    # power and the trig functions go through f64 so that their f32 values
-    # are correctly rounded: an ulp off in freq is pos ulps off in the
-    # angle, and Triton's default f32 division is approximate, hence div_rn.
-    e = tl.div_rn(i.to(tl.float32), 1.0 * HALF)
-    p = libdevice.pow(theta.to(tl.float64), e.to(tl.float64)).to(tl.float32)
-    ang = pos * tl.div_rn(1.0, p)
-    c = libdevice.cos(ang.to(tl.float64)).to(tl.float32)
-    s = libdevice.sin(ang.to(tl.float64)).to(tl.float32)
-    src = x_ptr + row * stride_x + h * (2 * HALF) + i
-    x1 = tl.load(src, mask=mask, other=0.0).to(tl.float32)
-    x2 = tl.load(src + HALF, mask=mask, other=0.0).to(tl.float32)
-    dst = o_ptr + row * (H * 2 * HALF) + h * (2 * HALF) + i
-    dt = o_ptr.dtype.element_ty
-    tl.store(dst, (x1 * c - x2 * s).to(dt), mask=mask)
-    tl.store(dst + HALF, (x2 * c + x1 * s).to(dt), mask=mask)
 
 
 def rope_plain(x, positions, theta: float, head_dim: int):
-    """The plain version: the reference's ``ref`` oracle on the
-    ``(rows, H, Dh)`` view."""
+    """The plain version, the kernel's spec (``csrc/rope.cu``) step by step
+    in f32: ``e = i / half``, ``freq = theta^-e`` through f64 and rounded
+    once, ``ang = pos * freq``, then ``cos`` and ``sin`` through f64 and
+    rounded once, so that each f32 value is the correctly rounded one (an
+    ulp off in freq is pos ulps off in the angle); then the rotation in
+    f32, rounded once to x's dtype.  The reference writes ``freq`` as
+    ``1 / theta^e``; XLA compiles that to ``theta^-e``, one rounding, and
+    so does this."""
     rows, width = x.shape
-    xr = x.reshape(rows, width // head_dim, head_dim)
-    return _ref.rope(xr, positions, theta).reshape(rows, width)
+    half = head_dim // 2
+    e = torch.arange(half, dtype=torch.float32, device=x.device) / half
+    freq = torch.pow(torch.tensor(float(theta), dtype=torch.float64,
+                                  device=x.device), -e.double()).float()
+    ang = positions.to(torch.float32)[:, None] * freq          # (rows, half)
+    c = torch.cos(ang.double()).float()[:, None, :]
+    s = torch.sin(ang.double()).float()[:, None, :]
+    xr = x.reshape(rows, width // head_dim, head_dim).to(torch.float32)
+    x1, x2 = xr[..., :half], xr[..., half:]
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.to(x.dtype).reshape(rows, width)
 
 
 def vector_width(half: int, itemsize: int, ptr: int, row_stride: int) -> int:
@@ -148,8 +130,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def _freq(device, theta: float, half: int) -> torch.Tensor:
-    """``1 / theta^(i / half)`` for i < half, f32 on ``device``: computed on
-    the card at the first call for (theta, half) with the Triton kernel's
+    """``theta^-(i / half)`` for i < half, f32 on ``device``: computed on
+    the card at the first call for (theta, half) with the spec's
     operations (``repro_rope_freq``), then kept.  The first call waits for
     the table (so it cannot come inside a CUDA-graph capture), and a launch
     on any stream may then read it."""
@@ -168,18 +150,14 @@ def _freq(device, theta: float, half: int) -> torch.Tensor:
 
 
 def _launch(x, positions, theta: float, head_dim: int):
-    out = _launch_variant("cuda", x, positions, theta, head_dim)
+    out = _launch_kernel(x, positions, theta, head_dim)
     launches[build.signature(x, positions, theta, head_dim)] += 1
     return out
 
 
-def _launch_variant(variant: str, x, positions, theta: float, head_dim: int):
-    """One launch of the CUDA kernel (``variant="cuda"``, the one the op
-    launches) or the Triton kernel it replaced (``"triton"``), with the
-    op's checks and no launch counted."""
-    global _JIT
-    if variant not in ("cuda", "triton"):
-        raise ValueError(f"rope: unknown variant {variant!r}")
+def _launch_kernel(x, positions, theta: float, head_dim: int):
+    """One launch of the kernel with the op's checks, not counted (the card
+    check times it and holds it against its plain version this way)."""
     if x.dim() != 2 or head_dim % 2 or x.shape[1] % head_dim \
             or tuple(positions.shape) != (x.shape[0],):
         raise ValueError(f"rope: x {tuple(x.shape)}, positions "
@@ -194,14 +172,6 @@ def _launch_variant(variant: str, x, positions, theta: float, head_dim: int):
     rows, width = x.shape
     H, half = width // head_dim, head_dim // 2
     out = torch.empty((rows, width), dtype=x.dtype, device=x.device)
-    if variant == "triton":
-        if _JIT is None:
-            _JIT = build.triton_jit(_rope_kernel)
-        _JIT[(rows,)](x, positions, out, x.stride(0), positions.stride(0),
-                      float(theta), H,
-                      HALF=half, BLOCK_H=build.next_pow2(H),
-                      BLOCK_HALF=build.next_pow2(half), num_warps=4)
-        return out
     vec = vector_width(half, x.element_size(), x.data_ptr(), x.stride(0))
     R, Hc = block_plan(rows, H, half, vec)
     freq = _freq(x.device, theta, half)

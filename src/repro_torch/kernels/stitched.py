@@ -32,6 +32,23 @@ activations need.  Everything else raises
 :class:`StitchInfeasible` from the static check, naming the ROADMAP stage
 that will emit it; the compiler then runs the group as a ``"torch"`` group.
 
+Two layouts.  A pattern that computes element by element (no reduction,
+every value the same N elements in row-major order or a scalar,
+:func:`flat_elements`) is emitted flat: each program owns consecutive
+elements, 16 bytes a thread, so a decode step's 4 rows of 2048-6144 spread
+over 32-96 programs where the rows layout gave one; each element's
+arithmetic is the rows layout's, expression for expression.  Layouts are
+chosen here, not by the tuner, so plans do not depend on them.
+
+Layout-only patterns (every member a reshape, a transpose of size-1 axes, a
+broadcast adding size-1 dims or a convert to the same dtype,
+:func:`layout_only`) launch nothing: :class:`StitchedView` gives each
+output as a view of its input, counted apart from the launches
+(:func:`view_counts`).  A Pallas output is a fresh buffer on a TPU, so the
+reference copies; a torch tensor carries strides.  A graph output that
+would alias what a caller holds is refused the view (:func:`view_refusal`)
+and launches a kernel.
+
 The wrapper runs the plain version (the members evaluated eagerly with
 :func:`repro_torch.core.codegen.eval_node`) only for CPU tensors; for CUDA
 tensors it launches the generated kernel, counting each launch.
@@ -54,10 +71,11 @@ from repro_torch.core.ir import Graph, OpKind, OpNode
 from repro_torch.core.pattern import FusionPattern, PackPattern
 
 __all__ = ["StitchAnalysis", "analyze_pattern", "build_stitched_callable",
-           "StitchInfeasible", "StitchedKernel", "check_emittable",
-           "emission_plan", "explicit_broadcasts", "fold_rows",
-           "reset_launch_counts",
-           "launch_counts", "MAX_BLOCK_ELEMS"]
+           "StitchInfeasible", "StitchedKernel", "StitchedView",
+           "check_emittable", "emission_plan", "explicit_broadcasts",
+           "flat_elements", "fold_rows", "layout_member", "layout_only",
+           "reset_launch_counts", "launch_counts", "view_counts",
+           "view_copy_counts", "view_refusal", "MAX_BLOCK_ELEMS"]
 
 
 class StitchInfeasible(Exception):
@@ -449,6 +467,72 @@ def _check_dtype(node: OpNode) -> None:
 
 
 # ---------------------------------------------------------------------------
+# layout-only patterns
+# ---------------------------------------------------------------------------
+
+def layout_member(node: OpNode, g: Graph) -> bool:
+    """Whether ``node`` only relabels its operand's elements and keeps their
+    order: a RESHAPE, a TRANSPOSE whose moved axes all have extent 1, a
+    BROADCAST that only adds size-1 dims, or a ``convert`` to the operand's
+    own dtype.  Its value is then its operand's bytes, reshaped."""
+    k = node.kind
+    if k not in (OpKind.RESHAPE, OpKind.TRANSPOSE, OpKind.BROADCAST,
+                 OpKind.ELEMENTWISE) or len(node.operands) != 1:
+        return False
+    src = g[node.operands[0]]
+    if k is OpKind.RESHAPE:
+        return True
+    if k is OpKind.TRANSPOSE:
+        kept = [a for a in node.attrs["perm"] if src.shape[a] != 1]
+        return kept == sorted(kept)
+    if k is OpKind.BROADCAST:
+        dims = tuple(node.attrs["bcast_dims"])
+        kept = [dims[j] for j, d in enumerate(src.shape) if d != 1]
+        return (math.prod(src.shape) == math.prod(node.shape)
+                and kept == sorted(kept)
+                and all(node.shape[dims[j]] == d
+                        for j, d in enumerate(src.shape) if d != 1))
+    return (node.attrs.get("op") == "convert"
+            and canonical_dtype(node.dtype) == canonical_dtype(src.dtype))
+
+
+def layout_only(p: FusionPattern) -> bool:
+    """Whether every compute member of ``p`` is a :func:`layout_member`,
+    each fed from the pattern's external inputs (no constant member)."""
+    members = p.compute_members
+    return (bool(members) and len(members) == len(p.members)
+            and all(layout_member(n, p.graph) for n in members))
+
+
+def _view_base(g: Graph, name: str) -> str:
+    """The node whose bytes ``name`` views: back through layout members."""
+    while not g[name].is_source() and layout_member(g[name], g):
+        name = g[name].operands[0]
+    return name
+
+
+def view_refusal(p: FusionPattern) -> str | None:
+    """Why a layout-only pattern must not be served as views, or None.  A
+    view aliases its input, so a graph output must not be one whose bytes
+    a caller also holds: not a view of a graph input (the engine writes its
+    KV cache and its inputs in place between calls), and not one whose
+    bytes another graph output views too.  Within a call nothing writes in
+    place."""
+    g = p.graph
+    outs = set(g.outputs)
+    for n in p.external_outputs:
+        if n not in outs:
+            continue
+        base = _view_base(g, n)
+        if g[base].is_source():
+            return f"graph output {n} would view graph input {base}"
+        if base in outs or any(o != n and _view_base(g, o) == base
+                               for o in outs):
+            return f"graph output {n} would share {base} with another output"
+    return None
+
+
+# ---------------------------------------------------------------------------
 # row folding: (B, S, ...) values as (B*S, ...) rows
 # ---------------------------------------------------------------------------
 
@@ -658,16 +742,59 @@ def emission_plan(p: FusionPattern) -> tuple[FusionPattern, StitchAnalysis]:
 class _Emitted:
     source: str
     digest: str
-    block_r: int
+    block_r: int               # rows a program ("rows" layout; 0 if "flat")
     grid: int
     num_warps: int
     in_names: list[str]        # kernel arg i <- this external input
     out_names: list[str]       # kernel out j -> this external output
     out_dtypes: list[str]
+    layout: str = "rows"       # "rows" | "flat"
+    block: int = 0             # elements a program ("flat" layout)
+
+
+# the flat layout's programs: a warp's 32 threads load 16 bytes each of the
+# widest value (16 int64s a thread, for a bool's 16 bytes, ran a third
+# slower than the rows layout on the card), 1 warp a program
+# while that gives at most FLAT_PROGRAMS programs, else 4 warps of 4 loads
+# a thread
+FLAT_PROGRAMS = 528                     # 4 a SM on the H100's 132
+
+
+def flat_elements(p: FusionPattern, ana: StitchAnalysis) -> int:
+    """N when ``p`` computes element by element over N elements in their
+    row-major order, else 0: no reduction, not a pack, every value either
+    N elements (a reshape, a transpose of size-1 axes and a broadcast that
+    only adds size-1 dims keep the order) or one element."""
+    if getattr(p, "member_groups", None):
+        return 0
+    g = p.graph
+    members = p.compute_members
+    if any(m.kind is OpKind.REDUCTION for m in members):
+        return 0
+    n = max(g[o].size for o in p.external_outputs)
+    if n < 2:
+        return 0
+    for name in list(p.external_inputs) + [m.name for m in members]:
+        if g[name].size not in (1, n):
+            return 0
+    for m in members:
+        if m.kind is OpKind.BROADCAST and g[m.operands[0]].size != 1 \
+                and not layout_member(m, g):
+            return 0
+    return n
 
 
 class _Emitter:
-    def __init__(self, p: FusionPattern, ana: StitchAnalysis, rb: int):
+    """Renders a pattern in one of two layouts.  ``"rows"``: each program
+    owns ``block_r`` rows of R, a value a register tile of its padded
+    trailing dims.  ``"flat"`` (:func:`flat_elements`, chosen here unless
+    ``layout="rows"`` is asked): each program owns ``block`` consecutive
+    elements, 16-byte accesses, enough programs to spread a decode step's
+    few rows over the SMs; every element's arithmetic is the rows layout's
+    expression for expression, so the outputs are the same bits."""
+
+    def __init__(self, p: FusionPattern, ana: StitchAnalysis, rb: int,
+                 layout: str | None = None):
         self.p = p
         self.g = p.graph
         self.ana = ana
@@ -699,6 +826,27 @@ class _Emitter:
         tile = self.block_r * widest
         self.num_warps = (1 if tile <= 256 else 2 if tile <= 1024
                           else 4 if tile <= 4096 else 8)
+        self.flat = flat_elements(p, ana) if layout != "rows" else 0
+        if self.flat:
+            names = list(p.external_inputs) + [n.name for n in p.compute_members]
+            item = max(1 if str(self.g[n].dtype) == "bool"
+                       else canonical_dtype(self.g[n].dtype).itemsize
+                       for n in names)
+            vec = max(1, 16 // item)
+            if -(-self.flat // (32 * vec)) <= FLAT_PROGRAMS:
+                num_warps, block = 1, 32 * vec
+            else:
+                num_warps, block = 4, 4 * 4 * 32 * vec
+            grid = -(-self.flat // block)
+            # flat only where it spreads the work over at least as many
+            # programs as the rows layout: on the card a decode step's adds
+            # ran faster flat, while index patterns whose rows layout already
+            # gave 32-1280 one-warp programs ran as fast or faster in it
+            if grid < self.grid:
+                self.flat = 0
+            else:
+                self.num_warps, self.block, self.grid = num_warps, block, grid
+                self.block_r = block       # a flat value's tile: (block,)
 
     # -- small helpers ---------------------------------------------------------
     def var(self) -> str:
@@ -745,6 +893,9 @@ class _Emitter:
 
     def new_val(self, name: str) -> _Val:
         node = self.g[name]
+        if self.flat:               # a flat value is N elements or a scalar
+            return _Val(self.var(), node.size == self.flat, (),
+                        str(node.dtype))
         row = self.ana.roles[name] == ROW
         return _Val(self.var(), row, _kernel_dims(node.shape, row),
                     str(node.dtype))
@@ -768,6 +919,8 @@ class _Emitter:
         in_arg = {name: f"in{i}" for i, name in enumerate(order)}
         out_arg = {name: f"out{j}" for j, name in enumerate(outs)}
         self.lines = []
+        if self.flat:
+            return self._run_flat(order, outs, in_arg, out_arg, params)
         self.emit("prog = tl.program_id(0)")
         for s, sub in enumerate(self.subgraphs):
             self.vals = {}
@@ -805,6 +958,55 @@ class _Emitter:
             block_r=self.block_r, grid=self.grid, num_warps=self.num_warps,
             in_names=order, out_names=outs,
             out_dtypes=[str(g[n].dtype) for n in outs])
+
+    def _run_flat(self, order, outs, in_arg, out_arg, params) -> _Emitted:
+        p, g, n = self.p, self.g, self.flat
+        start = "tl.program_id(0)" + (".to(tl.int64)" if n >= 2 ** 31 else "")
+        self.emit(f"offs = {start} * {self.block} + tl.arange(0, {self.block})")
+        if any(g[o].size == 1 for o in outs):
+            self.emit("pid = tl.program_id(0)")
+        mask = None if n % self.block == 0 else f"offs < {n}"
+        for name in order:
+            v = self.new_val(name)
+            self.vals[name] = v
+            val = (f"tl.load({in_arg[name]})" if not v.row else
+                   f"tl.load({in_arg[name]} + offs"
+                   + (f", mask={mask}, other=0)" if mask else ")"))
+            if v.dtype == "bool":
+                val = f"({val} != 0)"
+            self.emit(f"{v.var} = {val}")
+        for node in self.subgraphs[0]:
+            v = self.new_val(node.name)
+            ops = [self.vals[o] for o in node.operands]
+            if node.kind is OpKind.ELEMENTWISE:
+                self.emit(f"{v.var} = {self.elementwise(node, ops)}")
+            elif node.kind is OpKind.BROADCAST and v.row and not ops[0].row:
+                self.emit(f"{v.var} = {self.broadcast(node, ops[0], v)}")
+            else:                   # the same elements in the same order
+                v = _Val(ops[0].var, v.row, v.dims, v.dtype)
+            self.vals[node.name] = v
+        for name in outs:
+            v = self.vals[name]
+            val = f"{v.var}.to(tl.int8)" if v.dtype == "bool" else v.var
+            if not v.row:
+                self.emit(f"tl.store({out_arg[name]}, {val}, mask=pid == 0)")
+            else:
+                m = f", mask={mask}" if mask else ""
+                self.emit(f"tl.store({out_arg[name]} + offs, {val}{m})")
+        body = "\n".join(self.lines)
+        src = (f"@triton.jit\ndef stitched_kernel({', '.join(params)}):\n"
+               f"{body}\n")
+        # the source leaves out N where no mask needs it: the digest keeps
+        # each N's kernel (its launches, its check on the card) apart
+        digest = hashlib.sha1(f"{n}\n{src}".encode()).hexdigest()[:16]
+        header = (f"# generated stitched kernel {digest}: "
+                  f"{len(p.compute_members)} ops, flat over {n} elements, "
+                  f"block={self.block}, grid={self.grid}\n")
+        return _Emitted(
+            source=_HEADER + header + src, digest=digest, block_r=0,
+            grid=self.grid, num_warps=self.num_warps, in_names=order,
+            out_names=outs, out_dtypes=[str(g[n].dtype) for n in outs],
+            layout="flat", block=self.block)
 
     def load(self, name: str, ptr: str) -> None:
         node = self.g[name]
@@ -996,18 +1198,34 @@ except ImportError:  # older Triton releases
 # ---------------------------------------------------------------------------
 
 _LAUNCHES: dict[str, int] = {}       # kernel digest -> launches
+_VIEWS: dict[str, int] = {}          # view pattern digest -> calls
+_VIEW_COPIES: dict[str, int] = {}    # view pattern digest -> outputs copied
 _MODULES: dict[str, object] = {}     # kernel digest -> imported module
 
 
 def reset_launch_counts() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
+    """Zero the launch, view and view-copy counts."""
+    for counts in (_LAUNCHES, _VIEWS, _VIEW_COPIES):
+        for k in counts:
+            counts[k] = 0
 
 
 def launch_counts() -> dict[str, int]:
     """Launches per generated kernel (by source digest) since the last
     :func:`reset_launch_counts`."""
     return dict(_LAUNCHES)
+
+
+def view_counts() -> dict[str, int]:
+    """Calls per layout-only pattern served as views (by its digest) since
+    the last :func:`reset_launch_counts`; none of them launches."""
+    return dict(_VIEWS)
+
+
+def view_copy_counts() -> dict[str, int]:
+    """Outputs of those calls that ``reshape`` had to copy (an input whose
+    strides admit no view), by digest."""
+    return dict(_VIEW_COPIES)
 
 
 def build_dir() -> Path:
@@ -1113,14 +1331,71 @@ class StitchedKernel:
         return tuple(result)
 
 
-def build_stitched_callable(p: FusionPattern, *,
-                            row_block: int | None = None) -> StitchedKernel:
+class StitchedView:
+    """A layout-only pattern (:func:`layout_only`) served with no kernel:
+    each output is its input's elements, in their order, under the output's
+    shape, so ``f(*external_inputs) -> tuple(outputs)`` gives it as a view
+    of the input (``reshape``; a transpose of size-1 axes and a broadcast
+    adding size-1 dims are reshapes too) on any device, and nothing is
+    built or launched.  Where an input's strides admit no view, ``reshape``
+    copies, as the launch path's ``.contiguous()`` does; an output is made
+    contiguous, as a kernel's is; each copied output is counted
+    (:func:`view_copy_counts`), each call too (:func:`view_counts`)."""
+
+    def __init__(self, p: FusionPattern):
+        g = p.graph
+        self.pattern = p
+        self.out_shapes = [tuple(g[n].shape) for n in p.external_outputs]
+        self.out_dtypes = [str(g[n].dtype) for n in p.external_outputs]
+        self._dtypes = [canonical_dtype(d) for d in self.out_dtypes]
+        ins = p.external_inputs
+        self._roots = []
+        for name in p.external_outputs:
+            while name not in ins:
+                name = g[name].operands[0]
+            self._roots.append(ins.index(name))
+        spec = ";".join(f"{g[ins[r]].shape}->{s}:{d}" for r, s, d in zip(
+            self._roots, self.out_shapes, self.out_dtypes))
+        self.digest = "view_" + hashlib.sha1(spec.encode()).hexdigest()[:11]
+        _VIEWS.setdefault(self.digest, 0)
+        _VIEW_COPIES.setdefault(self.digest, 0)
+
+    def plain(self, *inputs) -> tuple:
+        """The plain PyTorch version: the members evaluated eagerly."""
+        return StitchedKernel.plain(self, *inputs)
+
+    def __call__(self, *inputs) -> tuple:
+        outs, copies = [], 0
+        for r, shape, dt in zip(self._roots, self.out_shapes, self._dtypes):
+            x = inputs[r]
+            if x.dtype == dt and x.is_contiguous():
+                outs.append(x.view(shape))
+                continue
+            y = x.to(dt).reshape(shape).contiguous()
+            copies += y.data_ptr() != x.data_ptr()
+            outs.append(y)
+        _VIEWS[self.digest] += 1
+        if copies:
+            _VIEW_COPIES[self.digest] += copies
+        return tuple(outs)
+
+
+def build_stitched_callable(p: FusionPattern, *, row_block: int | None = None,
+                            layout: str | None = None):
     """Emit the fused kernel.  Returns ``f(*external_inputs) -> tuple(outputs)``
-    (input/output order = ``p.external_inputs`` / ``p.external_outputs``).
+    (input/output order = ``p.external_inputs`` / ``p.external_outputs``):
+    a :class:`StitchedView` for a layout-only pattern that :func:`view_refusal`
+    admits, else a :class:`StitchedKernel`, in the flat layout where the
+    pattern computes element by element.  ``layout="rows"`` asks for the
+    kernel in the rows layout whatever the pattern (the card check holds
+    the others against it); the static check and the analysis are the same
+    either way, so plans do not depend on it.
 
     A template's scratch-marked intermediates need no code of their own:
     every intermediate already stays in registers."""
     emit_p, ana = emission_plan(p)
+    if layout is None and layout_only(p) and view_refusal(p) is None:
+        return StitchedView(p)
     rb = row_block or ana.feasible_blocks[0]
-    em = _Emitter(emit_p, ana, rb).run()
+    em = _Emitter(emit_p, ana, rb, layout).run()
     return StitchedKernel(p, ana, em)

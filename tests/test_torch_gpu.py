@@ -261,29 +261,22 @@ ROPE_CASES = [(r, h, 128, 0) for r, h in ROPE_SHAPES] + [
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
-def test_rope_cuda_equals_triton_on_card(dtype, tol):
-    """The CUDA kernel against the Triton kernel it replaced, on the same
-    operands: both round each element's operations alike, so their outputs
-    are equal bit for bit, at positions up to 2^17; neither launch is
-    counted.  At positions below 512, where the plain version's f32 angles
-    stay within the tolerance, the kernel (the op, one launch counted) is
-    held against the plain version."""
+def test_rope_cuda_against_plain_on_card(dtype, tol):
+    """The CUDA kernel against its plain version (the kernel's spec, every
+    step rounded where the kernel rounds it) at positions up to 4096, int32
+    and int64; the uncounted launch equals the op's, which counts one."""
     _need_card()
     from repro_torch.kernels import rope
     gen = torch.Generator().manual_seed(5)
     for i, (rows, heads, hd, pad) in enumerate(ROPE_CASES):
         x = _rand((rows, heads * hd + pad), dtype, 70 + i)[:, :heads * hd]
-        far = torch.randint(0, 1 << 17, (rows,), generator=gen)
-        far = (far if i % 2 else far.to(torch.int32)).cuda()
+        pos = torch.randint(0, 4097, (rows,), generator=gen)
+        pos[0] = 4096
+        pos = (pos if i % 2 else pos.to(torch.int32)).cuda()
         before = dict(rope.launches)
-        new = rope._launch_variant("cuda", x, far, 1e4, hd)
-        old = rope._launch_variant("triton", x, far, 1e4, hd)
+        new = rope._launch_kernel(x, pos, 1e4, hd)
         torch.cuda.synchronize()
         assert dict(rope.launches) == before
-        assert torch.equal(new, old), (rows, heads, hd, pad)
-        pos = torch.randint(0, 512, (rows,), generator=gen).cuda()
-        new = rope._launch_variant("cuda", x, pos, 1e4, hd)
-        assert torch.equal(new, rope._launch_variant("triton", x, pos, 1e4, hd))
         want = rope.rope_plain(x, pos, 1e4, hd).float()
         torch.testing.assert_close(new.float(), want, rtol=tol, atol=tol)
         out = rope.rope_op(x, pos, 1e4, hd)
@@ -299,8 +292,6 @@ def test_rope_kernel_refusals_on_card():
     from repro_torch.kernels import rope
     x = _rand((8, 4 * 128), "bfloat16")
     pos = torch.arange(8, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="unknown variant"):
-        rope._launch_variant("warp", x, pos, 1e4, 128)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         rope.rope_op(x.half(), pos, 1e4, 128)
     with pytest.raises(TypeError, match="int32 or int64"):
@@ -329,7 +320,7 @@ def test_rope_kernel_refusals_on_card():
     assert b"aligned" in lib.repro_cuda_error_string(-5)
     assert call(x.data_ptr(), 2, 4, 8) == 0
     torch.cuda.synchronize()
-    assert torch.equal(out, rope._launch_variant("triton", x, pos, 1e4, 128))
+    assert torch.equal(out, rope._launch_kernel(x, pos, 1e4, 128))
 
 
 @pytest.mark.gpu

@@ -46,7 +46,7 @@ from repro.serve import ServeConfig as RefServeConfig
 from repro_torch.configs import get_reduced
 from repro_torch.core import OpKind, StitchCompiler, V100
 from repro_torch.core.trace import trace_to_graph
-from repro_torch.kernels import ops, registry
+from repro_torch.kernels import ops, registry, stitched
 from repro_torch.models import build_model
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import Engine, ServeConfig
@@ -297,6 +297,24 @@ def test_kernel_mode_decode_plan_fuses_registered_kernels():
     # the emitter leaves custom members to the eager executor: such a group
     # runs as a torch group whose kernel node launches the hand-written kernel
     assert {grp.kind for grp in fused} == {"torch"}
+
+
+def test_stitched_engine_serves_layout_patterns_as_views():
+    """The ref-mode engine's layout-only pattern (a pack of size-1
+    broadcasts in its prefill plan) runs as views, with no kernel (still a
+    ``triton`` group of the plan, whose counts are the reference's), no
+    graph output viewing a graph input; the engine that ran it served, over
+    several decode steps, the tokens of the kernel-mode engine and of the
+    reference."""
+    ref, port, _, ref_eng, ref_toks = served()
+    views = [grp for ex in (ref_eng._prefill_exec, ref_eng._exec)
+             for grp in ex.compiled.groups if grp.kind == "triton"
+             and isinstance(grp.tuned.callable, stitched.StitchedView)]
+    assert views
+    for grp in views:
+        assert stitched.view_refusal(grp.tuned.pattern) is None
+    np.testing.assert_array_equal(ref_toks, port[0])
+    np.testing.assert_array_equal(ref_toks, ref[0])
 
 
 def test_kernel_mode_prefill_at_a_128_bucket_matches_reference_pallas_mode():

@@ -99,6 +99,27 @@ def test_rope_plain_matches_reference_kernel(dtype, tol, shape):
     _close(out, ref_rope.rope(jx, jp, 1e6, block_rows=4), tol)
 
 
+@pytest.mark.parametrize("head_dim,theta", [(128, 1e6), (128, 1e4),
+                                            (256, 1e4)])
+def test_rope_op_matches_reference_rope_to_position_4096(head_dim, theta):
+    """The port's op (on the CPU its plain version, the kernel's spec:
+    freq and the trig functions through f64, each rounded once to f32)
+    against the reference's ``rope`` (interpret mode) in f32 at positions
+    spread over 0-4096 and drawn past 2560 (recurrentgemma's f32 check runs
+    2560 tokens), at 2e-5: an ulp off in freq would be pos ulps off in the
+    angle."""
+    rng = np.random.default_rng(11)
+    L, H = 96, 2
+    x = rng.standard_normal((2, L, H, head_dim)).astype(np.float32)
+    pos = np.stack([np.linspace(0, 4096, L).round(),
+                    rng.integers(2561, 4097, L)]).astype(np.int32)
+    assert pos.min() == 0 and pos.max() == 4096
+    jx, tx = _pair(x, "float32")
+    jp, tp = _pair(pos, "float32")
+    out = rope.rope(tx, tp, theta)
+    _close(out, ref_rope.rope(jx, jp, theta, block_rows=32), 2e-5)
+
+
 # (rows, heads, half, vec): every path's q and k at a decode step (4 rows)
 # and a bucket-256 prefill (1024), in bf16 (8 elements a 16-byte load) and
 # f32 (4); qwen3's bucket-64 prefill; ragged heads and rows; the scalar path

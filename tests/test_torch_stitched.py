@@ -14,6 +14,15 @@ reference's (``repro.kernels.stitched``).
   emitter spells each as an explicit BROADCAST member and renders it; the
   plain version equals the reference's graph function; any other shape
   mismatch is refused.
+* Layout-only patterns (reshapes, transposes of size-1 axes, broadcasts
+  that only add size-1 dims, converts to the same dtype) are served as
+  views: no kernel, the plain version's values exactly, the input's
+  storage; an input whose strides admit no view is copied and counted; a
+  graph output that would view a graph input, or share its bytes with
+  another output, launches a kernel instead.
+* Patterns that compute element by element render in the flat layout
+  (16-byte accesses, programs across the card); ``layout="rows"`` renders
+  the rows layout they had.
 
 The card-only checks of the same kernels are in ``test_torch_gpu.py``.
 """
@@ -34,11 +43,14 @@ from repro.kernels.stitched import StitchInfeasible as RefInfeasible
 from repro.kernels.stitched import analyze_pattern as ref_analyze
 from repro.kernels.stitched import build_stitched_callable as ref_build
 from repro_torch.core import FusionPattern, GraphBuilder, PackPattern
-from repro_torch.kernels.stitched import (MAX_BLOCK_ELEMS, StitchInfeasible,
+from repro_torch.kernels import stitched
+from repro_torch.kernels.stitched import (MAX_BLOCK_ELEMS, StitchedKernel,
+                                          StitchedView, StitchInfeasible,
                                           analyze_pattern,
                                           build_stitched_callable,
                                           check_emittable, emission_plan,
-                                          explicit_broadcasts, fold_rows)
+                                          explicit_broadcasts, fold_rows,
+                                          layout_only, view_refusal)
 from test_torch_gpu import (chain_graph, implicit_broadcast_graph,
                             pack_pattern, prefill_norm_graph)
 from test_torch_planner import GRAPHS, plans, ref_graph, to_port
@@ -291,3 +303,179 @@ def test_other_shape_mismatch_is_refused(other):
     assert explicit_broadcasts(p).members == p.members
     with pytest.raises(StitchInfeasible, match="does not broadcast"):
         emission_plan(p)
+
+
+# (member on x of shape (4, 1, 2048), layout-only?): each pattern is the one
+# member, fed by a graph input and read by an exp outside the pattern
+LAYOUT_CASES = {
+    "reshape": (lambda b, x: b.reshape(x, (4, 2048)), True),
+    "reshape_heads": (lambda b, x: b.reshape(x, (64, 128)), True),
+    "transpose_size1_axis": (lambda b, x: b.transpose(x, (1, 0, 2)), True),
+    "broadcast_adds_size1": (
+        lambda b, x: b.bcast(x, (4, 1, 1, 2048), (0, 1, 3)), True),
+    "convert_same_dtype": (
+        lambda b, x: b.ew("convert", x, dtype="float32"), True),
+    "transpose_real_axis": (lambda b, x: b.transpose(x, (2, 1, 0)), False),
+    "broadcast_expands": (
+        lambda b, x: b.bcast(x, (4, 3, 2048), (0, 1, 2)), False),
+    "convert_changes_dtype": (
+        lambda b, x: b.ew("convert", x, dtype="bfloat16"), False),
+    "add": (lambda b, x: b.ew("add", x, x), False),
+}
+
+
+def _layout_pattern(case):
+    b = GraphBuilder(f"layout_{case}")
+    x = b.param("x", (4, 1, 2048))
+    y = LAYOUT_CASES[case][0](b, x)
+    g = b.build(outputs=[b.ew("exp", y)])
+    return FusionPattern(g, frozenset({y}))
+
+
+@pytest.mark.parametrize("case", list(LAYOUT_CASES))
+def test_layout_only_classification(case):
+    """Which members make a pattern layout-only, and what the emitter
+    builds for it: a view for those, a kernel (or a refusal) for the
+    rest."""
+    p = _layout_pattern(case)
+    want = LAYOUT_CASES[case][1]
+    assert layout_only(p) == want
+    try:
+        k = build_stitched_callable(p)
+    except StitchInfeasible:
+        assert not want
+        return
+    assert isinstance(k, StitchedView) == want
+    assert isinstance(k, StitchedKernel) != want
+
+
+@pytest.mark.parametrize("case", [c for c, (_, v) in LAYOUT_CASES.items() if v])
+def test_view_equals_plain_and_shares_storage(case):
+    """A view pattern's call launches nothing and builds no source: each
+    output is the plain version's values exactly, on the input's storage;
+    the call is counted apart from the launches."""
+    p = _layout_pattern(case)
+    k = build_stitched_callable(p)
+    x = torch.randn(4, 1, 2048, generator=torch.Generator().manual_seed(0))
+    stitched.reset_launch_counts()
+    out, = k(x)
+    want, = k.plain(x)
+    assert torch.equal(out, want) and out.shape == want.shape
+    assert out.dtype == want.dtype and out.is_contiguous()
+    assert out.untyped_storage().data_ptr() == x.untyped_storage().data_ptr()
+    assert stitched.view_counts()[k.digest] == 1
+    assert stitched.view_copy_counts()[k.digest] == 0
+    assert not any(stitched.launch_counts().values())
+    assert not hasattr(k, "source")
+
+
+def test_view_of_a_strided_input_copies_and_counts():
+    """An input whose strides admit no contiguous view (a permuted tensor)
+    is copied by ``reshape``, the copy counted; a contiguous input at an
+    offset is viewed, nothing counted."""
+    k = build_stitched_callable(_layout_pattern("reshape"))
+    gen = torch.Generator().manual_seed(1)
+    stitched.reset_launch_counts()
+    x = torch.randn(2048, 1, 4, generator=gen).permute(2, 1, 0)
+    out, = k(x)
+    assert torch.equal(out, k.plain(x)[0]) and out.is_contiguous()
+    assert out.untyped_storage().data_ptr() != x.untyped_storage().data_ptr()
+    assert stitched.view_copy_counts()[k.digest] == 1
+    big = torch.randn(8, 1, 2048, generator=gen)
+    out, = k(big[4:])
+    assert torch.equal(out, big[4:].reshape(4, 2048))
+    assert out.data_ptr() == big[4:].data_ptr()
+    assert stitched.view_counts()[k.digest] == 2
+    assert stitched.view_copy_counts()[k.digest] == 1
+
+
+def test_views_never_alias_what_callers_hold():
+    """A graph output that would view a graph input (the engine writes its
+    cache and inputs in place), or share its bytes with another graph
+    output, is refused the view route and launches a kernel; a graph
+    output viewing an intermediate is served as a view."""
+    b = GraphBuilder("alias_input")
+    x = b.param("x", (4, 1, 2048))
+    y = b.reshape(x, (4, 2048))
+    g = b.build(outputs=[y])
+    p = FusionPattern(g, frozenset({y}))
+    assert layout_only(p) and "graph input" in view_refusal(p)
+    assert isinstance(build_stitched_callable(p), StitchedKernel)
+
+    b = GraphBuilder("alias_shared")
+    x = b.param("x", (4, 1, 2048))
+    t = b.ew("exp", x)
+    y = b.reshape(t, (4, 2048))
+    g = b.build(outputs=[t, y])
+    p = FusionPattern(g, frozenset({y}))
+    assert "another output" in view_refusal(p)
+    assert isinstance(build_stitched_callable(p), StitchedKernel)
+
+    b = GraphBuilder("alias_intermediate")
+    x = b.param("x", (4, 1, 2048))
+    y = b.reshape(b.ew("exp", x), (4, 2048))
+    g = b.build(outputs=[y])
+    p = FusionPattern(g, frozenset({y}))
+    assert view_refusal(p) is None
+    assert isinstance(build_stitched_callable(p), StitchedView)
+
+
+def _add_reshape_pattern(dtype="bfloat16", d=2048):
+    """A decode step's residual add and its view, (4, 1, d)."""
+    b = GraphBuilder("add_reshape")
+    x = b.param("x", (4, 1, d), dtype)
+    r = b.param("r", (4, 1, d), dtype)
+    h = b.ew("add", x, r)
+    y = b.reshape(h, (4, d))
+    g = b.build(outputs=[h, b.ew("exp", y)])
+    return FusionPattern(g, frozenset({h, y}))
+
+
+@pytest.mark.parametrize("dtype,d,block,grid", [
+    ("bfloat16", 2048, 256, 32), ("bfloat16", 6144, 256, 96),
+    ("float32", 2048, 128, 64), ("int64", 2048, 64, 128)])
+def test_flat_layout_spreads_elementwise_patterns(dtype, d, block, grid):
+    """An element-by-element pattern renders flat: each program 16 bytes a
+    thread (of its widest value) of one warp over consecutive elements, the decode step's 4 rows
+    over many programs; ``layout="rows"`` renders the rows layout (one or
+    two programs) with the same member expressions, and both plain versions
+    agree."""
+    p = _add_reshape_pattern(dtype, d)
+    k = build_stitched_callable(p)
+    em = k.emitted
+    assert (em.layout, em.block, em.grid, em.num_warps) == ("flat", block,
+                                                            grid, 1)
+    assert f"offs = tl.program_id(0) * {block} + tl.arange(0, {block})" \
+        in k.source and "mask" not in k.source
+    compile(k.source, "<flat>", "exec")
+    rows = build_stitched_callable(p, layout="rows")
+    assert rows.emitted.layout == "rows" and rows.emitted.grid <= 2
+    add = [ln.strip() for ln in k.source.splitlines()
+           if ln.strip().startswith("v3 = ")]
+    assert len(add) == 1 and "v1" in add[0] and "v2" in add[0]
+    assert add[0] in [ln.strip() for ln in rows.source.splitlines()]
+    gen = torch.Generator().manual_seed(2)
+    ins = [torch.randn(4, 1, d, generator=gen).to(getattr(torch, dtype))
+           for _ in range(2)]
+    for a, b_ in zip(k(*ins), rows(*ins)):
+        assert torch.equal(a, b_)
+
+
+def test_reductions_and_packs_keep_the_rows_layout():
+    """A pattern with a row reduction, a horizontal pack, and a pattern
+    whose rows layout already spreads over more programs than the flat one
+    would (8192 one-element rows of int32: 1024 programs of 8 rows, flat
+    64) keep the rows layout; a ragged flat pattern masks its tail."""
+    g = chain_graph(12, 100, "bfloat16")
+    p = FusionPattern(g, frozenset(n.name for n in g.compute_nodes()))
+    assert build_stitched_callable(p).emitted.layout == "rows"
+    assert build_stitched_callable(pack_pattern(),
+                                   row_block=8).emitted.layout == "rows"
+    b = GraphBuilder("index_add")
+    x = b.param("x", (8192,), "int32")
+    y = b.ew("add", x, x)
+    g = b.build(outputs=[b.ew("mul", y, y)])
+    k = build_stitched_callable(FusionPattern(g, frozenset({y})))
+    assert (k.emitted.layout, k.emitted.grid) == ("rows", 1024)
+    k = build_stitched_callable(_add_reshape_pattern("float32", 100))
+    assert k.emitted.layout == "flat" and "mask=offs < 400" in k.source

@@ -152,6 +152,24 @@ def test_idiom_traces_as_jnp(idiom):
     assert _nodes(g) == _nodes(rg)
 
 
+def _two_index_expressions(p):
+    y = p[:, None]
+    return y[..., None] * 2.0
+
+
+def test_two_index_expressions_trace_as_jnp():
+    """Two indexing expressions whose unsqueezes sit next to each other in
+    the ATen graph (``y = p[:, None]``, then ``y[..., None]``, nothing
+    traced between them) stay two BROADCASTs, as jnp traces them; one
+    expression's (``p[:, None, :, None]``, the ``index_none`` idiom) stays
+    one."""
+    x, = _rng_arrays((2, 16))
+    rg, _ = ref_trace(_two_index_expressions, jnp.asarray(x))
+    g, _ = trace_to_graph(_two_index_expressions, torch.as_tensor(x))
+    assert _nodes(g) == _nodes(rg)
+    assert sum(n.kind.name == "BROADCAST" for n in g.compute_nodes()) == 2
+
+
 def test_take_along_axis_traces_as_jnp():
     """The gold logit's gather: the (B, 1) index, its wrap, the index
     reshaped to (B, 1, 1) and one gather node, as ``jnp.take_along_axis``
