@@ -2543,14 +2543,15 @@ SSM_TOL = {"loss": 5.5e-4, "block": 3.8e-3}
 # 5.0e-5, block 0, 0 and 2.8e-3 (0 where the kernel's f32 recurrence
 # rounds to the oracle's bf16 values everywhere, 2.8e-3 where one element
 # takes the neighbouring bf16 value); each limit is 1.35x its largest
-# reading, rounded up.
+# reading, rounded up.  The loss reading is noise at about 1e-4, past its
+# limit, for sound kernels: over seeds 0-4 the CUDA-core flash kernel reads
+# up to 1.32e-4 and the Hopper one with expf up to 1.28e-4, while
+# lower-precision copies (p in one bf16 part, the RG-LRU's state or decay
+# in bf16) read at most 1.17e-4 (examples/torch_hybrid_loss_noise.py).  No
+# such copy fails a limit over the sound readings, so the limit stays; the
+# kernels are held by scoring_phase's per-launch f64 check of flash, and
+# the block and f32 checks.
 HYBRID_TOL = {"loss": 6.8e-5, "block": 3.8e-3}
-# the hybrid bf16 check takes seeds 0-4: the Hopper flash kernel, summing
-# S over the head width and O over the key tiles inside the tensor core,
-# read the loss up to 1.8e-4 at seed 4 and was less accurate than the
-# CUDA-core kernel against f64; with both sums by f32 adds it is the more
-# accurate of the two on every launch (examples/torch_hybrid_loss_noise.py)
-HYBRID_SEEDS = 5
 # the hybrid f32 check: one sequence of 2560 tokens, so that the 2048-token
 # window masks keys in the flash kernel (the eager side takes the chunked
 # attention, 512 query rows a chunk)
@@ -2654,16 +2655,19 @@ def init_line(cfg, params, secs):
           f"in {secs:.1f}s")
 
 
-def scoring_phase(dev, checked, arch, name, tol, n_layers=None,
-                  seeds=LOGIT_SEEDS):
+def scoring_phase(dev, checked, arch, name, tol, n_layers=None):
     """Full-width ``arch`` (random weights from a seed; ``n_layers`` of
     them when given) scored in kernel
     mode through ``stitch(train_forward)`` at 4 x 256 tokens: exactly the
     config's launches a call (``expected_launches``); every kernel of the
     path against its plain version and timed.  Then ``stitch(block_fn)``
-    on the first block (``block_launches`` a call).  Then, over ``seeds``
-    weight seeds, the bf16 loss and the block output against the eager
-    ref-mode model, each under ``tol``."""
+    on the first block (``block_launches`` a call).  Then, over
+    ``LOGIT_SEEDS`` weight seeds, the bf16 loss and the block output
+    against the eager ref-mode model, each under ``tol``; and every bf16
+    flash launch of those scoring calls run again on the Hopper and the
+    CUDA-core kernel and held against an f64 attention: the Hopper kernel
+    may be off the f64 value in bf16 on no larger a share of outputs than
+    the CUDA-core kernel at any launch."""
     from dataclasses import replace
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -2738,8 +2742,10 @@ def scoring_phase(dev, checked, arch, name, tol, n_layers=None,
                          btag)
     del bres, brun, run
 
+    from repro_torch.kernels import flash_attention
     readings = {"loss": [], "block": []}
-    for s in range(seeds):
+    flash_rows = []
+    for s in range(LOGIT_SEEDS):
         if s:
             # the old weights go first: two full-width f32 copies do not
             # fit beside the activations
@@ -2748,18 +2754,40 @@ def scoring_phase(dev, checked, arch, name, tol, n_layers=None,
             params = model.init(SEED + s, dev)
             lp = block_params(model, params)
         b, xs = score_batch(cfg, SEED + s, dev), block_input(cfg, SEED + s, dev)
-        st, ea = float(sf(params, b)[0]), float(model.train_forward(params, b)[0])
+        launches = []
+        with recorded_flash(launches):
+            st = float(sf(params, b)[0])
+        ea = float(model.train_forward(params, b)[0])
         readings["loss"].append(abs(st - ea) / abs(ea))
         readings["block"].append(rel_diff(bf(lp, xs).float(),
                                           model.block_fn(lp, xs).float()))
         print(f"{tag} bf16 vs ref-mode eager ({cfg.n_layers}L, seed "
               f"{SEED + s}): loss {st:.6f} vs {ea:.6f} rel={readings['loss'][-1]:.6g} "
               f"block_fn rel={readings['block'][-1]:.6g}")
+        if launches:
+            rows = flash_against_f64(launches, {
+                v: functools.partial(flash_attention._launch_variant, v)
+                for v in ("sm90", "simt")})
+            del launches
+            flash_rows += rows
+            print(f"{tag} bf16 flash vs f64 (seed {SEED + s}, {len(rows)} "
+                  f"launches): worst max err / max |f64|, share off f64 in "
+                  f"bf16: " + " ".join(
+                      f"{v}={max(r[v][0] for r in rows):.4g}/"
+                      f"{max(r[v][1] for r in rows):.4g}"
+                      for v in ("sm90", "simt"))
+                  + "; launches where sm90's share exceeds simt's: "
+                  + str(sum(r["sm90"][1] > r["simt"][1] for r in rows)))
     print(f"{tag} bf16: tol={tol} sound max loss="
           f"{max(readings['loss']):.6g} block={max(readings['block']):.6g}")
     if not all(np.isfinite(r) and r <= tol[what]
                for what, rs in readings.items() for r in rs):
         fail(f"{tag} bf16 readings disagree with the ref-mode eager model")
+    worse = sum(r["sm90"][1] > r["simt"][1] for r in flash_rows)
+    if worse:
+        fail(f"{tag}: the Hopper flash kernel is off the f64 attention on more "
+             f"outputs than the CUDA-core kernel at {worse} of "
+             f"{len(flash_rows)} launches")
     return kernels
 
 
@@ -2771,6 +2799,60 @@ def attn_block(model, params, x):
     B, S, _ = x.shape
     pos = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     return griffin._attn_block(params["supers"][0]["l2"], x, model.cfg, pos)
+
+
+def attention_f64(qt, kt, vt, scale, causal=True, window=None, q_offset=0):
+    """The flash kernels' function in f64 (masked scores -1e30)."""
+    B, Hq, Lq, Dh = qt.shape
+    Hkv, Lkv = kt.shape[1], kt.shape[2]
+    g = Hq // Hkv
+    q = qt.double().reshape(B, Hkv, g, Lq, Dh)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", q, kt.double()) * scale
+    qpos = q_offset + torch.arange(Lq, device=qt.device)[:, None]
+    kpos = torch.arange(Lkv, device=qt.device)[None, :]
+    valid = torch.ones(Lq, Lkv, dtype=torch.bool, device=qt.device)
+    if causal:
+        valid &= qpos >= kpos
+    if window is not None:
+        valid &= qpos - kpos < window
+    s = torch.where(valid, s, torch.full_like(s, -1e30))
+    o = torch.einsum("bhgqk,bhkd->bhgqd", torch.softmax(s, -1), vt.double())
+    return o.reshape(B, Hq, Lq, Dh)
+
+
+@contextlib.contextmanager
+def recorded_flash(into: list):
+    """Append every flash launch's operands (copies, their strides kept)
+    and arguments to ``into`` while the block runs."""
+    from repro_torch.kernels import flash_attention
+    launch = flash_attention._launch_variant
+
+    def record(variant, qt, kt, vt, *rest):
+        into.append((qt.clone(), kt.clone(), vt.clone(), *rest))
+        return launch(variant, qt, kt, vt, *rest)
+
+    flash_attention._launch_variant = record
+    try:
+        yield into
+    finally:
+        flash_attention._launch_variant = launch
+
+
+def flash_against_f64(launches, kernels: dict) -> list:
+    """Each recorded flash launch run on each of ``kernels`` (name: a
+    function of the launch's operands and arguments) and held against
+    ``attention_f64``: per launch ``{name: (max |out - f64| / max |f64|,
+    the share of outputs that are not the f64 value rounded to bf16)}``."""
+    rows = []
+    for qt, kt, vt, *rest in launches:
+        ref = attention_f64(qt, kt, vt, *rest)
+        ref_bf16, top = ref.to(torch.bfloat16), float(ref.abs().max())
+        rows.append({})
+        for name, fn in kernels.items():
+            o = fn(qt, kt, vt, *rest)
+            rows[-1][name] = (float((o.double() - ref).abs().max()) / top,
+                              float((o != ref_bf16).double().mean()))
+    return rows
 
 
 def attn_block_launches(cfg) -> dict:
@@ -3630,11 +3712,10 @@ def main() -> int:
     kernels += rows
     print(f"moe phase: {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
-    for name, arch, tol, layers, seeds in (
-            ("ssm", SSM_ARCH, SSM_TOL, SSM_LAYERS, LOGIT_SEEDS),
-            ("hybrid", HYBRID_ARCH, HYBRID_TOL, None, HYBRID_SEEDS)):
+    for name, arch, tol, layers in (("ssm", SSM_ARCH, SSM_TOL, SSM_LAYERS),
+                                    ("hybrid", HYBRID_ARCH, HYBRID_TOL, None)):
         t0 = time.perf_counter()
-        kernels += scoring_phase(dev, checked, arch, name, tol, layers, seeds)
+        kernels += scoring_phase(dev, checked, arch, name, tol, layers)
         # the phase's weights go before the next one's are made
         gc.collect()
         torch.cuda.empty_cache()

@@ -2,30 +2,34 @@
 each flash kernel's error against an f64 attention.
 
 ``chip_smoke.py`` holds full-width recurrentgemma-9b's kernel-mode scoring
-loss against the eager ref-mode model's over several weight seeds, at a
-limit of 6.8e-5 (|diff| / |eager|).  This script takes the same reading
-over more seeds with flash attention on each of its two kernels: the
-Hopper one (``"sm90"``, what kernel mode runs) and the CUDA-core one
-(``"simt"``), and on probes of the Hopper kernel that change one term of
-its arithmetic each (copies of its source under ``build/flash_probe``,
-never a switch of the program):
+loss against the eager ref-mode model's over several weight seeds
+(|diff| / |eager|, limit ``HYBRID_TOL["loss"]``).  This script takes the
+same reading over more seeds with flash attention on each of its two
+kernels: the Hopper one (``"sm90"``, what kernel mode runs) and the
+CUDA-core one (``"simt"``), and on probes of the Hopper kernel that change
+one term of its arithmetic each (copies of its source under
+``build/flash_probe``, never a switch of the program):
 
-* ``sm90_s_tc``: S = Q K^T summed over the head width inside the tensor
-  core, one ``wgmma`` group, as the kernel did before its repair (it now
-  adds each 16-wide k-step's product to S by f32 adds);
-* ``sm90_pv_tc``: O summed over the key tiles inside the tensor core, as
-  before the repair (each tile's P V now goes to a zeroed fragment, added
-  to O by f32 adds);
 * ``sm90_expf``: the softmax on the unfolded scores, ``expf`` of their
   difference from the row's max, as the CUDA-core kernel takes it (the
-  kernel folds log2(e) into the scale and calls ``exp2f``).
+  kernel folds log2(e) into the scale and calls ``exp2f``);
+* ``sm90_p_bf16``: V multiplied by p rounded once to bf16, where the
+  kernel keeps p's f32 value in three bf16 parts.
+
+It also takes the reading with two lower-precision copies of the RG-LRU
+kernel (the Hopper flash kernel beside them): ``rg_lru_bf16_state``, the
+chain's state rounded to bf16 at every step, and ``rg_lru_bf16_decay``,
+the chain's decay a rounded to bf16.  A limit over the sound kernels'
+readings that such a copy still fails could replace the check's limit
+(ROADMAP, "How each slice is held").
 
 For every seed it also holds each flash launch of the scoring call, every
-kernel on the same operands, against an f64 attention: the largest error
-over the largest |f64| value, and the share of outputs that are not the
-f64 value rounded to bf16, and on how many launches the Hopper kernel's
-share exceeds the CUDA-core kernel's; and each kernel's device us a
-launch on the first seed's first launch (a CUDA-graph replay).  Needs one card:
+kernel on the same operands, against an f64 attention
+(``chip_smoke.flash_against_f64``): the largest error over the largest
+|f64| value, and the share of outputs that are not the f64 value rounded
+to bf16, and on how many launches the Hopper kernel's share exceeds the
+CUDA-core kernel's; and each kernel's device us a launch on the first
+seed's first launch (a CUDA-graph replay).  Needs one card:
 
     PYTHONPATH=src python3 examples/torch_hybrid_loss_noise.py [seeds]
 """
@@ -39,167 +43,64 @@ from pathlib import Path
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-import chip_smoke  # noqa: E402  (the card check's batch and stitch helpers)
+import chip_smoke  # noqa: E402  (the card check's batch, stitch, f64 helpers)
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build, flash_attention  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 
-# the sound text of the Hopper kernel and what each probe puts in its place
-# (every occurrence)
-_SCORES = """#pragma unroll
-    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
-#pragma unroll 1
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      float st[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) st[i] = 0.f;
-      fence_regs(st);
-      wgmma_fence();
-      wgmma_ss(st,
-               desc(q_addr + (kk / 4) * L::kQChunk + (kk % 4) * 32, 16, 1024),
-               desc(k_addr + (kk / 4) * L::kKVChunk + (kk % 4) * 32, 16,
-                    1024),
-               0);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(st);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) sc[i] += st[i];
-    }
-"""
-_SCORES_TC = """    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)
-      wgmma_ss(sc,
-               desc(q_addr + (kk / 4) * L::kQChunk + (kk % 4) * 32, 16, 1024),
-               desc(k_addr + (kk / 4) * L::kKVChunk + (kk % 4) * 32, 16,
-                    1024),
-               kk > 0);
-    wgmma_commit();
-    wgmma_wait_all();
-"""
-_PV = """    float pv[kPv][32];
-#pragma unroll
-    for (int c0 = 0; c0 < L::kChunks; c0 += kPv) {
-#pragma unroll
-      for (int j = 0; j < kPv; ++j) {
-#pragma unroll
-        for (int i = 0; i < 32; ++i) pv[j][i] = 0.f;
-        fence_regs(pv[j]);
-      }
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-        for (int j = 0; j < kPv; ++j) {
-          const uint64_t dv = desc(
-              v_addr + (c0 + j) * L::kKVChunk + ks * 16 * kChunkRowBytes,
-              L::kKVChunk, 1024);
-#pragma unroll
-          for (int i = 0; i < 3; ++i)
-            wgmma_rs(pv[j], pa[ks][0][i], pa[ks][1][i], pa[ks][2][i],
-                     pa[ks][3][i], dv);
-        }
-      wgmma_commit();
-      if (c0 + kPv < L::kChunks || !kPvBesideScores) {
-        wgmma_wait_all();
-#pragma unroll
-        for (int j = 0; j < kPv; ++j) {
-          fence_regs(pv[j]);
-#pragma unroll
-          for (int i = 0; i < 32; ++i) o[c0 + j][i] += pv[j][i];
-        }
-      }
-    }
-    if (more) {
-      mbar_wait(k_full + (t + 1) % kStages, ((t + 1) / kStages) & 1);
-      scores(sn, t + 1);
-    }
-    wgmma_wait_all();
-    if (kPvBesideScores) {
-#pragma unroll
-      for (int j = 0; j < kPv; ++j) {
-        fence_regs(pv[j]);
-#pragma unroll
-        for (int i = 0; i < 32; ++i)
-          o[L::kChunks - kPv + j][i] += pv[j][i];
-      }
-    }
-"""
-_PV_TC = """#pragma unroll
-    for (int c = 0; c < L::kChunks; ++c) fence_regs(o[c]);
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-      for (int c = 0; c < L::kChunks; ++c) {
-        const uint64_t dv =
-            desc(v_addr + c * L::kKVChunk + ks * 16 * kChunkRowBytes,
-                 L::kKVChunk, 1024);
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-          wgmma_rs(o[c], pa[ks][0][i], pa[ks][1][i], pa[ks][2][i],
-                   pa[ks][3][i], dv);
-      }
-    wgmma_commit();
-    if (more) {
-      mbar_wait(k_full + (t + 1) % kStages, ((t + 1) / kStages) & 1);
-      scores(sn, t + 1);
-    }
-    wgmma_wait_all();
-#pragma unroll
-    for (int c = 0; c < L::kChunks; ++c) fence_regs(o[c]);
-"""
+# each probe's source (a CUDA stem) and edits of it: (sound text, what the
+# probe puts in its place, every occurrence)
 PROBES = {
-    "sm90_s_tc": [(_SCORES, _SCORES_TC)],
-    "sm90_pv_tc": [(_PV, _PV_TC)],
-    "sm90_expf": [("scale * kLog2e, causal", "scale, causal"),
-                  ("exp2f(", "expf(")],
+    "sm90_expf": ("flash_attention_sm90",
+                  [("scale * kLog2e, causal", "scale, causal"),
+                   ("exp2f(", "expf(")]),
+    "sm90_p_bf16": ("flash_attention_sm90",
+                    [("    x0 -= hf.x;\n    x1 -= hf.y;\n",
+                      "    x0 = 0.f;\n    x1 = 0.f;\n")]),
+    "rg_lru_bf16_state": ("rg_lru",
+                          [("h = __fadd_rn(__fmul_rn(av[j], h), gv[j]);",
+                            "h = __bfloat162float(__float2bfloat16(__fadd_rn("
+                            "__fmul_rn(av[j], h), gv[j])));")]),
+    "rg_lru_bf16_decay": ("rg_lru",
+                          [("h = __fadd_rn(__fmul_rn(av[j], h), gv[j]);",
+                            "h = __fadd_rn(__fmul_rn(__bfloat162float("
+                            "__float2bfloat16(av[j])), h), gv[j]);")]),
 }
-KERNELS = ("sm90", *PROBES, "simt")
+KERNELS = ("sm90", "sm90_expf", "sm90_p_bf16", "simt")
+RG_LRU = ("rg_lru_bf16_state", "rg_lru_bf16_decay")
 
 
-def probe_libraries() -> dict:
-    """Each probe's copy of the Hopper kernel's source, built with nvcc
-    (all at once) into ``build/flash_probe/<probe>``."""
-    src = (build.CSRC / "flash_attention_sm90.cu").read_text()
-    dirs = {}
-    for name, edits in PROBES.items():
-        text = src
+def probe_sources() -> dict:
+    """Each probe's (CUDA stem, source text)."""
+    out = {}
+    for name, (stem, edits) in PROBES.items():
+        text = (build.CSRC / f"{stem}.cu").read_text()
         for sound, probe in edits:
             if sound not in text:
-                raise SystemExit(f"probe {name}: the kernel lost {sound!r}")
+                raise SystemExit(f"probe {name}: {stem} lost {sound!r}")
             text = text.replace(sound, probe)
+        out[name] = (stem, text)
+    return out
+
+
+def probe_libraries() -> tuple[dict, dict]:
+    """Each of ``probe_sources`` built with nvcc (all at once) into
+    ``build/flash_probe/<name>``: the flash copies and the RG-LRU ones."""
+    from repro_torch.kernels import rg_lru
+    dirs = {}
+    for name, (stem, text) in probe_sources().items():
         d = build.build_dir().parent / "flash_probe" / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / "flash_attention_sm90.cu").write_text(text)
-        dirs[name] = d
+        (d / f"{stem}.cu").write_text(text)
+        dirs[name] = (stem, d)
     with ThreadPoolExecutor(len(dirs)) as ex:
-        paths = dict(zip(dirs, ex.map(
-            lambda d: build.library("flash_attention_sm90", d, d),
-            dirs.values())))
-    return {name: flash_attention.bind(ctypes.CDLL(str(p)))
-            for name, p in paths.items()}
-
-
-def attention_f64(qt, kt, vt, scale, causal=True, window=None, q_offset=0):
-    """The plain version's function in f64: masked scores -1e30."""
-    B, Hq, Lq, Dh = qt.shape
-    Hkv, Lkv = kt.shape[1], kt.shape[2]
-    g = Hq // Hkv
-    q = qt.double().reshape(B, Hkv, g, Lq, Dh)
-    s = torch.einsum("bhgqd,bhkd->bhgqk", q, kt.double()) * scale
-    qpos = q_offset + torch.arange(Lq, device=qt.device)[:, None]
-    kpos = torch.arange(Lkv, device=qt.device)[None, :]
-    valid = torch.ones(Lq, Lkv, dtype=torch.bool, device=qt.device)
-    if causal:
-        valid &= qpos >= kpos
-    if window is not None:
-        valid &= qpos - kpos < window
-    s = torch.where(valid, s, torch.full_like(s, -1e30))
-    o = torch.einsum("bhgqk,bhkd->bhgqd", torch.softmax(s, -1), vt.double())
-    return o.reshape(B, Hq, Lq, Dh)
+        paths = dict(zip(dirs, ex.map(lambda job: build.library(job[0], job[1],
+                                                                job[1]),
+                                      dirs.values())))
+    return ({n: flash_attention.bind(ctypes.CDLL(str(paths[n])))
+             for n in KERNELS if n in paths},
+            {n: rg_lru.bind(ctypes.CDLL(str(paths[n]))) for n in RG_LRU})
 
 
 class Kernels:
@@ -233,21 +134,11 @@ def launch_errors(kern, launches) -> tuple[dict, int]:
     / max |f64|, and the largest share of outputs that are not the f64
     value rounded to bf16; and on how many launches the Hopper kernel's
     share exceeds the CUDA-core kernel's."""
-    out = {k: [0.0, 0.0] for k in KERNELS}
-    worse = 0
-    for qt, kt, vt, *rest in launches:
-        ref = attention_f64(qt, kt, vt, *rest)
-        ref_bf16 = ref.to(torch.bfloat16)
-        top = float(ref.abs().max())
-        share = {}
-        for k in KERNELS:
-            o = kern.run(k, qt, kt, vt, *rest)
-            err = float((o.double() - ref).abs().max()) / top
-            share[k] = float((o != ref_bf16).double().mean())
-            out[k][0] = max(out[k][0], err)
-            out[k][1] = max(out[k][1], share[k])
-        worse += share["sm90"] > share["simt"]
-    return out, worse
+    rows = chip_smoke.flash_against_f64(launches, {
+        k: (lambda *a, k=k: kern.run(k, *a)) for k in KERNELS})
+    out = {k: [max(r[k][0] for r in rows), max(r[k][1] for r in rows)]
+           for k in KERNELS}
+    return out, sum(r["sm90"][1] > r["simt"][1] for r in rows)
 
 
 def main(seeds: int = 5) -> None:
@@ -259,14 +150,16 @@ def main(seeds: int = 5) -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=False).stdout.strip())
-    kern = Kernels(probe_libraries())
+    from repro_torch.kernels import rg_lru
+    libs, rg_libs = probe_libraries()
+    kern = Kernels(libs)
     cfg = get_config("recurrentgemma-9b")
     model = build_model(cfg)
     params = model.init(0, dev)
     batch = chip_smoke.score_batch(cfg, 0, dev)
     score = chip_smoke.stitched_call("hybrid score", model.train_forward,
                                      (params, batch), dev)
-    worst = dict.fromkeys(KERNELS, 0.0)
+    worst = dict.fromkeys((*KERNELS, *RG_LRU), 0.0)
     for seed in range(seeds):
         if seed:
             params = None
@@ -284,6 +177,16 @@ def main(seeds: int = 5) -> None:
                 kern.kernel = "sm90"
             if k == "sm90":
                 launches, kern.recording = kern.recording, None
+            row[k] = abs(loss - eager) / abs(eager)
+            worst[k] = max(worst[k], row[k])
+        rg_lru._lib()
+        sound = rg_lru._LIB
+        for k, lib in rg_libs.items():
+            rg_lru._LIB = lib
+            try:
+                loss = float(score(params, batch)[0])
+            finally:
+                rg_lru._LIB = sound
             row[k] = abs(loss - eager) / abs(eager)
             worst[k] = max(worst[k], row[k])
         (errs, worse), n = launch_errors(kern, launches), len(launches)

@@ -35,11 +35,13 @@
 //   chunk of shared memory.
 // - S = Q K^T: wgmma.m64n64k16 with both operands K-major in shared memory
 //   (128-byte swizzle; a k-step of 16 moves the descriptor's start by 32
-//   bytes inside a chunk).  Each k-step is a wgmma of its own into a zeroed
-//   fragment, added to S by f32 adds: the tensor core's own accumulation
-//   over the head width (its adds are not f32's round-to-nearest) spread
-//   recurrentgemma's bf16 scoring loss past its gate at some seeds, where
-//   these adds keep it inside (examples/torch_hybrid_loss_noise.py).
+//   bytes inside a chunk).  Each k-step is a wgmma of its own into a
+//   fragment it overwrites, added to S in order by f32 adds: with the
+//   tensor core's own accumulation over the head width (its adds are not
+//   f32's round-to-nearest) the kernel was off an f64 attention on more
+//   outputs than the CUDA-core kernel (examples/torch_hybrid_loss_noise.py).
+//   The k-steps run through a ring of fragments (pipeline), the next one
+//   in flight while one is added, so the order of the adds is fixed.
 // - Softmax: f32, with exp2f and log2(e) folded into the scale, in the
 //   accumulator fragment (each row's max and sum over its 4 lanes).  The
 //   masking is skipped on tiles whose every key is valid for every row.
@@ -48,20 +50,24 @@
 //   of what the ones before left out: their sum is the f32 p, which the
 //   reference keeps (one bf16 p moved recurrentgemma's scoring loss past
 //   its bf16 gate).  V is read from shared memory as an MN-major B operand
-//   through the descriptor's transpose bit, one m64n64k16 per part and
-//   64-column chunk of V.  A tile's P V goes into zeroed fragments, up to
-//   two chunks at a time, and is added to O by f32 adds: O summed over
-//   the key tiles inside the tensor core, like S over the head width,
-//   left the kernel less accurate than the CUDA-core one against f64.
-// - Overlap: a warpgroup issues this tile's (last) P V group, then the
-//   next tile's Q K^T k-steps, so the two run together (at Dh 64 and 128);
-//   the two warpgroups of a CTA interleave on the SM's tensor cores.
+//   through the descriptor's transpose bit, one m64n64k16 per part, 16
+//   keys and 64-column chunk of V.  A tile's P V over each chunk goes into
+//   a fragment of its own and is added to O by f32 adds: O summed over the
+//   key tiles inside the tensor core, like S over the head width, left the
+//   kernel less accurate than the CUDA-core one against f64.  The chunks
+//   run through a ring as S's k-steps do.
+// - Order: each tile takes its P V, then the next tile's scores, then its
+//   softmax; the two warpgroups of a CTA interleave on the SM's tensor
+//   cores.  (Issuing the next tile's scores beside P V paid with the
+//   tensor core's own accumulation; examples/torch_flash_depths.py times
+//   the rings' depths.)
 // - Registers: O stays in registers (Dh/2 floats a thread: 128 at Dh=256,
-//   with S 32, a k-step's 32, P's three parts 16 each and a P V group 32
-//   or 64).  384 threads start at 168 registers; the producer warpgroup
-//   drops to 40 (setmaxnreg) so the consumers rise to 232, where the f32
-//   adds' fragments spill a few (ptxas's report, in chip_smoke.py's build
-//   lines).  Shared memory: 32 KB of Q and
+//   with S 32, P's three parts 16 each, and the rings' fragments of 32: at
+//   Dh=256 one of P V's and two of S's).  384 threads start at 168
+//   registers; the producer warpgroup drops to 40 (setmaxnreg) so the
+//   consumers rise to 232, where Dh=256 spills a few bytes (ptxas's
+//   report, in chip_smoke.py's build lines; zeroing each fragment before
+//   its wgmma spilled 368).  Shared memory: 32 KB of Q and
 //   64 KB of K and V stages at Dh=128, 64 KB and 128 KB at Dh=256; one CTA
 //   an SM.
 
@@ -162,8 +168,21 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// wait until at most n (0-3) wgmma groups are in flight; n is a constant
+// once the caller's loop is unrolled
+__device__ __forceinline__ void wgmma_wait_upto(int n) {
+  if (n <= 0)
+    wgmma_wait<0>();
+  else if (n == 1)
+    wgmma_wait<1>();
+  else if (n == 2)
+    wgmma_wait<2>();
+  else
+    wgmma_wait<3>();
 }
 
 // keep the compiler from moving reads or writes of an accumulator across
@@ -179,6 +198,31 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4][3]) {
 #pragma unroll
   for (int i = 0; i < 48; ++i)
     asm volatile("" : "+r"(a[i / 12][i / 3 % 4][i % 3]) :: "memory");
+}
+
+// N jobs through a ring of D accumulator fragments, up to D - 1 of them
+// in flight while the oldest is taken: issue(j, f) puts job j's wgmmas
+// into f (one commit group a job; its first wgmma ignores what f held),
+// take(j, f) reads job j's result once its group is done.  Jobs are taken
+// in order, so a sum the takes make has the order it would have with one
+// job in flight.
+template <int N, int D, class Issue, class Take>
+__device__ __forceinline__ void pipeline(float (&ring)[D][32], Issue&& issue,
+                                         Take&& take) {
+#pragma unroll
+  for (int j = 0; j < N + D - 1; ++j) {
+    if (j < N) {
+      wgmma_fence();
+      issue(j, ring[j % D]);
+      wgmma_commit();
+    }
+    const int k = j - (D - 1);
+    if (k >= 0) {
+      wgmma_wait_upto(N - 1 - k < D - 1 ? N - 1 - k : D - 1);
+      fence_regs(ring[k % D]);
+      take(k, ring[k % D]);
+    }
+  }
 }
 
 #define REPRO_ACC32(d)                                                     \
@@ -206,17 +250,17 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d (64 x 64, f32) += A (64 x 16, bf16 fragments in registers) B (16 x 64,
+// d (64 x 64, f32) (+)= A (64 x 16, bf16 fragments in registers) B (16 x 64,
 // MN-major in shared memory: the transpose bit set)
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
                                          uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint64_t db) {
+                                         uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       REPRO_ACC32_LIST ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : REPRO_ACC32(d)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
 }
 
 // a pair of f32 values as three bf16 pairs, each the rounding of what the
@@ -337,10 +381,11 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint32_t q_addr = smem_u32(sq) + wg * 64 * kChunkRowBytes;
 
   float o[L::kChunks][32];
-  // P V's chunks a wgmma group (up to 2); at Dh=256, O's 128 registers
-  // leave no room to keep a group in flight beside the next tile's scores
-  constexpr int kPv = L::kChunks < 2 ? L::kChunks : 2;
-  constexpr bool kPvBesideScores = L::kChunks <= 2;
+  // wgmma groups in flight: S's k-steps kSDepth - 1 beside the one taken,
+  // P V's 64-column chunks kPvDepth - 1.  At Dh=256, O's 128 registers and
+  // P's 48 leave room for one P V fragment, and, once P is spent, two of S
+  constexpr int kSDepth = L::kChunks >= 4 ? 2 : 3;
+  constexpr int kPvDepth = L::kChunks >= 4 ? 1 : 2;
 #pragma unroll
   for (int c = 0; c < L::kChunks; ++c)
 #pragma unroll
@@ -348,30 +393,25 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
   float alpha_a = 1.f, alpha_b = 1.f;
 
-  // S = Q K^T of tile t over Dh in k-steps of 16, each a wgmma into st
-  // alone, its result added to S in f32; waits for every wgmma in flight
+  // S = Q K^T of tile t over Dh, each k-step of 16 a wgmma into a
+  // fragment of its own, added to S in order by f32 adds
   auto scores = [&](float (&sc)[32], int t) {
     const uint32_t k_addr = smem_u32(sk + (t % kStages) * L::kTileBytes);
+    float st[kSDepth][32];
+    pipeline<DH / 16>(
+        st,
+        [&](int kk, float (&f)[32]) {
+          wgmma_ss(f,
+                   desc(q_addr + (kk / 4) * L::kQChunk + (kk % 4) * 32, 16,
+                        1024),
+                   desc(k_addr + (kk / 4) * L::kKVChunk + (kk % 4) * 32, 16,
+                        1024),
+                   0);
+        },
+        [&](int kk, float (&f)[32]) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
-#pragma unroll 1
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      float st[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) st[i] = 0.f;
-      fence_regs(st);
-      wgmma_fence();
-      wgmma_ss(st,
-               desc(q_addr + (kk / 4) * L::kQChunk + (kk % 4) * 32, 16, 1024),
-               desc(k_addr + (kk / 4) * L::kKVChunk + (kk % 4) * 32, 16,
-                    1024),
-               0);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(st);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) sc[i] += st[i];
-    }
+          for (int i = 0; i < 32; ++i) sc[i] = (kk == 0 ? 0.f : sc[i]) + f[i];
+        });
   };
 
   // tile t's scores, in the log2 domain (masked -1e30, past Lkv -inf), to
@@ -424,11 +464,9 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
         split_bf16(sc[8 * ks + 2 * r], sc[8 * ks + 2 * r + 1], pa[ks][r]);
   };
 
-  // Each step issues this tile's O += P V, then the next tile's scores
-  // (their first k-step beside P V), waits for both, then takes the next
-  // tile's softmax.  (A softmax while P V runs, after waiting for the
-  // scores alone, made ptxas serialize the wgmmas and ran slower on the
-  // card.)
+  // Each step takes this tile's O += P V, then the next tile's scores and
+  // softmax.  (A softmax while P V runs, after waiting for the scores
+  // alone, made ptxas serialize the wgmmas and ran slower on the card.)
   float sc[32];
   uint32_t pa[4][4][3];
   mbar_wait(q_full, 0);
@@ -439,67 +477,37 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   for (int t = 0; t < n_tiles; ++t) {
     const int s = t % kStages;
-    const bool more = t + 1 < n_tiles;
-    float sn[32];
     // O += P V: V's rows are keys (K), its 64-column chunks N, MN-major.
-    // Chunks kPv at a time: their product over the tile's keys summed in
-    // the tensor core into pv (zeroed), then added to O by f32 adds; the
-    // last group runs beside the next tile's scores where registers allow
+    // Each chunk's product over the tile's keys is summed in the tensor
+    // core into a fragment of its own, then added to O by f32 adds
     mbar_wait(v_full + s, (t / kStages) & 1);
     const uint32_t v_addr = smem_u32(sv + s * L::kTileBytes);
-    float pv[kPv][32];
+    float pv[kPvDepth][32];
+    pipeline<L::kChunks>(
+        pv,
+        [&](int c, float (&f)[32]) {
 #pragma unroll
-    for (int c0 = 0; c0 < L::kChunks; c0 += kPv) {
+          for (int ks = 0; ks < 4; ++ks) {
+            const uint64_t dv =
+                desc(v_addr + c * L::kKVChunk + ks * 16 * kChunkRowBytes,
+                     L::kKVChunk, 1024);
 #pragma unroll
-      for (int j = 0; j < kPv; ++j) {
+            for (int i = 0; i < 3; ++i)
+              wgmma_rs(f, pa[ks][0][i], pa[ks][1][i], pa[ks][2][i],
+                       pa[ks][3][i], dv, ks > 0 || i > 0);
+          }
+        },
+        [&](int c, float (&f)[32]) {
 #pragma unroll
-        for (int i = 0; i < 32; ++i) pv[j][i] = 0.f;
-        fence_regs(pv[j]);
-      }
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-        for (int j = 0; j < kPv; ++j) {
-          const uint64_t dv = desc(
-              v_addr + (c0 + j) * L::kKVChunk + ks * 16 * kChunkRowBytes,
-              L::kKVChunk, 1024);
-#pragma unroll
-          for (int i = 0; i < 3; ++i)
-            wgmma_rs(pv[j], pa[ks][0][i], pa[ks][1][i], pa[ks][2][i],
-                     pa[ks][3][i], dv);
-        }
-      wgmma_commit();
-      if (c0 + kPv < L::kChunks || !kPvBesideScores) {
-        wgmma_wait_all();
-#pragma unroll
-        for (int j = 0; j < kPv; ++j) {
-          fence_regs(pv[j]);
-#pragma unroll
-          for (int i = 0; i < 32; ++i) o[c0 + j][i] += pv[j][i];
-        }
-      }
-    }
-    if (more) {
-      mbar_wait(k_full + (t + 1) % kStages, ((t + 1) / kStages) & 1);
-      scores(sn, t + 1);
-    }
-    wgmma_wait_all();
-    if (kPvBesideScores) {
-#pragma unroll
-      for (int j = 0; j < kPv; ++j) {
-        fence_regs(pv[j]);
-#pragma unroll
-        for (int i = 0; i < 32; ++i)
-          o[L::kChunks - kPv + j][i] += pv[j][i];
-      }
-    }
+          for (int i = 0; i < 32; ++i) o[c][i] += f[i];
+        });
+    // P V is done with this tile's P, K and V
     fence_frags(pa);
     mbar_arrive(empty + s);
-    if (more) {
-      // P V is done with this tile's P: the next one takes its registers
-      fence_regs(sn);
-      softmax(sn, pa, t + 1);
+    if (t + 1 < n_tiles) {
+      mbar_wait(k_full + (t + 1) % kStages, ((t + 1) / kStages) & 1);
+      scores(sc, t + 1);
+      softmax(sc, pa, t + 1);
 #pragma unroll
       for (int c = 0; c < L::kChunks; ++c)
 #pragma unroll

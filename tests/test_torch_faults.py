@@ -6,7 +6,10 @@ a planted one, and its build phase refuses a source that lost the sound
 text, but only on the card, after the builds.  Here every fault's sound
 text must occur exactly once in the source it is planted in, and the
 planted text must differ from it, so a kernel edit that moves an anchor
-shows before a card run.  Runs without a card:
+shows before a card run.  The same holds for the probes and variants two
+examples build from the Hopper flash kernel's source
+(``examples/torch_hybrid_loss_noise.py``, ``examples/torch_flash_depths.py``).
+Runs without a card:
 
     PYTHONPATH=src python -m pytest tests/test_torch_faults.py
 """
@@ -21,15 +24,19 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
+def _load(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
-chip_smoke = _chip_smoke()
+chip_smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
+loss_noise = _load("torch_hybrid_loss_noise",
+                   ROOT / "examples" / "torch_hybrid_loss_noise.py")
+flash_depths = _load("torch_flash_depths",
+                     ROOT / "examples" / "torch_flash_depths.py")
+FLASH_SM90 = ROOT / "src" / "repro_torch" / "csrc" / "flash_attention_sm90.cu"
 
 
 @pytest.mark.parametrize("fault", [*chip_smoke.FAULTS,
@@ -40,3 +47,18 @@ def test_planted_fault_anchor_is_unique(fault):
     assert planted != sound
     assert src.replace(sound, planted) != src
 
+
+
+@pytest.mark.parametrize("probe", [*loss_noise.PROBES])
+def test_loss_noise_probe_changes_its_kernel(probe):
+    stem, text = loss_noise.probe_sources()[probe]
+    assert text != (FLASH_SM90.parent / f"{stem}.cu").read_text()
+
+
+@pytest.mark.parametrize("variant", [*flash_depths.VARIANTS])
+def test_flash_depth_variant_anchors_are_unique(variant):
+    src = FLASH_SM90.read_text()
+    edits = flash_depths.VARIANTS[variant]
+    for sound, _ in edits:
+        assert src.count(sound) == 1, (variant, sound)
+    assert any(new != sound for sound, new in edits)
