@@ -64,7 +64,9 @@ result line):
    against its plain version on the path's own operands and timed beside its
    bound and, where one PyTorch call computes the same function, that call
    (``F.rms_norm``, ``F.scaled_dot_product_attention``); the Hopper flash
-   kernel also beside the kernel it replaced, on the same operands.  On
+   kernel also beside the kernel it replaced, on the same operands, and the
+   CUDA RMSNorm and LayerNorm beside the Triton kernels they replaced, whose
+   outputs they must equal bit for bit on every path operand.  On
    every path the launches by variant are gated: every bf16 flash launch
    the Hopper kernel's, every f32 one the CUDA-core kernel's, every decode
    launch the split kernel's.  Both decode plans
@@ -73,8 +75,10 @@ result line):
 4. Float32 checks: full width cut to 4 layers, the first decode step of the
    stitched ref-mode and kernel-mode engines against the eager one over
    several weight seeds, with faults planted in the stitched RMSNorm
-   kernels, in the decode-attention kernel (``kpos < pos``) and in RoPE
-   (rows reading their block's first row's angles); and a reduced model
+   kernels, in the decode-attention kernel (``kpos < pos``), in RoPE
+   (rows reading their block's first row's angles) and in RMSNorm (a
+   lane's second repetition of columns written through unnormalised); and
+   a reduced model
    served stitched (both modes) vs eager.
 5. MoE phase (after the long-prompt phase): full-width granite-moe-1b-a400m
    (24 layers, 32 experts top-8, random weights from a seed) served in
@@ -112,7 +116,10 @@ result line):
    (flash beside ``F.scaled_dot_product_attention``); then
    ``stitch(block_fn)`` on the first recurrent layer (1 RG-LRU, 2 RMSNorm
    and 1 GLU launch a call); bf16 loss and block output against the eager
-   ref-mode model over several weight seeds; then (with the float32 checks)
+   ref-mode model over several weight seeds, and on the same scoring calls
+   every hand-written launch against its plain version on its own operands
+   (``KernelsVsPlain``: the largest share of outputs off, under
+   ``HYBRID_PLAIN_TOL``); then (with the float32 checks)
    the model cut to 4 layers in float32 on one sequence of 2560 tokens, so
    that the 2048-token window masks keys: the loss, the recurrent block's
    and the first attention block's output against eager ref mode, with
@@ -133,7 +140,7 @@ result line):
    square`` chain; bf16 prefill and first-step logits against the eager
    ref-mode engine over several weight seeds; then (with the float32
    checks) the model cut to 4 layers in float32, with faults planted in
-   the two Triton kernels (LayerNorm without beta, squared ReLU squaring
+   LayerNorm (CUDA: beta dropped) and squared ReLU (Triton: squaring
    before the max).
 9. Kernel-API phase (after the dense LayerNorm phase): three user
    functions of the kernel API through ``stitch()`` in kernel mode at
@@ -1094,7 +1101,7 @@ def serve_phase(dev, model, params, lens, prompts, checked):
 # per reference kernel body: the port's launch-count name, route, source and
 # the TPU kernel's pallas_call
 HAND = {
-    "_rmsnorm_kernel": ("rmsnorm", "triton", "src/repro_torch/kernels/norms.py",
+    "_rmsnorm_kernel": ("rmsnorm", "cuda", "src/repro_torch/csrc/norms.cu",
                         "src/repro/kernels/norms.py:44"),
     "_glu_kernel": ("glu", "triton", "src/repro_torch/kernels/activations.py",
                     "src/repro/kernels/activations.py:32"),
@@ -1112,8 +1119,7 @@ HAND = {
                       "src/repro/kernels/mamba_scan.py:52"),
     "_rglru_kernel": ("rg_lru", "cuda", "src/repro_torch/csrc/rg_lru.cu",
                       "src/repro/kernels/rg_lru.py:44"),
-    "_layernorm_kernel": ("layernorm", "triton",
-                          "src/repro_torch/kernels/norms.py",
+    "_layernorm_kernel": ("layernorm", "cuda", "src/repro_torch/csrc/norms.cu",
                           "src/repro/kernels/norms.py:105"),
     "_sqrelu_kernel": ("squared_relu", "triton",
                        "src/repro_torch/kernels/activations.py",
@@ -1191,7 +1197,9 @@ def expected_launches(cfg, bucket: int | None = None) -> tuple[dict, dict]:
 # flash attention ignores the window (every key up to the diagonal is
 # walked and valid); the same two in the Hopper flash kernel; the split
 # decode's combine adds a chunk's partial without its exp(m_c - M) rescale;
-# every row of a RoPE block reads the angle table of the block's first row.
+# every row of a RoPE block reads the angle table of the block's first row;
+# RMSNorm writes a lane's second repetition of columns through unnormalised
+# (x itself); LayerNorm drops beta.
 # Keyed by fault: (CUDA source stem, sound text, planted text)
 FAULTS = {
     "decode_attention": ("decode_attention",
@@ -1221,21 +1229,23 @@ FAULTS = {
         "decode_attention", "wa += a[j] * w;", "wa += a[j];"),
     "rope_row_table": ("rope", "const float2* t = cs + r * a.half + lane * V;",
                        "const float2* t = cs + lane * V;"),
+    "rmsnorm_second_rep_raw": ("norms", "return __fmul_rn(t, gs[e]);",
+                               "return e / V == 1 ? v[e] "
+                               ": __fmul_rn(t, gs[e]);"),
+    "layernorm_no_beta": ("norms", "return __fmaf_rn(t, gs[e], bs[e]);",
+                          "return __fmul_rn(t, gs[e]);"),
 }
 
 
 # planted faults in the Triton kernels, the same plan as ``FAULTS``: keyed by
 # fault, (kernel module, kernel function, sound text, planted text).
-# LayerNorm drops beta; squared ReLU squares before the max, so negative
+# Squared ReLU squares before the max, so negative
 # inputs come out as their squares; the residual RMSNorm normalises x
 # instead of x + res; the cross-entropy drops the exp(m_old - m_new)
 # rescale of its running sum; the masked softmax ignores its mask; the
 # split softmax's fold adds each chunk's sum without its exp(m_c - M)
 # rescale
 TRITON_FAULTS = {
-    "layernorm_no_beta": ("norms", "_layernorm_kernel",
-                          "y = xc * tl.rsqrt(var + eps) * g + b",
-                          "y = xc * tl.rsqrt(var + eps) * g"),
     "sqrelu_square_first": (
         "activations", "_sqrelu_kernel",
         "r = tl.maximum(x, 0.0, propagate_nan=tl.PropagateNan.ALL)\n"
@@ -1259,7 +1269,7 @@ TRITON_FAULTS = {
         "lc * tl.exp(mc - M)", "lc"),
 }
 # the module global each Triton kernel's jitted function is kept in
-TRITON_JIT = {"_layernorm_kernel": "_LN_JIT", "_sqrelu_kernel": "_SQ_JIT",
+TRITON_JIT = {"_sqrelu_kernel": "_SQ_JIT",
               "_rmsnorm_residual_kernel": "_RES_JIT", "_softmax_kernel": "_JIT",
               "_softmax_split_kernel": "_SPLIT_JIT", "_xent_kernel": "_JIT"}
 
@@ -2100,14 +2110,22 @@ def source_of(tag, args, source):
 def replaced_kernel(tag, args, refs, outs) -> dict:
     """The kernel a rebuild replaced, on the same inputs, timed beside the
     new one: the CUDA-core flash kernel for a bf16 call that runs the
-    Hopper one; held against the plain version too."""
-    from repro_torch.kernels import flash_attention
+    Hopper one, held against the plain version; the Triton RMSNorm or
+    LayerNorm kernel for the CUDA one, held against the CUDA kernel's
+    ``outs`` bit for bit (both sum each row in the same order with the same
+    rounded operations)."""
+    from repro_torch.kernels import flash_attention, norms
     if tag == "_flash_kernel":
         variant = flash_variant(args)
         if variant != "sm90":
             return {"variant": variant}
         old, name = functools.partial(flash_attention._launch_variant,
                                       "simt", *args), "simt"
+    elif tag in ("_rmsnorm_kernel", "_layernorm_kernel"):
+        variant = "cuda"
+        launch = (norms._launch_variant if tag == "_rmsnorm_kernel"
+                  else norms._launch_layernorm_variant)
+        old, name = functools.partial(launch, "triton", *args), "triton"
     else:
         return {}
     out = old()
@@ -2116,8 +2134,29 @@ def replaced_kernel(tag, args, refs, outs) -> dict:
     if not within((out,), refs):
         fail(f"the replaced {name} kernel disagrees with the plain version "
              f"(max err {err})")
+    extra = {}
+    if name == "triton":
+        if not torch.equal(out, outs[0]):
+            fail(f"the CUDA {HAND[tag][0]} kernel differs from the {name} "
+                 f"kernel in some bits (max diff {max_err((out,), outs)})")
+        new = functools.partial(launch, "cuda", *args)
+        extra = dict(zip(("paired_device_ms", "paired_old_device_ms"),
+                         paired_device_ms(new, old)))
     return {"variant": variant, "old_variant": name, "old_max_abs_err": err,
-            "old_ms": timed(old, 50), "old_device_ms": device_ms(old)}
+            "old_ms": timed(old, 50), "old_device_ms": device_ms(old),
+            **extra}
+
+
+def paired_device_ms(new, old, rounds: int = 5, reps: int = 100):
+    """Device ms a call of ``new`` and of ``old``, each the median over
+    ``rounds`` alternations (new, old, old, new, ...) of a CUDA-graph
+    replay of ``reps`` calls: a comparison of two kernels on one card with
+    the drift of its clocks shared between them."""
+    times = {0: [], 1: []}
+    for r in range(rounds):
+        for i in ((0, 1) if r % 2 == 0 else (1, 0)):
+            times[i].append(device_ms((new, old)[i], reps))
+    return tuple(float(np.median(times[i])) for i in (0, 1))
 
 
 def launch_signature(name, node, tensors) -> tuple:
@@ -2268,6 +2307,9 @@ def hand_rows(parts, path):
                    for f in ("ms", "device_ms", "plain_ms", "bound_ms")}
             if mine and all(r.get("old_ms") is not None for r, _ in mine):
                 for f in ("old_ms", "old_device_ms"):
+                    agg[f] = sum(n * r[f] for r, n in mine)
+            if mine and all("paired_device_ms" in r for r, _ in mine):
+                for f in ("paired_device_ms", "paired_old_device_ms"):
                     agg[f] = sum(n * r[f] for r, n in mine)
             for lib in ("library", "chain"):
                 if mine and all(r.get(f"{lib}_ms") is not None for r, _ in mine):
@@ -2552,6 +2594,22 @@ SSM_TOL = {"loss": 5.5e-4, "block": 3.8e-3}
 # kernels are held by scoring_phase's per-launch f64 check of flash, and
 # the block and f32 checks.
 HYBRID_TOL = {"loss": 6.8e-5, "block": 3.8e-3}
+# the hybrid phase's reading of the hand-written kernels alone, on the
+# scoring call of its bf16 check: every hand-written launch's output
+# against its plain version on the same operands (``KernelsVsPlain``), as
+# the largest share of outputs whose bits differ, over the call's
+# launches.  Over seeds 0-4 on an H100 (examples/torch_hybrid_loss_noise.py,
+# PERF.md section 2) the sound kernels read at most 3.26e-4 (the Hopper
+# flash kernel's launches; the CUDA-core one 7.5e-5, the Hopper one with
+# expf 3.28e-4; RMSNorm 1.7e-5 to 2.6e-5, RoPE 1.9e-5 to 4.2e-5, the
+# RG-LRU and GLU 0), and the lower-precision copies 0.356 to 0.362 (p in
+# one bf16 part), 0.0459 to 0.0460 (the RG-LRU's state in bf16) and 0.0451
+# to 0.0452 (its decay in bf16), at every seed.  The limit is 1.35x the
+# largest sound reading.  The loss of the same plan run with every
+# hand-written op computed plainly did not see the kernels: sound kernels
+# up to 8.0e-5, the copies 1.2e-5 to 1.8e-4, and the expf probe past
+# 1.35x the sound kernels' largest at two seeds.
+HYBRID_PLAIN_TOL = 4.4e-4
 # the hybrid f32 check: one sequence of 2560 tokens, so that the 2048-token
 # window masks keys in the flash kernel (the eager side takes the chunked
 # attention, 512 query rows a chunk)
@@ -2655,6 +2713,59 @@ def init_line(cfg, params, secs):
           f"in {secs:.1f}s")
 
 
+def plain_ops() -> dict:
+    """Each hand-written kernel's custom op (an ``OpOverload`` of
+    ``torch.ops.repro_torch``) -> (its launch counter's name, its plain
+    version)."""
+    out = {}
+    for tag, (name, *_) in HAND.items():
+        fn = hand_plain(tag)
+        op = getattr(torch.ops.repro_torch,
+                     "topk_router" if name == "router" else name)
+        out[op.default] = (name, fn)
+    return out
+
+
+class KernelsVsPlain(torch.utils._python_dispatch.TorchDispatchMode):
+    """While active, each hand-written kernel's op runs its kernel as it is
+    and also its plain version on the same arguments: ``calls`` counts the
+    launches by name, ``share`` keeps per name the largest share, over its
+    launches, of output elements whose bits differ from the plain
+    version's.  The call's result is the kernels', and every launch sees
+    the kernel path's own inputs, so a share is one kernel's rounding
+    alone, with nothing carried from an earlier layer; every other op runs
+    as it is."""
+
+    def __init__(self):
+        super().__init__()
+        self.plain, self.calls, self.share = plain_ops(), Counter(), {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func in self.plain:
+            name, fn = self.plain[func]
+            ref = fn(*args, **kwargs)
+            outs = out if isinstance(out, tuple) else (out,)
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            share = max(float((o != r).double().mean())
+                        for o, r in zip(outs, refs))
+            self.calls[name] += 1
+            self.share[name] = max(self.share.get(name, 0.0), share)
+        return out
+
+
+def plain_share(mode, want) -> float:
+    """The reading of a call run under ``KernelsVsPlain``: the largest
+    share of outputs off the plain version over its hand-written launches,
+    failing unless it saw exactly ``want`` launches (the call's)."""
+    got = {k: v for k, v in mode.calls.items() if v}
+    if got != {k: v for k, v in want.items() if v}:
+        fail(f"kernels vs plain versions saw launches {got}, expected the "
+             f"call's {want}")
+    return max(mode.share.values())
+
+
 def scoring_phase(dev, checked, arch, name, tol, n_layers=None):
     """Full-width ``arch`` (random weights from a seed; ``n_layers`` of
     them when given) scored in kernel
@@ -2744,7 +2855,8 @@ def scoring_phase(dev, checked, arch, name, tol, n_layers=None):
 
     from repro_torch.kernels import flash_attention
     readings = {"loss": [], "block": []}
-    flash_rows = []
+    flash_rows, plain_rows = [], []
+    plain_tol = HYBRID_PLAIN_TOL if name == "hybrid" else None
     for s in range(LOGIT_SEEDS):
         if s:
             # the old weights go first: two full-width f32 copies do not
@@ -2755,7 +2867,7 @@ def scoring_phase(dev, checked, arch, name, tol, n_layers=None):
             lp = block_params(model, params)
         b, xs = score_batch(cfg, SEED + s, dev), block_input(cfg, SEED + s, dev)
         launches = []
-        with recorded_flash(launches):
+        with recorded_flash(launches), KernelsVsPlain() as vs_plain:
             st = float(sf(params, b)[0])
         ea = float(model.train_forward(params, b)[0])
         readings["loss"].append(abs(st - ea) / abs(ea))
@@ -2764,6 +2876,13 @@ def scoring_phase(dev, checked, arch, name, tol, n_layers=None):
         print(f"{tag} bf16 vs ref-mode eager ({cfg.n_layers}L, seed "
               f"{SEED + s}): loss {st:.6f} vs {ea:.6f} rel={readings['loss'][-1]:.6g} "
               f"block_fn rel={readings['block'][-1]:.6g}")
+        if plain_tol is not None:
+            plain_rows.append(plain_share(vs_plain, per_call))
+            print(f"{tag} bf16 hand kernels vs their plain versions on the "
+                  f"call's operands (seed {SEED + s}): largest share of "
+                  f"outputs off a launch {plain_rows[-1]:.6g}, by kernel "
+                  + " ".join(f"{k}={v:.4g}"
+                             for k, v in sorted(vs_plain.share.items())))
         if launches:
             rows = flash_against_f64(launches, {
                 v: functools.partial(flash_attention._launch_variant, v)
@@ -2783,6 +2902,12 @@ def scoring_phase(dev, checked, arch, name, tol, n_layers=None):
     if not all(np.isfinite(r) and r <= tol[what]
                for what, rs in readings.items() for r in rs):
         fail(f"{tag} bf16 readings disagree with the ref-mode eager model")
+    if plain_tol is not None:
+        print(f"{tag} bf16 hand kernels vs plain versions: tol={plain_tol} "
+              f"max={max(plain_rows):.6g}")
+        if not all(r <= plain_tol for r in plain_rows):
+            fail(f"{tag} bf16: the hand-written kernels disagree with their "
+                 f"plain versions on the same plan")
     worse = sum(r["sm90"][1] > r["simt"][1] for r in flash_rows)
     if worse:
         fail(f"{tag}: the Hopper flash kernel is off the f64 attention on more "
@@ -3057,7 +3182,29 @@ def planted_triton(fault):
         setattr(mod, attr, sound)
 
 
-# the faults the nemotron f32 check plants (its two Triton kernels)
+@contextlib.contextmanager
+def planted_fault(fault):
+    """``fault`` planted while the block runs: a ``FAULTS`` one by its
+    CUDA library (``faulted_library``) in place of the sound one of the
+    kernel module of the same name, a ``TRITON_FAULTS`` one by
+    ``planted_triton``."""
+    if fault not in FAULTS:
+        with planted_triton(fault):
+            yield
+        return
+    import importlib
+    mod = importlib.import_module(f"repro_torch.kernels.{FAULTS[fault][0]}")
+    mod._lib()
+    sound = mod._LIB
+    mod._LIB = faulted_library(mod, fault)
+    try:
+        yield
+    finally:
+        mod._LIB = sound
+
+
+# the faults the nemotron f32 check plants: LayerNorm's (CUDA) and squared
+# ReLU's (Triton)
 NEMOTRON_FAULTS = ("layernorm_no_beta", "sqrelu_square_first")
 
 
@@ -3108,7 +3255,7 @@ def nemotron_f32(dev):
             fail(f"{tag} launched {ops.launch_counts()}, expected {want}")
         variant_gate(tag)
         for fault in NEMOTRON_FAULTS:
-            with planted_triton(fault), ops.kernel_mode("kernels"):
+            with planted_fault(fault), ops.kernel_mode("kernels"):
                 planted[fault] = [rel_diff(a, b) for a, b in zip(
                     prefill_and_step_logits(km, ps, LONG_LENS), ea)]
     print(f"{tag} logits: tol={F32_LOGIT_TOL} sound max prefill="
@@ -3496,7 +3643,8 @@ def full_width_f32(dev):
     from dataclasses import replace
     from repro_torch.configs import get_config
     from repro_torch.core import StitchCompiler
-    from repro_torch.kernels import decode_attention, flash_attention, ops, rope
+    from repro_torch.kernels import decode_attention, flash_attention, norms
+    from repro_torch.kernels import ops, rope
     from repro_torch.models import build_model
     from repro_torch.serve import Engine, ServeConfig
     cfg = replace(get_config("qwen3-1.7b"), n_layers=4, dtype="float32")
@@ -3539,7 +3687,8 @@ def full_width_f32(dev):
         fail("full-width f32 stitched logits disagree with eager")
     planted = {}
     for mod, fault in ((decode_attention, "decode_attention"),
-                       (rope, "rope_row_table")):
+                       (rope, "rope_row_table"),
+                       (norms, "rmsnorm_second_rep_raw")):
         mod._lib()
         sound_lib, mod._LIB = mod._LIB, faulted_library(mod, fault)
         try:
@@ -3550,7 +3699,8 @@ def full_width_f32(dev):
             mod._LIB = sound_lib
     print(f"full-width 4-layer f32 kernel-mode logits: tol={F32_LOGIT_TOL} "
           f"sound max={max(km_readings):.6g} planted faults (decode attention "
-          f"kpos < pos; RoPE rows reading their block's first row's angles) "
+          f"kpos < pos; RoPE rows reading their block's first row's angles; "
+          f"RMSNorm's second repetition of columns unnormalised) "
           + " ".join(f"{k}={v:.6g}" for k, v in planted.items()))
     if not all(r <= F32_LOGIT_TOL for r in km_readings):
         fail("full-width f32 kernel-mode logits disagree with eager")

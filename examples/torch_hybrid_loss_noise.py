@@ -23,6 +23,19 @@ the chain's decay a rounded to bf16.  A limit over the sound kernels'
 readings that such a copy still fails could replace the check's limit
 (ROADMAP, "How each slice is held").
 
+For every seed it also takes two readings of the hand-written kernels
+alone, for each kernel and copy above, and the limit each would take
+from the sound kernels (the Hopper and the CUDA-core flash kernel), 1.35x
+their largest reading over the seeds, with the seeds at which each
+kernel or copy reads over it:
+
+* the loss against the same stitched call run with every hand-written op
+  computed by its plain version on the card (``PlainOps``), |loss - plain
+  loss| / |plain loss|;
+* the check's reading (``chip_smoke.KernelsVsPlain``): every hand-written
+  launch of the call against its plain version on the same operands, the
+  largest share of outputs whose bits differ, over the call's launches.
+
 For every seed it also holds each flash launch of the scoring call, every
 kernel on the same operands, against an f64 attention
 (``chip_smoke.flash_against_f64``): the largest error over the largest
@@ -37,6 +50,7 @@ seed's first launch (a CUDA-graph replay).  Needs one card:
 import ctypes
 import subprocess
 import sys
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -103,6 +117,46 @@ def probe_libraries() -> tuple[dict, dict]:
             {n: rg_lru.bind(ctypes.CDLL(str(paths[n]))) for n in RG_LRU})
 
 
+class PlainOps(torch.utils._python_dispatch.TorchDispatchMode):
+    """While active, each hand-written kernel's custom op runs its plain
+    version (``chip_smoke.plain_ops``) on the same arguments instead of its
+    kernel; every other op runs as it is, so a stitched call keeps its
+    plan, generated kernels and dots.  ``calls`` counts the ops it computed
+    plainly, by the launch counters' names."""
+
+    def __init__(self):
+        super().__init__()
+        self.plain, self.calls = chip_smoke.plain_ops(), Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func not in self.plain:
+            return func(*args, **kwargs)
+        name, fn = self.plain[func]
+        self.calls[name] += 1
+        return fn(*args, **kwargs)
+
+
+def plain_loss(score, args, want) -> float:
+    """The stitched call's loss under ``PlainOps``, failing unless it
+    computed exactly ``want`` ops plainly (the call's launches)."""
+    with PlainOps() as mode:
+        loss = float(score(*args)[0])
+    if {k: v for k, v in mode.calls.items() if v} != \
+            {k: v for k, v in want.items() if v}:
+        raise SystemExit(f"the plain run computed {dict(mode.calls)} "
+                         f"plainly, expected {want}")
+    return loss
+
+
+def over_limit(worst, rows, names) -> tuple[float, dict]:
+    """1.35x the sound kernels' largest reading, and per name the seeds
+    whose reading is over it."""
+    limit = 1.35 * max(worst["sm90"], worst["simt"])
+    return limit, {k: [s for s, r in enumerate(rows) if r[k] > limit]
+                   for k in names}
+
+
 class Kernels:
     """Runs flash attention on one named kernel; records the operands of
     the launches while ``recording``."""
@@ -159,7 +213,24 @@ def main(seeds: int = 5) -> None:
     batch = chip_smoke.score_batch(cfg, 0, dev)
     score = chip_smoke.stitched_call("hybrid score", model.train_forward,
                                      (params, batch), dev)
-    worst = dict.fromkeys((*KERNELS, *RG_LRU), 0.0)
+    names = (*KERNELS, *RG_LRU)
+    worst = dict.fromkeys(names, 0.0)
+    plain_worst, share_worst = dict.fromkeys(names, 0.0), dict.fromkeys(names,
+                                                                      0.0)
+    plain_rows, share_rows = [], []
+    per_call, _ = chip_smoke.expected_launches(cfg, chip_smoke.SCORE_BATCH[1])
+
+    def scored(row, prow, srow, k, plain):
+        """One scoring call under ``KernelsVsPlain``: its three readings."""
+        with chip_smoke.KernelsVsPlain() as mode:
+            loss = float(score(params, batch)[0])
+        row[k] = abs(loss - eager) / abs(eager)
+        prow[k] = abs(loss - plain) / abs(plain)
+        srow[k] = chip_smoke.plain_share(mode, per_call)
+        for w, r in ((worst, row), (plain_worst, prow), (share_worst, srow)):
+            w[k] = max(w[k], r[k])
+        return mode
+
     for seed in range(seeds):
         if seed:
             params = None
@@ -167,28 +238,31 @@ def main(seeds: int = 5) -> None:
             params = model.init(seed, dev)
         batch = chip_smoke.score_batch(cfg, seed, dev)
         eager = float(model.train_forward(params, batch)[0])
-        row = {}
+        plain = plain_loss(score, (params, batch), per_call)
+        row, prow, srow = {}, {}, {}
         for k in KERNELS:
             kern.kernel = k
             kern.recording = [] if k == "sm90" else None
             try:
-                loss = float(score(params, batch)[0])
+                mode = scored(row, prow, srow, k, plain)
             finally:
                 kern.kernel = "sm90"
             if k == "sm90":
                 launches, kern.recording = kern.recording, None
-            row[k] = abs(loss - eager) / abs(eager)
-            worst[k] = max(worst[k], row[k])
+                print(f"seed {seed}: sm90, largest share of a launch's "
+                      f"outputs off its plain version, by kernel: " + " ".join(
+                          f"{n}={v:.4g}" for n, v in sorted(mode.share.items())),
+                      flush=True)
         rg_lru._lib()
         sound = rg_lru._LIB
         for k, lib in rg_libs.items():
             rg_lru._LIB = lib
             try:
-                loss = float(score(params, batch)[0])
+                scored(row, prow, srow, k, plain)
             finally:
                 rg_lru._LIB = sound
-            row[k] = abs(loss - eager) / abs(eager)
-            worst[k] = max(worst[k], row[k])
+        plain_rows.append(prow)
+        share_rows.append(srow)
         (errs, worse), n = launch_errors(kern, launches), len(launches)
         if seed == 0:
             qt, kt, vt, *rest = launches[0]
@@ -197,8 +271,12 @@ def main(seeds: int = 5) -> None:
                       f"{k}={1e3 * chip_smoke.device_ms(lambda k=k: kern.run(k, qt, kt, vt, *rest)):.2f}"
                       for k in KERNELS), flush=True)
         del launches
-        print(f"seed {seed}: loss reading "
-              + " ".join(f"{k}={v:.4g}" for k, v in row.items()), flush=True)
+        for what, r in (("loss reading", row),
+                        (f"loss vs the plain versions' ({plain:.8f})", prow),
+                        ("largest share of a launch's outputs off its plain "
+                         "version", srow)):
+            print(f"seed {seed}: {what}: "
+                  + " ".join(f"{k}={v:.4g}" for k, v in r.items()), flush=True)
         print(f"seed {seed}: flash launches vs f64 (max err / max |f64|, "
               f"share not the f64 value in bf16), worst of "
               f"{n} launches: "
@@ -208,6 +286,16 @@ def main(seeds: int = 5) -> None:
     print("largest loss reading over seeds 0-%d: " % (seeds - 1)
           + " ".join(f"{k}={v:.4g}" for k, v in worst.items())
           + f" (limit {chip_smoke.HYBRID_TOL['loss']})")
+    for what, w, rows, tol in (
+            ("loss vs the plain versions'", plain_worst, plain_rows, None),
+            ("share of a launch's outputs off its plain version", share_worst,
+             share_rows, chip_smoke.HYBRID_PLAIN_TOL)):
+        limit, over = over_limit(w, rows, names)
+        print(f"largest {what} over seeds 0-{seeds - 1}: "
+              + " ".join(f"{k}={v:.4g}" for k, v in w.items())
+              + f"; 1.35x the sound kernels' (sm90, simt) = {limit:.4g}; "
+              f"seeds over it: " + " ".join(f"{k}={v}" for k, v in over.items())
+              + (f" (the check's limit {tol})" if tol is not None else ""))
 
 
 if __name__ == "__main__":

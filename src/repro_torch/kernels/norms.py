@@ -1,30 +1,33 @@
 """RMSNorm, the residual add + RMSNorm and LayerNorm: the ports of the
 reference's ``_rmsnorm_kernel`` (``src/repro/kernels/norms.py:32``),
-``_rmsnorm_residual_kernel`` (``:58``) and ``_layernorm_kernel`` (``:92``),
-Triton kernels.
+``_rmsnorm_residual_kernel`` (``:58``) and ``_layernorm_kernel`` (``:92``).
 
-Bound on this card: bytes.  The kernel reads x once and writes y once (plus
-the (d,) gamma); a row's statistics never leave registers.  Design: a
-program holds ``BLOCK_R`` whole rows (``BLOCK_D`` = d rounded up to a power
-of two, masked), computes ``mean(x^2)`` in f32 with one row reduction, then
-``x * rsqrt(mean + eps) * gamma`` in f32 and one cast out.  Narrow rows
-(the qk-norm's d = 128) take several rows a program, so a program holds
-about a thousand elements either way.
+RMSNorm and LayerNorm are CUDA C++ for ``sm_90a`` (``repro_torch/csrc/
+norms.cu``, built by :mod:`.build` at first use and bound with ``ctypes``);
+its source note gives the bound and the design.  They compute what the
+Triton kernels below computed, bit for bit: each row summed over the same
+lanes, each lane's elements in the same order, the same butterfly across
+lanes and warps, and the same rounded operations.  :func:`block_plan`
+gives an operand the layout Triton gave it (which depends on Triton's
+divisibility-by-16 view of the pointers and strides) and the block the
+CUDA kernel runs it in.  What each Triton kernel did: a program holds
+``BLOCK_R`` whole rows (``BLOCK_D`` = d rounded up to a power of two,
+masked), computes ``mean(x^2)`` in f32 with one row reduction, then
+``x * rsqrt(mean + eps) * gamma`` in f32 and one cast out; LayerNorm takes
+the mean, then the variance as the mean of ``(x - mu)^2`` over the masked
+row (two passes over registers, not ``E[x^2] - mu^2``), both divided with
+``div_rn``, then ``(x - mu) * rsqrt(var + eps) * gamma + beta``.
+``_rmsnorm_kernel`` and ``_layernorm_kernel`` stay one release as
+yardsticks (``_launch_variant("triton", ...)``,
+``_launch_layernorm_variant("triton", ...)``), launched by no op.
 
-The residual add + RMSNorm is bound by bytes: it reads x and res and
-writes the norm and the new residual, 16.8 MB a launch at qwen3-1.7b's
-(1024, 2048) bf16, 5.0 us at 3.35 TB/s.  Design: the same whole-row
-programs; ``s = x + res`` in f32, stored once as the new residual, and
-``mean(s^2)`` taken from the f32 s (not from the rounded residual), as the
-reference does; then ``s * rsqrt(mean + eps) * gamma`` and one cast out.
-
-LayerNorm is bound by bytes too: 25.2 MB a launch at nemotron-4-15b's
-prefill, (1024, 6144) bf16, 7.5 us at 3.35 TB/s; a decode launch at
-(4, 6144) is bound by launch latency.  Design: the same whole-row programs
-(d = 6144 gives ``BLOCK_D`` 8192, one row a program); the mean, then the
-variance as the mean of ``(x - mu)^2`` over the masked row (two passes over
-registers, not ``E[x^2] - mu^2``), both divided with ``div_rn``; then
-``(x - mu) * rsqrt(var + eps) * gamma + beta`` in f32 and one cast out.
+The residual add + RMSNorm stays a Triton kernel, bound by bytes: it reads
+x and res and writes the norm and the new residual, 16.8 MB a launch at
+qwen3-1.7b's (1024, 2048) bf16, 5.0 us at 3.35 TB/s.  Design: the same
+whole-row programs; ``s = x + res`` in f32, stored once as the new
+residual, and ``mean(s^2)`` taken from the f32 s (not from the rounded
+residual), as the reference does; then ``s * rsqrt(mean + eps) * gamma``
+and one cast out.
 
 They are the custom ops ``repro_torch::rmsnorm``,
 ``repro_torch::rmsnorm_residual`` (two outputs) and
@@ -36,24 +39,32 @@ the plain version, the CUDA implementation launches the kernel.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import math
 from collections import Counter
+from typing import NamedTuple
 
 import torch
 
 from . import build
 from . import ref as _ref
 
-__all__ = ["rmsnorm", "rmsnorm_plain", "launches", "rmsnorm_residual",
-           "rmsnorm_residual_plain", "residual_launches", "layernorm",
-           "layernorm_plain", "layernorm_launches"]
+__all__ = ["Plan", "bind", "block_plan", "rmsnorm", "rmsnorm_plain",
+           "launches", "rmsnorm_residual", "rmsnorm_residual_plain",
+           "residual_launches", "layernorm", "layernorm_plain",
+           "layernorm_launches"]
 
-_FLOAT = (torch.float32, torch.bfloat16)
+_FLOAT = {torch.float32: 0, torch.bfloat16: 1}
+SMS = 132            # the H100 SXM's SMs
+MIN_THREADS = 128    # a block's threads at least: narrow rows side by side
 
 # kernel launches since the last reset, by build.signature of the arguments
 launches: Counter = Counter()               # _rmsnorm_kernel
 residual_launches: Counter = Counter()      # _rmsnorm_residual_kernel
 layernorm_launches: Counter = Counter()     # _layernorm_kernel
 _JIT = _RES_JIT = _LN_JIT = None
+_LIB: ctypes.CDLL | None = None
 tl = None             # triton.language, bound by build.triton_jit at launch
 
 
@@ -135,16 +146,134 @@ def _check(name, x, *vectors):
 
 
 def _blocks(rows: int, d: int) -> tuple[int, int, int]:
-    """(BLOCK_R, BLOCK_D, num_warps): whole rows, about a thousand elements
-    a program or one row."""
+    """(BLOCK_R, BLOCK_D, num_warps) of a Triton program: whole rows, about
+    a thousand elements a program or one row."""
     block_d = build.next_pow2(d)
     block_r = min(max(1, 1024 // block_d), build.next_pow2(rows))
     return block_r, block_d, 4 if block_r * block_d <= 2048 else 8
 
 
+class Plan(NamedTuple):
+    """An operand's layout as the Triton kernel took it (``vec`` consecutive
+    columns a lane, a row over ``lanes`` lanes of ``warps`` warps, so
+    ``elems`` = BLOCK_D / (lanes * warps) elements a lane), and the CUDA
+    kernel's block: ``threads``, one row each lanes * warps of them, and
+    whether LayerNorm's gamma and beta load ``early``, with x (RMSNorm's
+    gamma always does)."""
+    vec: int
+    lanes: int
+    warps: int
+    elems: int
+    threads: int
+    early: bool
+
+
+def _vector(itemsize: int, ptr16: bool, stride16: bool, block_d: int) -> int:
+    """Triton's elements a thread for one pointer: the bytes it proves the
+    address divisible by (16 for a pointer it specialised as 16-byte
+    aligned, else 1; a row offset times 16 elements where the row stride
+    was specialised divisible by 16, else one element), up to 16 bytes and
+    the block's width."""
+    div = math.gcd(16 if ptr16 else 1, (16 if stride16 else 1) * itemsize)
+    return max(1, min(div // itemsize, 16 // itemsize, block_d))
+
+
+def block_plan(rows: int, d: int, dtype: torch.dtype, ptr: int, stride: int,
+               vectors_aligned: bool = True) -> Plan:
+    """The plan of an operand x (rows, d) of ``dtype`` at address ``ptr``
+    with rows ``stride`` elements apart (gamma and beta 16-byte aligned
+    unless ``vectors_aligned`` is False).  Triton's coalescing gives a
+    load the widest vector of the pointers of its shape that depend on it:
+    x's, the output's (16-byte aligned, row stride d) and, in a program of
+    one row, gamma's and beta's; at most the program's elements over its
+    threads.  Its blocked layout then spreads a row over the threads that
+    fill ``BLOCK_D / vec`` columns: the lanes of a warp first, then warps.
+    The CUDA block runs at least ``MIN_THREADS`` threads, rows side by
+    side; LayerNorm's gamma and beta load early where the grid has at most
+    one block an SM (a decode step: latency), late otherwise (throughput:
+    fewer registers through the reductions)."""
+    return _plan(rows, d, dtype.itemsize, ptr % 16 == 0, stride % 16 == 0,
+                 vectors_aligned)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(rows: int, d: int, itemsize: int, ptr16: bool, stride16: bool,
+          vectors16: bool) -> Plan:
+    if rows < 1 or d < 1:
+        raise ValueError(f"norms: {rows} rows of {d}: nothing to normalise")
+    block_r, block_d, nw = _blocks(rows, d)
+    vec = max(_vector(itemsize, ptr16, stride16, block_d),
+              _vector(itemsize, True, d % 16 == 0, block_d))
+    if block_r == 1:
+        vec = max(vec, _vector(itemsize, vectors16, True, block_d))
+    vec = min(vec, max(block_r * block_d // (32 * nw), 1))
+    row_threads = min(32 * nw, max(1, block_d // vec))
+    lanes = min(row_threads, 32)
+    warps = min(max(row_threads // lanes, 1), nw)
+    elems = block_d // (lanes * warps)
+    threads = max(lanes * warps, MIN_THREADS)
+    blocks = -(-rows // (threads // (lanes * warps)))
+    return Plan(vec, lanes, warps, elems, threads, blocks <= SMS)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built ``norms`` library."""
+    vp, ci, cl, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_float)
+    plan = [ci, ci, ci, ci, ci, vp]  # vec lanes warps threads early stream
+    lib.repro_rmsnorm.argtypes = [vp, vp, vp, ci, cl, ci, cl, cf, *plan]
+    lib.repro_rmsnorm.restype = ci
+    lib.repro_layernorm.argtypes = [vp, vp, vp, vp, ci, cl, ci, cl, cf, *plan]
+    lib.repro_layernorm.restype = ci
+    lib.repro_cuda_error_string.argtypes = [ci]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        _LIB = bind(ctypes.CDLL(str(build.library("norms"))))
+    return _LIB
+
+
+def _cuda(name, x, vectors, eps: float):
+    """One launch of the CUDA kernel ``name`` (``rmsnorm`` or
+    ``layernorm``) on x and its (d,) ``vectors``."""
+    rows, d = x.shape
+    out = torch.empty((rows, d), dtype=x.dtype, device=x.device)
+    plan = block_plan(rows, d, x.dtype, x.data_ptr(), x.stride(0),
+                      all(v.data_ptr() % 16 == 0 for v in vectors))
+    fn = getattr(_lib(), f"repro_{name}")
+    err = fn(x.data_ptr(), *(v.data_ptr() for v in vectors), out.data_ptr(),
+             _FLOAT[x.dtype], rows, d, x.stride(0), float(eps), plan.vec,
+             plan.lanes, plan.warps, plan.threads, int(plan.early),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        msg = _lib().repro_cuda_error_string(err).decode()
+        if err < 0:
+            raise ValueError(f"{name}: {msg} (x {x.dtype} {tuple(x.shape)} "
+                             f"strides {x.stride()}, {plan})")
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+    return out
+
+
 def _launch(x, gamma, eps: float):
+    out = _launch_variant("cuda", x, gamma, eps)
+    launches[build.signature(x, gamma, eps)] += 1
+    return out
+
+
+def _launch_variant(variant: str, x, gamma, eps: float):
+    """One launch of the CUDA kernel (``variant="cuda"``, the one the op
+    launches) or the Triton kernel it replaced (``"triton"``), with the
+    op's checks and no launch counted."""
     global _JIT
     _check("rmsnorm", x, gamma)
+    if variant == "cuda":
+        return _cuda("rmsnorm", x, (gamma,), eps)
+    if variant != "triton":
+        raise ValueError(f"rmsnorm: unknown variant {variant!r}")
     rows, d = x.shape
     out = torch.empty((rows, d), dtype=x.dtype, device=x.device)
     block_r, block_d, warps = _blocks(rows, d)
@@ -153,7 +282,6 @@ def _launch(x, gamma, eps: float):
     grid = (-(-rows // block_r),)
     _JIT[grid](x, gamma, out, rows, d, x.stride(0), float(eps),
                BLOCK_R=block_r, BLOCK_D=block_d, num_warps=warps)
-    launches[build.signature(x, gamma, eps)] += 1
     return out
 
 
@@ -179,8 +307,19 @@ def _launch_residual(x, res, gamma, eps: float):
 
 
 def _launch_layernorm(x, gamma, beta, eps: float):
+    out = _launch_layernorm_variant("cuda", x, gamma, beta, eps)
+    layernorm_launches[build.signature(x, gamma, beta, eps)] += 1
+    return out
+
+
+def _launch_layernorm_variant(variant: str, x, gamma, beta, eps: float):
+    """``_launch_variant`` of LayerNorm."""
     global _LN_JIT
     _check("layernorm", x, gamma, beta)
+    if variant == "cuda":
+        return _cuda("layernorm", x, (gamma, beta), eps)
+    if variant != "triton":
+        raise ValueError(f"layernorm: unknown variant {variant!r}")
     rows, d = x.shape
     out = torch.empty((rows, d), dtype=x.dtype, device=x.device)
     block_r, block_d, warps = _blocks(rows, d)
@@ -189,7 +328,6 @@ def _launch_layernorm(x, gamma, beta, eps: float):
     grid = (-(-rows // block_r),)
     _LN_JIT[grid](x, gamma, beta, out, rows, d, x.stride(0), float(eps),
                   BLOCK_R=block_r, BLOCK_D=block_d, num_warps=warps)
-    layernorm_launches[build.signature(x, gamma, beta, eps)] += 1
     return out
 
 

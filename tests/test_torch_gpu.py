@@ -211,6 +211,62 @@ def test_rmsnorm_kernel_on_card(dtype, tol):
                                    rtol=tol, atol=tol)
 
 
+# the CUDA norms (csrc/norms.cu): NORM_SHAPES and nemotron's decode and
+# prefill rows and qwen3's bucket-256 qk-norm rows
+NORM_CUDA_SHAPES = NORM_SHAPES + [(4, 6144), (1024, 6144), (16384, 128)]
+
+
+def _norm(kernel, variant, x, g, b):
+    from repro_torch.kernels import norms
+    if kernel == "rmsnorm":
+        return norms._launch_variant(variant, x, g, 1e-6)
+    return norms._launch_layernorm_variant(variant, x, g, b, 1e-5)
+
+
+def _norm_operand(rows, d, dtype, seed):
+    x = 2.0 * _rand((rows, d), dtype, seed) + 0.5
+    g = 1.0 + 0.1 * _rand((d,), dtype, seed + 1)
+    return x, g, 0.1 * _rand((d,), dtype, seed + 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
+@pytest.mark.parametrize("kernel", ["rmsnorm", "layernorm"])
+def test_norm_cuda_against_plain_on_card(kernel, dtype, tol):
+    _need_card()
+    from repro_torch.kernels import norms
+    plain = {"rmsnorm": lambda x, g, b: norms.rmsnorm_plain(x, g, 1e-6),
+             "layernorm": lambda x, g, b: norms.layernorm_plain(x, g, b, 1e-5)}
+    for i, (rows, d) in enumerate(NORM_CUDA_SHAPES):
+        x, g, b = _norm_operand(rows, d, dtype, 10 * i)
+        out = _norm(kernel, "cuda", x, g, b)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), plain[kernel](x, g, b).float(),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["rmsnorm", "layernorm"])
+def test_norm_cuda_equals_triton_on_card(kernel, dtype):
+    """Bit for bit the Triton kernel it replaced, at NORM_CUDA_SHAPES and
+    at operands Triton lays out otherwise: rows wider than the row and x
+    off 16-byte alignment (d = 2048 keeps the output's vector, d = 200 takes
+    x's), and one row of 200 with gamma off alignment."""
+    _need_card()
+    cases = [_norm_operand(rows, d, dtype, 10 * i)
+             for i, (rows, d) in enumerate(NORM_CUDA_SHAPES)]
+    for rows, d in ((4, 2048), (37, 200), (1, 200)):
+        x, g, b = _norm_operand(rows, d + 9, dtype, rows)
+        cases.append((x[:, 1:d + 1], g[:d], b[:d]))
+        cases.append((x[:, :d], g[1:d + 1], b[:d]))
+    for x, g, b in cases:
+        new, old = _norm(kernel, "cuda", x, g, b), _norm(kernel, "triton", x, g, b)
+        torch.cuda.synchronize()
+        assert torch.equal(new, old), (tuple(x.shape), x.stride(),
+                                       int((new != old).sum()))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
 @pytest.mark.parametrize("act", ["silu", "gelu"])
