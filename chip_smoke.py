@@ -20,7 +20,9 @@ result line):
    attention, flash attention, the MoE router, the selective scan, the
    RG-LRU) at sample shapes, each held against its plain PyTorch version
    on the card (the router's ids exactly on rows without a near tie, ties
-   to the lowest index; NaN rows of the softmax at the same places).
+   to the lowest index; NaN rows of the softmax at the same places).  The
+   router's and the GLU's samples also equal, bit for bit, the kernels
+   they replaced (the router's k argmax rounds, the Triton GLU).
    Flash attention runs its bf16 samples through both kernels (the Hopper
    one, wgmma fed by TMA, and the CUDA-core one it replaced for bf16) and
    its f32 samples through the CUDA-core one; decode attention runs the
@@ -63,10 +65,11 @@ result line):
    prefill).  Every kernel of the path, generated and hand-written, is held
    against its plain version on the path's own operands and timed beside its
    bound and, where one PyTorch call computes the same function, that call
-   (``F.rms_norm``, ``F.scaled_dot_product_attention``); the Hopper flash
-   kernel also beside the kernel it replaced, on the same operands, and the
-   CUDA RMSNorm and LayerNorm beside the Triton kernels they replaced, whose
-   outputs they must equal bit for bit on every path operand.  On
+   (``F.rms_norm``, ``F.scaled_dot_product_attention``), the GLU beside
+   the ``F.silu(g) * u`` chain; the Hopper flash kernel also beside the
+   kernel it replaced, on the same operands, and the CUDA GLU beside the
+   Triton kernel it replaced, whose outputs it must equal bit for bit on
+   every path operand, both timed paired.  On
    every path the launches by variant are gated: every bf16 flash launch
    the Hopper kernel's, every f32 one the CUDA-core kernel's, every decode
    launch the split kernel's.  Both decode plans
@@ -76,8 +79,9 @@ result line):
    stitched ref-mode and kernel-mode engines against the eager one over
    several weight seeds, with faults planted in the stitched RMSNorm
    kernels, in the decode-attention kernel (``kpos < pos``), in RoPE
-   (rows reading their block's first row's angles) and in RMSNorm (a
-   lane's second repetition of columns written through unnormalised); and
+   (rows reading their block's first row's angles), in RMSNorm (a
+   lane's second repetition of columns written through unnormalised) and
+   in SwiGLU (the sigmoid dropped); and
    a reduced model
    served stitched (both modes) vs eager.
 5. MoE phase (after the long-prompt phase): full-width granite-moe-1b-a400m
@@ -85,7 +89,9 @@ result line):
    kernel mode at the long prompts (bucket 256): exact launches per prefill
    call and decode step from the config, every kernel of the path held
    against its plain version, the router beside the ``softmax -> topk ->
-   div`` chain; bf16 prefill and first-step logits against the eager
+   div`` chain and beside the kernel of k argmax rounds it replaced, whose
+   ids and weights it must equal bit for bit on every path operand (both
+   timed paired); bf16 prefill and first-step logits against the eager
    ref-mode engine over several weight seeds; then (with the float32
    checks) the model cut to 4 layers in float32, with a fault planted in
    the router kernel.
@@ -211,7 +217,7 @@ LOGIT_TOL = 0.025
 # between kv tiles) reads 0.60 and 0.93.  granite-moe-1b-a400m (4 layers,
 # kernel mode, bucket 256, the router kernel in every layer): prefill
 # 9.5e-7 to 1.13e-6, first step 6.5e-7 to 6.9e-7 over 5 seeds; the router
-# fault (the chosen column not masked) reads 0.93 and 1.10.  falcon-mamba-7b
+# fault (each row's top expert k times) reads 0.93 and 1.10.  falcon-mamba-7b
 # (4 layers, kernel mode, the scan kernel in every layer): loss 0 to 1.7e-7,
 # block_fn output 2.8e-7 to 4.5e-7 over 5 seeds; the scan fault (the state
 # restarts at every chunk of 16 steps) reads 0.105 in the block check.
@@ -1103,7 +1109,7 @@ def serve_phase(dev, model, params, lens, prompts, checked):
 HAND = {
     "_rmsnorm_kernel": ("rmsnorm", "cuda", "src/repro_torch/csrc/norms.cu",
                         "src/repro/kernels/norms.py:44"),
-    "_glu_kernel": ("glu", "triton", "src/repro_torch/kernels/activations.py",
+    "_glu_kernel": ("glu", "cuda", "src/repro_torch/csrc/activations.cu",
                     "src/repro/kernels/activations.py:32"),
     "_rope_kernel": ("rope", "cuda", "src/repro_torch/csrc/rope.cu",
                      "src/repro/kernels/rope.py:44"),
@@ -1189,8 +1195,8 @@ def expected_launches(cfg, bucket: int | None = None) -> tuple[dict, dict]:
 
 # planted faults in the CUDA sources: (sound text, planted text).  Decode
 # attention drops the row's own key (kpos < pos); flash attention leaves acc
-# unrescaled when a later kv tile raises the row max; the router does not
-# mask the column a round chose, so each row picks its top expert k times;
+# unrescaled when a later kv tile raises the row max; the router's top
+# column fills every slot, so each row picks its top expert k times;
 # the selective scan's lane states restart at every chunk of time steps;
 # the RG-LRU's chain restarts h at every chunk of steps the kernel
 # walks;
@@ -1199,7 +1205,7 @@ def expected_launches(cfg, bucket: int | None = None) -> tuple[dict, dict]:
 # decode's combine adds a chunk's partial without its exp(m_c - M) rescale;
 # every row of a RoPE block reads the angle table of the block's first row;
 # RMSNorm writes a lane's second repetition of columns through unnormalised
-# (x itself); LayerNorm drops beta.
+# (x itself); LayerNorm drops beta; SwiGLU drops the sigmoid (a = g).
 # Keyed by fault: (CUDA source stem, sound text, planted text)
 FAULTS = {
     "decode_attention": ("decode_attention",
@@ -1211,7 +1217,12 @@ FAULTS = {
     "flash_window": ("flash_attention",
                      "  const int q0 = blockIdx.x * kBlockQ;\n",
                      "  window = 0;\n  const int q0 = blockIdx.x * kBlockQ;\n"),
-    "router": ("router", "if (lane + 32 * j == bi) p[j] = -1.0f;", ""),
+    "router": ("router",
+               "if (c < e && r < k) {\n      ws[warp][r] = p[j];\n"
+               "      is[warp][r] = c;\n    }",
+               "if (c < e && r == 0) {\n      for (int s = 0; s < k; ++s) "
+               "{\n        ws[warp][s] = p[j];\n        is[warp][s] = c;\n"
+               "      }\n    }"),
     "mamba_scan": ("mamba_scan", "const bool more = t0 + kChunk < L;",
                    "const bool more = t0 + kChunk < L;\n"
                    "    for (int i = 0; i < kPer; ++i) h[i] = 0.f;"),
@@ -1234,6 +1245,7 @@ FAULTS = {
                                ": __fmul_rn(t, gs[e]);"),
     "layernorm_no_beta": ("norms", "return __fmaf_rn(t, gs[e], bs[e]);",
                           "return __fmul_rn(t, gs[e]);"),
+    "glu_no_sigmoid": ("activations", "a = silu(g);", "a = g;"),
 }
 
 
@@ -1533,6 +1545,10 @@ def hand_samples(dev):
         if not within((out,), (ref,)):
             fail(f"hand-written kernel {name} disagrees with its plain version "
                  f"(max err {errs[name]})")
+        if tag == "_glu_kernel" and not torch.equal(
+                out, activations._launch_variant("triton", *args)):
+            fail(f"the CUDA GLU differs from the Triton kernel it replaced in "
+                 f"some bits at {name}")
     print(f"hand-written kernel samples vs plain: "
           + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
     n_flash = len(FLASH_SAMPLES)
@@ -1739,7 +1755,8 @@ def router_samples(rnd):
     """The router kernel against its plain version (``router_compare``) at
     the sample shapes, f32 and bf16, renormalised or not; and on
     bf16-rounded f32 logits, where exact ties are common, with one row of
-    equal logits."""
+    equal logits.  Every case's ids and weights also equal, bit for bit,
+    the kernel of k argmax rounds the rank kernel replaced."""
     from repro_torch.kernels import router
     cases = []
     for dt in (torch.float32, torch.bfloat16):
@@ -1760,6 +1777,10 @@ def router_samples(rnd):
         torch.cuda.synchronize()
         stats[name] = router_compare(name, x, k, out,
                                      router.topk_router_plain(x, k, renorm))
+        old = router._launch_variant("rounds", x, k, renorm)
+        if not (torch.equal(out[0], old[0]) and torch.equal(out[1], old[1])):
+            fail(f"router {name}: the rank kernel differs from the round "
+                 f"kernel it replaced in some bits")
     if not stats[cases[-1][0]]["tie_rows"]:
         fail("the bf16-rounded router samples hold no exact tie")
     if out[1][0].tolist() != list(range(8)):
@@ -2110,36 +2131,42 @@ def source_of(tag, args, source):
 def replaced_kernel(tag, args, refs, outs) -> dict:
     """The kernel a rebuild replaced, on the same inputs, timed beside the
     new one: the CUDA-core flash kernel for a bf16 call that runs the
-    Hopper one, held against the plain version; the Triton RMSNorm or
-    LayerNorm kernel for the CUDA one, held against the CUDA kernel's
-    ``outs`` bit for bit (both sum each row in the same order with the same
-    rounded operations)."""
-    from repro_torch.kernels import flash_attention, norms
+    Hopper one, held against the plain version; the router's kernel of k
+    argmax rounds for the rank kernel and the Triton GLU kernel for the
+    CUDA one, each held against the new kernel's ``outs`` bit for bit (the
+    same rounded operations, the same order of sums) and timed paired."""
+    from repro_torch.kernels import activations, flash_attention, router
     if tag == "_flash_kernel":
         variant = flash_variant(args)
         if variant != "sm90":
             return {"variant": variant}
         old, name = functools.partial(flash_attention._launch_variant,
                                       "simt", *args), "simt"
-    elif tag in ("_rmsnorm_kernel", "_layernorm_kernel"):
-        variant = "cuda"
-        launch = (norms._launch_variant if tag == "_rmsnorm_kernel"
-                  else norms._launch_layernorm_variant)
-        old, name = functools.partial(launch, "triton", *args), "triton"
+    elif tag == "_router_kernel":
+        variant, name = "rank", "rounds"
+        launch = router._launch_variant
+        old = functools.partial(launch, name, *args)
+    elif tag == "_glu_kernel":
+        variant, name = "cuda", "triton"
+        launch = activations._launch_variant
+        old = functools.partial(launch, name, *args)
     else:
         return {}
     out = old()
     torch.cuda.synchronize()
-    err = max_err((out,), refs)
-    if not within((out,), refs):
-        fail(f"the replaced {name} kernel disagrees with the plain version "
-             f"(max err {err})")
+    olds = out if isinstance(out, tuple) else (out,)
     extra = {}
-    if name == "triton":
-        if not torch.equal(out, outs[0]):
-            fail(f"the CUDA {HAND[tag][0]} kernel differs from the {name} "
-                 f"kernel in some bits (max diff {max_err((out,), outs)})")
-        new = functools.partial(launch, "cuda", *args)
+    if name == "simt":
+        err = max_err(olds, refs)
+        if not within(olds, refs):
+            fail(f"the replaced {name} kernel disagrees with the plain "
+                 f"version (max err {err})")
+    else:
+        err = max_err(olds, outs)
+        if not all(torch.equal(o, n) for o, n in zip(olds, outs)):
+            fail(f"the {variant} {HAND[tag][0]} kernel differs from the "
+                 f"{name} kernel it replaced in some bits (max diff {err})")
+        new = functools.partial(launch, variant, *args)
         extra = dict(zip(("paired_device_ms", "paired_old_device_ms"),
                          paired_device_ms(new, old)))
     return {"variant": variant, "old_variant": name, "old_max_abs_err": err,
@@ -2147,16 +2174,24 @@ def replaced_kernel(tag, args, refs, outs) -> dict:
             **extra}
 
 
-def paired_device_ms(new, old, rounds: int = 5, reps: int = 100):
-    """Device ms a call of ``new`` and of ``old``, each the median over
-    ``rounds`` alternations (new, old, old, new, ...) of a CUDA-graph
-    replay of ``reps`` calls: a comparison of two kernels on one card with
-    the drift of its clocks shared between them."""
-    times = {0: [], 1: []}
+def paired_device_times(*fns, rounds: int = 5, reps: int = 100) -> list:
+    """Device ms a call of each of ``fns`` in each of ``rounds``
+    alternations (in order, then reversed: new, old, old, new, ... for two)
+    of a CUDA-graph replay of ``reps`` calls: a comparison of kernels on
+    one card with the drift of its clocks shared between them.  One list
+    of ``rounds`` times a function."""
+    times = [[] for _ in fns]
+    order = list(range(len(fns)))
     for r in range(rounds):
-        for i in ((0, 1) if r % 2 == 0 else (1, 0)):
-            times[i].append(device_ms((new, old)[i], reps))
-    return tuple(float(np.median(times[i])) for i in (0, 1))
+        for i in (order if r % 2 == 0 else order[::-1]):
+            times[i].append(device_ms(fns[i], reps))
+    return times
+
+
+def paired_device_ms(*fns, rounds: int = 5, reps: int = 100):
+    """The median of each function's ``paired_device_times``."""
+    return tuple(float(np.median(t)) for t in
+                 paired_device_times(*fns, rounds=rounds, reps=reps))
 
 
 def launch_signature(name, node, tensors) -> tuple:
@@ -2188,6 +2223,20 @@ def all_args(fn, args, kwargs) -> list:
     bound = inspect.signature(fn).bind(*args, **kwargs)
     bound.apply_defaults()
     return list(bound.arguments.values())
+
+
+def hand_chain(tag, args):
+    """The PyTorch calls that compute squared ReLU or a GLU, a yardstick of
+    a chain where no single call computes the kernel's function, and what
+    the chain is."""
+    if tag == "_sqrelu_kernel":
+        x = args[0]
+        return (lambda: torch.relu(x).square()), "relu -> square, two calls"
+    g, u, act = args
+    if act == "silu":
+        return (lambda: F.silu(g) * u), "F.silu(g) * u, two calls"
+    return ((lambda: F.gelu(g, approximate="tanh") * u),
+            "F.gelu(g, approximate='tanh') * u, two calls")
 
 
 def hand_rows(parts, path):
@@ -2255,17 +2304,12 @@ def hand_rows(parts, path):
             if not within(outs, refs):
                 fail(f"{name} at {sig} disagrees with its plain version "
                      f"(max err {err})")
-        if tag == "_sqrelu_kernel":
-            # no single call computes it: the two-call chain is the yardstick
-            x = full[0]
-
-            def chain():
-                return torch.relu(x).square()
+        if tag in ("_sqrelu_kernel", "_glu_kernel"):
+            # no single call computes it: a chain of calls is the yardstick
+            chain, what = hand_chain(tag, full)
             if not within((chain(),), (ref,)):
-                fail(f"the relu -> square chain disagrees with {name}'s plain "
-                     f"version")
-            extra = {"chain": "relu -> square, two calls",
-                     "chain_ms": timed(chain, 50),
+                fail(f"the {what} chain disagrees with {name}'s plain version")
+            extra = {"chain": what, "chain_ms": timed(chain, 50),
                      "chain_device_ms": device_ms(chain)}
         source = source_of(tag, full, source)
         extra.update(replaced_kernel(tag, full, refs, outs))
@@ -2548,7 +2592,7 @@ def moe_f32(dev):
     print(f"moe 4-layer f32 kernel-mode logits: tol={F32_LOGIT_TOL} sound max "
           f"prefill={max(r[0] for r in readings):.6g} "
           f"decode={max(r[1] for r in readings):.6g}; planted router fault "
-          f"(chosen column not masked) prefill={planted[0]:.6g} "
+          f"(each row's top expert k times) prefill={planted[0]:.6g} "
           f"decode={planted[1]:.6g}")
     if not all(r <= F32_LOGIT_TOL for rs in readings for r in rs):
         fail("moe 4-layer f32 kernel-mode logits disagree with eager")
@@ -3636,15 +3680,16 @@ def full_width_f32(dev):
     """qwen3-1.7b at full width, cut to 4 layers, in float32: the stitched
     first decode step, ref mode and kernel mode, against the eager ref-mode
     one over several weight seeds; then faults planted in the stitched
-    RMSNorm kernels (ref mode) and in the decode-attention and RoPE kernels
-    (kernel mode), each of which must read over 100x the limit.  Then the kernel-mode prefill at the 256 bucket (the flash
+    RMSNorm kernels (ref mode) and in the decode-attention, RoPE, RMSNorm
+    and GLU kernels (kernel mode), each of which must read over 100x the
+    limit.  Then the kernel-mode prefill at the 256 bucket (the flash
     kernel in every layer) and its first decode step against the eager
     ones, and a fault planted in the flash kernel."""
     from dataclasses import replace
     from repro_torch.configs import get_config
     from repro_torch.core import StitchCompiler
-    from repro_torch.kernels import decode_attention, flash_attention, norms
-    from repro_torch.kernels import ops, rope
+    from repro_torch.kernels import activations, decode_attention, norms
+    from repro_torch.kernels import flash_attention, ops, rope
     from repro_torch.models import build_model
     from repro_torch.serve import Engine, ServeConfig
     cfg = replace(get_config("qwen3-1.7b"), n_layers=4, dtype="float32")
@@ -3688,7 +3733,8 @@ def full_width_f32(dev):
     planted = {}
     for mod, fault in ((decode_attention, "decode_attention"),
                        (rope, "rope_row_table"),
-                       (norms, "rmsnorm_second_rep_raw")):
+                       (norms, "rmsnorm_second_rep_raw"),
+                       (activations, "glu_no_sigmoid")):
         mod._lib()
         sound_lib, mod._LIB = mod._LIB, faulted_library(mod, fault)
         try:
@@ -3700,7 +3746,8 @@ def full_width_f32(dev):
     print(f"full-width 4-layer f32 kernel-mode logits: tol={F32_LOGIT_TOL} "
           f"sound max={max(km_readings):.6g} planted faults (decode attention "
           f"kpos < pos; RoPE rows reading their block's first row's angles; "
-          f"RMSNorm's second repetition of columns unnormalised) "
+          f"RMSNorm's second repetition of columns unnormalised; SwiGLU "
+          f"without its sigmoid) "
           + " ".join(f"{k}={v:.6g}" for k, v in planted.items()))
     if not all(r <= F32_LOGIT_TOL for r in km_readings):
         fail("full-width f32 kernel-mode logits disagree with eager")

@@ -12,11 +12,11 @@
 //              y = xc * rsqrt(var + eps) * gamma + beta
 // each output rounded once to x's dtype; out is contiguous (rows, d).
 //
-// These are the operations of the Triton kernels these replace
-// (kernels/norms.py, kept one release as yardsticks), rounding for
-// rounding, and the sums in the same order, so that the two give the same
-// bits (chip_smoke.py holds every path launch to that).  From their PTX and
-// SASS (triton 3.6, sm_90a):
+// These are the operations of the Triton kernels these replaced (deleted
+// since; PERF.md keeps their times), rounding for rounding, and the sums in
+// the same order, so that the two gave the same bits (chip_smoke.py held
+// every path launch to that).  From their PTX and SASS (triton 3.6,
+// sm_90a):
 //
 // * Layout.  A Triton program holds BLOCK_R rows of BLOCK_D = next_pow2(d)
 //   columns; each thread holds V consecutive columns (V from Triton's

@@ -1,21 +1,28 @@
 """MLP activations: SwiGLU and GeGLU, the port of the reference's
 ``_glu_kernel`` (``src/repro/kernels/activations.py:17``), and squared
-ReLU, the port of its ``_sqrelu_kernel`` (``:54``); Triton kernels.
+ReLU, the port of its ``_sqrelu_kernel`` (``:54``).
 
-Bound on this card: bytes.  One elementwise pass reads gate and up once
-and writes the product once, where the unfused chain makes four or five
-round trips.  Design: a 2-D grid of (row, block of ``BLOCK`` columns) over
-the (rows, F) operands (rows may be strided, columns contiguous); each
-program computes ``act(gate) * up`` in f32 and casts once.  ``ACT`` is a
-compile-time switch: 0 is SiLU (``g * sigmoid(g)``), 1 is the tanh form of
-GELU, which is what ``jax.nn.gelu`` computes by default and
-``F.gelu(approximate="tanh")`` in the plain version.
+SwiGLU and GeGLU are CUDA C++ for ``sm_90a`` (``repro_torch/csrc/
+activations.cu``, built by :mod:`.build` at first use and bound with
+``ctypes``); its source note gives the bound, the design and the rounded
+operations.  It computes what the Triton kernel below computed, bit for
+bit: ``act(gate) * up`` in f32 with the same rounded operations (SiLU as
+``1 / (1 + 2^(-g log2 e))`` with Triton's approximate ``ex2`` and
+``div.full``; GeGLU's tanh as Triton's libdevice ``tanhf``) and one cast
+out; a block of 128 threads takes 1024 columns of a row (or several rows
+narrower than that) in 16-byte loads.
+``_glu_kernel`` (a
+(rows, F / ``BLOCK``) grid of 4-warp programs, ``ACT`` a compile-time
+switch: 0 SiLU, 1 the tanh GELU, which is what ``jax.nn.gelu`` computes by
+default and ``F.gelu(approximate="tanh")`` in the plain version) stays one
+release as a yardstick (``_launch_variant("triton", ...)``), launched by
+no op.
 
-Squared ReLU is bound by bytes too: 100.7 MB a launch at nemotron-4-15b's
-prefill, (1024, 24576) bf16, 30.0 us at 3.35 TB/s.  Design: one flat
-elementwise pass over the contiguous operand, ``BLOCK`` elements a
-program: ``r = max(x, 0)`` in f32 (NaN stays NaN, as in ``jnp.maximum``),
-``r * r``, one cast out.
+Squared ReLU is a Triton kernel, bound by bytes: 100.7 MB a launch at
+nemotron-4-15b's prefill, (1024, 24576) bf16, 30.0 us at 3.35 TB/s.
+Design: one flat elementwise pass over the contiguous operand, ``BLOCK``
+elements a program: ``r = max(x, 0)`` in f32 (NaN stays NaN, as in
+``jnp.maximum``), ``r * r``, one cast out.
 
 They are the custom ops ``repro_torch::glu(gate, up, act)`` and
 ``repro_torch::squared_relu(x)``: the CPU implementation is the plain
@@ -26,6 +33,7 @@ the op, as the reference wrappers do.
 
 from __future__ import annotations
 
+import ctypes
 from collections import Counter
 
 import torch
@@ -33,17 +41,19 @@ import torch
 from . import build
 from . import ref as _ref
 
-__all__ = ["swiglu", "geglu", "glu_plain", "launches", "squared_relu",
-           "squared_relu_plain", "sqrelu_launches"]
+__all__ = ["bind", "swiglu", "geglu", "glu_plain", "launches",
+           "squared_relu", "squared_relu_plain", "sqrelu_launches"]
 
 _ACTS = {"silu": 0, "gelu": 1}
-_FLOAT = (torch.float32, torch.bfloat16)
+_FLOAT = {torch.float32: 0, torch.bfloat16: 1}
 BLOCK = 1024
+VARIANTS = ("cuda", "triton")   # cuda: the op's; triton: the one replaced
 
 # kernel launches since the last reset, by build.signature of the arguments
 launches: Counter = Counter()               # _glu_kernel
 sqrelu_launches: Counter = Counter()        # _sqrelu_kernel
 _JIT = _SQ_JIT = None
+_LIB: ctypes.CDLL | None = None
 tl = libdevice = None  # bound by build.triton_jit at the first launch
 
 
@@ -77,8 +87,54 @@ def glu_plain(gate, up, act: str):
     return _ref.geglu(gate, up)
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built ``activations`` library."""
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.repro_glu.argtypes = [vp, vp, vp, ci, ci, cl, cl, cl, cl, vp]
+    lib.repro_glu.restype = ci
+    lib.repro_cuda_error_string.argtypes = [ci]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        _LIB = bind(ctypes.CDLL(str(build.library("activations"))))
+    return _LIB
+
+
+def _cuda(gate, up, act: str):
+    """One launch of the CUDA kernel on (rows, F) gate and up."""
+    rows, F = gate.shape
+    out = torch.empty((rows, F), dtype=gate.dtype, device=gate.device)
+    err = _lib().repro_glu(
+        gate.data_ptr(), up.data_ptr(), out.data_ptr(), _FLOAT[gate.dtype],
+        _ACTS[act], rows, F, gate.stride(0), up.stride(0),
+        torch.cuda.current_stream(gate.device).cuda_stream)
+    if err:
+        msg = _lib().repro_cuda_error_string(err).decode()
+        if err < 0:
+            raise ValueError(f"glu: {msg} (gate {gate.dtype} "
+                             f"{tuple(gate.shape)} strides {gate.stride()}, "
+                             f"up strides {up.stride()})")
+        raise RuntimeError(f"glu kernel launch failed: {msg} ({err})")
+    return out
+
+
 def _launch(gate, up, act: str):
+    out = _launch_variant("cuda", gate, up, act)
+    launches[build.signature(gate, up, act)] += 1
+    return out
+
+
+def _launch_variant(variant: str, gate, up, act: str):
+    """One launch of the CUDA kernel (``variant="cuda"``, the one the op
+    launches) or the Triton kernel it replaced (``"triton"``), with the
+    op's checks and no launch counted."""
     global _JIT
+    if variant not in VARIANTS:
+        raise ValueError(f"glu: unknown variant {variant!r}")
     if act not in _ACTS:
         raise ValueError(f"glu: act {act!r}, expected one of {sorted(_ACTS)}")
     if gate.dim() != 2 or gate.shape != up.shape or gate.dtype != up.dtype \
@@ -90,13 +146,14 @@ def _launch(gate, up, act: str):
     if gate.stride(1) != 1 or up.stride(1) != 1:
         raise ValueError(f"glu: strides {gate.stride()}, {up.stride()}: rows "
                          f"must be contiguous")
+    if variant == "cuda":
+        return _cuda(gate, up, act)
     rows, F = gate.shape
     out = torch.empty((rows, F), dtype=gate.dtype, device=gate.device)
     if _JIT is None:
         _JIT = build.triton_jit(_glu_kernel)
     _JIT[(rows, -(-F // BLOCK))](gate, up, out, F, gate.stride(0), up.stride(0),
                                 ACT=_ACTS[act], BLOCK=BLOCK, num_warps=4)
-    launches[build.signature(gate, up, act)] += 1
     return out
 
 

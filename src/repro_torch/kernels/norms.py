@@ -5,26 +5,24 @@ reference's ``_rmsnorm_kernel`` (``src/repro/kernels/norms.py:32``),
 RMSNorm and LayerNorm are CUDA C++ for ``sm_90a`` (``repro_torch/csrc/
 norms.cu``, built by :mod:`.build` at first use and bound with ``ctypes``);
 its source note gives the bound and the design.  They compute what the
-Triton kernels below computed, bit for bit: each row summed over the same
-lanes, each lane's elements in the same order, the same butterfly across
-lanes and warps, and the same rounded operations.  :func:`block_plan`
-gives an operand the layout Triton gave it (which depends on Triton's
+Triton kernels they replaced computed (deleted since; ``PERF.md`` keeps
+their times), bit for bit: each row summed over the same lanes, each
+lane's elements in the same order, the same butterfly across lanes and
+warps, and the same rounded operations.  :func:`block_plan` gives an
+operand the layout Triton gave it (which depends on Triton's
 divisibility-by-16 view of the pointers and strides) and the block the
-CUDA kernel runs it in.  What each Triton kernel did: a program holds
+CUDA kernel runs it in.  What each Triton kernel did: a program held
 ``BLOCK_R`` whole rows (``BLOCK_D`` = d rounded up to a power of two,
-masked), computes ``mean(x^2)`` in f32 with one row reduction, then
-``x * rsqrt(mean + eps) * gamma`` in f32 and one cast out; LayerNorm takes
+masked), computed ``mean(x^2)`` in f32 with one row reduction, then
+``x * rsqrt(mean + eps) * gamma`` in f32 and one cast out; LayerNorm took
 the mean, then the variance as the mean of ``(x - mu)^2`` over the masked
 row (two passes over registers, not ``E[x^2] - mu^2``), both divided with
 ``div_rn``, then ``(x - mu) * rsqrt(var + eps) * gamma + beta``.
-``_rmsnorm_kernel`` and ``_layernorm_kernel`` stay one release as
-yardsticks (``_launch_variant("triton", ...)``,
-``_launch_layernorm_variant("triton", ...)``), launched by no op.
 
-The residual add + RMSNorm stays a Triton kernel, bound by bytes: it reads
+The residual add + RMSNorm is a Triton kernel, bound by bytes: it reads
 x and res and writes the norm and the new residual, 16.8 MB a launch at
-qwen3-1.7b's (1024, 2048) bf16, 5.0 us at 3.35 TB/s.  Design: the same
-whole-row programs; ``s = x + res`` in f32, stored once as the new
+qwen3-1.7b's (1024, 2048) bf16, 5.0 us at 3.35 TB/s.  Design: whole-row
+programs as above; ``s = x + res`` in f32, stored once as the new
 residual, and ``mean(s^2)`` taken from the f32 s (not from the rounded
 residual), as the reference does; then ``s * rsqrt(mean + eps) * gamma``
 and one cast out.
@@ -63,22 +61,9 @@ MIN_THREADS = 128    # a block's threads at least: narrow rows side by side
 launches: Counter = Counter()               # _rmsnorm_kernel
 residual_launches: Counter = Counter()      # _rmsnorm_residual_kernel
 layernorm_launches: Counter = Counter()     # _layernorm_kernel
-_JIT = _RES_JIT = _LN_JIT = None
+_RES_JIT = None
 _LIB: ctypes.CDLL | None = None
-tl = None             # triton.language, bound by build.triton_jit at launch
-
-
-def _rmsnorm_kernel(x_ptr, g_ptr, o_ptr, rows, d, stride_x, eps,
-                    BLOCK_R: tl.constexpr, BLOCK_D: tl.constexpr):
-    r = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)[:, None]
-    c = tl.arange(0, BLOCK_D)[None, :]
-    mask = (r < rows) & (c < d)
-    r64 = r.to(tl.int64)
-    x = tl.load(x_ptr + r64 * stride_x + c, mask=mask, other=0.0).to(tl.float32)
-    var = tl.div_rn(tl.sum(x * x, axis=1)[:, None], 1.0 * d)
-    g = tl.load(g_ptr + c, mask=c < d, other=0.0).to(tl.float32)
-    y = x * tl.rsqrt(var + eps) * g
-    tl.store(o_ptr + r64 * d + c, y.to(o_ptr.dtype.element_ty), mask=mask)
+tl = None  # bound by build.triton_jit at the residual kernel's first launch
 
 
 def _rmsnorm_residual_kernel(x_ptr, r_ptr, g_ptr, o_ptr, s_ptr, rows, d,
@@ -94,22 +79,6 @@ def _rmsnorm_residual_kernel(x_ptr, r_ptr, g_ptr, o_ptr, s_ptr, rows, d,
     var = tl.div_rn(tl.sum(s * s, axis=1)[:, None], 1.0 * d)
     g = tl.load(g_ptr + c, mask=c < d, other=0.0).to(tl.float32)
     y = s * tl.rsqrt(var + eps) * g
-    tl.store(o_ptr + r64 * d + c, y.to(o_ptr.dtype.element_ty), mask=mask)
-
-
-def _layernorm_kernel(x_ptr, g_ptr, b_ptr, o_ptr, rows, d, stride_x, eps,
-                      BLOCK_R: tl.constexpr, BLOCK_D: tl.constexpr):
-    r = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)[:, None]
-    c = tl.arange(0, BLOCK_D)[None, :]
-    mask = (r < rows) & (c < d)
-    r64 = r.to(tl.int64)
-    x = tl.load(x_ptr + r64 * stride_x + c, mask=mask, other=0.0).to(tl.float32)
-    mu = tl.div_rn(tl.sum(x, axis=1)[:, None], 1.0 * d)
-    xc = tl.where(mask, x - mu, 0.0)
-    var = tl.div_rn(tl.sum(xc * xc, axis=1)[:, None], 1.0 * d)
-    g = tl.load(g_ptr + c, mask=c < d, other=0.0).to(tl.float32)
-    b = tl.load(b_ptr + c, mask=c < d, other=0.0).to(tl.float32)
-    y = xc * tl.rsqrt(var + eps) * g + b
     tl.store(o_ptr + r64 * d + c, y.to(o_ptr.dtype.element_ty), mask=mask)
 
 
@@ -259,29 +228,9 @@ def _cuda(name, x, vectors, eps: float):
 
 
 def _launch(x, gamma, eps: float):
-    out = _launch_variant("cuda", x, gamma, eps)
-    launches[build.signature(x, gamma, eps)] += 1
-    return out
-
-
-def _launch_variant(variant: str, x, gamma, eps: float):
-    """One launch of the CUDA kernel (``variant="cuda"``, the one the op
-    launches) or the Triton kernel it replaced (``"triton"``), with the
-    op's checks and no launch counted."""
-    global _JIT
     _check("rmsnorm", x, gamma)
-    if variant == "cuda":
-        return _cuda("rmsnorm", x, (gamma,), eps)
-    if variant != "triton":
-        raise ValueError(f"rmsnorm: unknown variant {variant!r}")
-    rows, d = x.shape
-    out = torch.empty((rows, d), dtype=x.dtype, device=x.device)
-    block_r, block_d, warps = _blocks(rows, d)
-    if _JIT is None:
-        _JIT = build.triton_jit(_rmsnorm_kernel)
-    grid = (-(-rows // block_r),)
-    _JIT[grid](x, gamma, out, rows, d, x.stride(0), float(eps),
-               BLOCK_R=block_r, BLOCK_D=block_d, num_warps=warps)
+    out = _cuda("rmsnorm", x, (gamma,), eps)
+    launches[build.signature(x, gamma, eps)] += 1
     return out
 
 
@@ -307,27 +256,9 @@ def _launch_residual(x, res, gamma, eps: float):
 
 
 def _launch_layernorm(x, gamma, beta, eps: float):
-    out = _launch_layernorm_variant("cuda", x, gamma, beta, eps)
-    layernorm_launches[build.signature(x, gamma, beta, eps)] += 1
-    return out
-
-
-def _launch_layernorm_variant(variant: str, x, gamma, beta, eps: float):
-    """``_launch_variant`` of LayerNorm."""
-    global _LN_JIT
     _check("layernorm", x, gamma, beta)
-    if variant == "cuda":
-        return _cuda("layernorm", x, (gamma, beta), eps)
-    if variant != "triton":
-        raise ValueError(f"layernorm: unknown variant {variant!r}")
-    rows, d = x.shape
-    out = torch.empty((rows, d), dtype=x.dtype, device=x.device)
-    block_r, block_d, warps = _blocks(rows, d)
-    if _LN_JIT is None:
-        _LN_JIT = build.triton_jit(_layernorm_kernel)
-    grid = (-(-rows // block_r),)
-    _LN_JIT[grid](x, gamma, beta, out, rows, d, x.stride(0), float(eps),
-                  BLOCK_R=block_r, BLOCK_D=block_d, num_warps=warps)
+    out = _cuda("layernorm", x, (gamma, beta), eps)
+    layernorm_launches[build.signature(x, gamma, beta, eps)] += 1
     return out
 
 

@@ -1,21 +1,27 @@
 """MoE top-k router: the port of the reference's ``_router_kernel``
-(``src/repro/kernels/router.py``): softmax over the experts, k argmax
-rounds and renormalisation in one pass over the router logits.
+(``src/repro/kernels/router.py``): softmax over the experts, the k largest
+probabilities in order and renormalisation in one pass over the router
+logits.
 
 The kernel is CUDA C++ for ``sm_90a`` (``repro_torch/csrc/router.cu``,
 built by :mod:`.build` at first use and bound with ``ctypes``); its source
-note gives the bound and the design.  It is the custom op
-``repro_torch::topk_router`` with two outputs, weights ``(T, k)`` in the
-logits' dtype and ids ``(T, k)`` int32: the CPU implementation is the plain
-version below, the CUDA implementation launches the kernel, so ``make_fx``
-sees one node with two projections, which the tracer tags
-``_router_kernel`` for the planner's registry.  As in the reference
-wrapper, no op surrounds the kernel: the node's one operand is the logits.
+note gives the bound and the design: each column's slot is the count of
+the row's columns that beat it, so no step waits on a previous pick.  It is
+the custom op ``repro_torch::topk_router`` with two outputs, weights
+``(T, k)`` in the logits' dtype and ids ``(T, k)`` int32: the CPU
+implementation is the plain version below, the CUDA implementation
+launches the kernel, so ``make_fx`` sees one node with two projections,
+which the tracer tags ``_router_kernel`` for the planner's registry.  As in
+the reference wrapper, no op surrounds the kernel: the node's one operand
+is the logits.  The kernel of k argmax rounds it replaced stays one
+release as a yardstick (``_launch_variant("rounds", ...)``), launched by no
+op.
 
-Equal probabilities rank by the lower expert index, in the kernel's pair
-reduction and in the plain version's ``argmax`` rounds (``torch.argmax``
-returns the first maximal index); the order of the k ids matters, since
-the dispatch's stable sort and its capacity drops follow it.
+Equal probabilities rank by the lower expert index, in the kernel's counts
+and in the plain version's ``argmax`` rounds (``torch.argmax`` returns the
+first maximal index); the order of the k ids matters, since the dispatch's
+stable sort and its capacity drops follow it.  The kernel takes the
+renormalising sum in slot order.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ __all__ = ["bind", "topk_router", "topk_router_plain", "launches"]
 
 MAX_EXPERTS = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = {"rank": 0, "rounds": 1}   # rank: the op's; rounds: replaced
 
 # kernel launches since the last reset, by build.signature of the arguments
 launches: Counter = Counter()
@@ -61,7 +68,8 @@ def topk_router_plain(logits, k: int, renormalize: bool = True):
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a built ``router`` library."""
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.repro_topk_router.argtypes = [vp] * 3 + [ci] * 4 + [cl] * 2 + [ci, vp]
+    lib.repro_topk_router.argtypes = ([vp] * 3 + [ci] * 4 + [cl] * 2
+                                      + [ci, ci, vp])
     lib.repro_topk_router.restype = ci
     lib.repro_cuda_error_string.argtypes = [ci]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -76,6 +84,17 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(logits, k: int, renormalize: bool = True):
+    w, ids = _launch_variant("rank", logits, k, renormalize)
+    launches[build.signature(logits, k, renormalize)] += 1
+    return w, ids
+
+
+def _launch_variant(variant: str, logits, k: int, renormalize: bool = True):
+    """One launch of the rank kernel (``variant="rank"``, the one the op
+    launches) or the round kernel it replaced (``"rounds"``), with the op's
+    checks and no launch counted."""
+    if variant not in VARIANTS:
+        raise ValueError(f"topk_router: unknown variant {variant!r}")
     if logits.dim() != 2:
         raise ValueError(f"topk_router: logits {tuple(logits.shape)}, need "
                          f"(T, E)")
@@ -95,11 +114,10 @@ def _launch(logits, k: int, renormalize: bool = True):
     err = _lib().repro_topk_router(
         logits.data_ptr(), w.data_ptr(), ids.data_ptr(), _DTYPES[logits.dtype],
         T, E, k, logits.stride(0), logits.stride(1), int(bool(renormalize)),
-        torch.cuda.current_stream(dev).cuda_stream)
+        VARIANTS[variant], torch.cuda.current_stream(dev).cuda_stream)
     if err:
         msg = _lib().repro_cuda_error_string(err).decode()
         raise RuntimeError(f"topk_router kernel launch failed: {msg} ({err})")
-    launches[build.signature(logits, k, renormalize)] += 1
     return w, ids
 
 

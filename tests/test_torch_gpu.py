@@ -216,11 +216,11 @@ def test_rmsnorm_kernel_on_card(dtype, tol):
 NORM_CUDA_SHAPES = NORM_SHAPES + [(4, 6144), (1024, 6144), (16384, 128)]
 
 
-def _norm(kernel, variant, x, g, b):
+def _norm(kernel, x, g, b):
     from repro_torch.kernels import norms
     if kernel == "rmsnorm":
-        return norms._launch_variant(variant, x, g, 1e-6)
-    return norms._launch_layernorm_variant(variant, x, g, b, 1e-5)
+        return norms.rmsnorm_op(x, g, 1e-6)
+    return norms.layernorm_op(x, g, b, 1e-5)
 
 
 def _norm_operand(rows, d, dtype, seed):
@@ -233,27 +233,13 @@ def _norm_operand(rows, d, dtype, seed):
 @pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
 @pytest.mark.parametrize("kernel", ["rmsnorm", "layernorm"])
 def test_norm_cuda_against_plain_on_card(kernel, dtype, tol):
+    """At NORM_CUDA_SHAPES and at operands laid out otherwise: rows wider
+    than the row and x off 16-byte alignment (d = 2048 keeps the output's
+    vector, d = 200 takes x's), and gamma off alignment."""
     _need_card()
     from repro_torch.kernels import norms
     plain = {"rmsnorm": lambda x, g, b: norms.rmsnorm_plain(x, g, 1e-6),
              "layernorm": lambda x, g, b: norms.layernorm_plain(x, g, b, 1e-5)}
-    for i, (rows, d) in enumerate(NORM_CUDA_SHAPES):
-        x, g, b = _norm_operand(rows, d, dtype, 10 * i)
-        out = _norm(kernel, "cuda", x, g, b)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(out.float(), plain[kernel](x, g, b).float(),
-                                   rtol=tol, atol=tol)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kernel", ["rmsnorm", "layernorm"])
-def test_norm_cuda_equals_triton_on_card(kernel, dtype):
-    """Bit for bit the Triton kernel it replaced, at NORM_CUDA_SHAPES and
-    at operands Triton lays out otherwise: rows wider than the row and x
-    off 16-byte alignment (d = 2048 keeps the output's vector, d = 200 takes
-    x's), and one row of 200 with gamma off alignment."""
-    _need_card()
     cases = [_norm_operand(rows, d, dtype, 10 * i)
              for i, (rows, d) in enumerate(NORM_CUDA_SHAPES)]
     for rows, d in ((4, 2048), (37, 200), (1, 200)):
@@ -261,10 +247,10 @@ def test_norm_cuda_equals_triton_on_card(kernel, dtype):
         cases.append((x[:, 1:d + 1], g[:d], b[:d]))
         cases.append((x[:, :d], g[1:d + 1], b[:d]))
     for x, g, b in cases:
-        new, old = _norm(kernel, "cuda", x, g, b), _norm(kernel, "triton", x, g, b)
+        out = _norm(kernel, x, g, b)
         torch.cuda.synchronize()
-        assert torch.equal(new, old), (tuple(x.shape), x.stride(),
-                                       int((new != old).sum()))
+        torch.testing.assert_close(out.float(), plain[kernel](x, g, b).float(),
+                                   rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu
@@ -288,6 +274,36 @@ def test_glu_kernel_on_card(act, dtype, tol):
                                rtol=tol, atol=tol)
     with pytest.raises(ValueError, match="contiguous"):
         activations.glu_op(gate.t(), up.t(), act)
+
+
+# the GLU operands of examples/torch_router_glu_breakdown.py: qwen3's
+# decode and bucket-64 prefill rows, recurrentgemma's scoring call,
+# granite's experts at decode and prefill (rows narrower than a block, side
+# by side), and ragged widths, a column slice and a misaligned operand
+GLU_BIT_SHAPES = GLU_SHAPES + [(1024, 12288), (256, 512), (10240, 512),
+                               (7, 333), (37, 40)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_glu_cuda_equals_triton_on_card(act, dtype):
+    """Bit for bit the Triton kernel it replaced, at the breakdown's
+    operands and at operands laid out otherwise (one element a chunk)."""
+    _need_card()
+    from repro_torch.kernels import activations
+    cases = [(_rand(s, dtype, 2 * i), _rand(s, dtype, 2 * i + 1))
+             for i, s in enumerate(GLU_BIT_SHAPES)]
+    wide_g, wide_u = _rand((4, 2 * 6144), dtype, 7), _rand((4, 2 * 6144),
+                                                          dtype, 8)
+    cases += [(wide_g[:, :6144], wide_u[:, 6144:]),
+              (wide_g[:, 1:6145], wide_u[:, 3:6147])]
+    for gate, up in cases:
+        new = activations._launch_variant("cuda", gate, up, act)
+        old = activations._launch_variant("triton", gate, up, act)
+        torch.cuda.synchronize()
+        assert torch.equal(new, old), (tuple(gate.shape), gate.stride(),
+                                       int((new != old).sum()))
 
 
 @pytest.mark.gpu
@@ -557,6 +573,32 @@ def test_router_kernel_on_card(renorm, dtype, tol):
         router.topk_router(_rand((32, 16), dtype).t(), 2)
     with pytest.raises(ValueError, match="E <= 64"):
         router.topk_router(_rand((4, 65), dtype), 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("renorm", [True, False])
+def test_router_rebuilt_equals_old_on_card(renorm, dtype):
+    """The rank kernel's ids and weights equal the round kernel's it
+    replaced, bit for bit, at ROUTER_CASES (the breakdown's operands), at
+    E of 1 to 33 and on rows with exact ties, equal logits and -inf
+    logits."""
+    _need_card()
+    from repro_torch.kernels import router
+    cases = [(_rand((T, E), dtype, 20 + i), k)
+             for i, (T, E, k) in enumerate(ROUTER_CASES)]
+    cases += [(_rand((37, E), dtype, E), min(k, E))
+              for E in (1, 3, 8, 17, 32, 33) for k in (1, 4, 8)]
+    ties = _rand((512, 32), "bfloat16", 3).to(getattr(torch, dtype))
+    ties[0] = 0.25
+    ties[1::3, ::4] = -torch.inf
+    cases.append((ties, 8))
+    for x, k in cases:
+        new = router._launch_variant("rank", x, k, renorm)
+        old = router._launch_variant("rounds", x, k, renorm)
+        torch.cuda.synchronize()
+        assert torch.equal(new[1], old[1]), (tuple(x.shape), k)
+        assert torch.equal(new[0], old[0]), (tuple(x.shape), k)
 
 
 @pytest.mark.gpu
@@ -1160,6 +1202,7 @@ def test_cuda_library_builds_from_an_empty_directory(tmp_path):
                      ("flash_attention", "repro_flash_attention"),
                      ("flash_attention_sm90", "repro_flash_attention_sm90"),
                      ("router", "repro_topk_router"),
+                     ("activations", "repro_glu"),
                      ("mamba_scan", "repro_mamba_scan"),
                      ("rg_lru", "repro_rg_lru"),
                      ("rope", "repro_rope")):

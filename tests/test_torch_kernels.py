@@ -509,6 +509,7 @@ def test_build_failure_raises_with_nvcc_output(tmp_path, monkeypatch):
 def test_csrc_sources_are_found():
     stems = {p.stem for p in build.CSRC.glob("*.cu")}
     assert {"decode_attention", "flash_attention", "flash_attention_sm90",
-            "router", "mamba_scan", "rg_lru", "rope"} <= stems
+            "router", "mamba_scan", "rg_lru", "rope", "norms",
+            "activations"} <= stems
     assert build.build_dir().parts[-2:] == ("build", "kernels")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

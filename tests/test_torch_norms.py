@@ -1,11 +1,12 @@
 """RMSNorm and LayerNorm (``repro_torch.kernels.norms``) on the CPU.
 
-The CUDA kernels (``csrc/norms.cu``) must give the Triton kernels' bits, so
-each row is summed over the lanes and in the order the Triton program
-used: :func:`norms.block_plan` derives that layout from Triton's view of an
-operand's pointers and strides.  Here the plan is held to the layouts
-Triton 3.6 compiled on the card (its TTGIR's ``#blocked`` load layouts,
-``examples/torch_norm_breakdown.py --asm``) at every path operand and at
+The CUDA kernels (``csrc/norms.cu``) give the bits of the Triton kernels
+they replaced, so each row is summed over the lanes and in the order the
+Triton program used: :func:`norms.block_plan` derives that layout from
+Triton's view of an operand's pointers and strides.  Here the plan is held
+to the layouts Triton 3.6 compiled on the card (its TTGIR's ``#blocked``
+load layouts, read before the Triton kernels were deleted) at every path
+operand and at
 strided, misaligned and ragged ones; the ``ctypes`` binding to the C
 declarations in the source; the wrappers' refusals; and the plain versions
 to the reference's Pallas kernels in interpret mode (float32 at 2e-4, the
@@ -136,12 +137,12 @@ def test_binding_matches_the_c_declaration(fn):
 @pytest.mark.parametrize("launch", ["rms", "ln"])
 def test_wrappers_refuse_what_the_kernels_do_not_take(launch):
     """Row-strided x is taken (its row stride is passed); a column stride,
-    another dtype, a vector of another length or an unknown variant is
-    refused before any build or launch."""
-    def call(x, g, variant="cuda"):
+    another dtype or a vector of another length is refused before any
+    build or launch."""
+    def call(x, g):
         if launch == "rms":
-            return norms._launch_variant(variant, x, g, 1e-6)
-        return norms._launch_layernorm_variant(variant, x, g, g, 1e-5)
+            return norms._launch(x, g, 1e-6)
+        return norms._launch_layernorm(x, g, g, 1e-5)
 
     x, g = torch.randn(8, 16), torch.randn(16)
     with pytest.raises(ValueError, match="contiguous"):
@@ -150,8 +151,6 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(launch):
         call(x.half(), g.half())
     with pytest.raises(ValueError, match=r"\(rows, d\)"):
         call(x, g[:8])
-    with pytest.raises(ValueError, match="unknown variant"):
-        call(x, g, "pallas")
 
 
 NORM_CASES = [(8, 128), (3, 200), (2, 1024), (5, 96)]
