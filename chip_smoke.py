@@ -21,8 +21,8 @@ result line):
    RG-LRU) at sample shapes, each held against its plain PyTorch version
    on the card (the router's ids exactly on rows without a near tie, ties
    to the lowest index; NaN rows of the softmax at the same places).  The
-   router's and the GLU's samples also equal, bit for bit, the kernels
-   they replaced (the router's k argmax rounds, the Triton GLU).
+   masked softmax's one-pass samples also equal, bit for bit, the Triton
+   kernel its CUDA kernel replaced.
    Flash attention runs its bf16 samples through both kernels (the Hopper
    one, wgmma fed by TMA, and the CUDA-core one it replaced for bf16) and
    its f32 samples through the CUDA-core one; decode attention runs the
@@ -67,9 +67,7 @@ result line):
    bound and, where one PyTorch call computes the same function, that call
    (``F.rms_norm``, ``F.scaled_dot_product_attention``), the GLU beside
    the ``F.silu(g) * u`` chain; the Hopper flash kernel also beside the
-   kernel it replaced, on the same operands, and the CUDA GLU beside the
-   Triton kernel it replaced, whose outputs it must equal bit for bit on
-   every path operand, both timed paired.  On
+   kernel it replaced, on the same operands.  On
    every path the launches by variant are gated: every bf16 flash launch
    the Hopper kernel's, every f32 one the CUDA-core kernel's, every decode
    launch the split kernel's.  Both decode plans
@@ -89,9 +87,7 @@ result line):
    kernel mode at the long prompts (bucket 256): exact launches per prefill
    call and decode step from the config, every kernel of the path held
    against its plain version, the router beside the ``softmax -> topk ->
-   div`` chain and beside the kernel of k argmax rounds it replaced, whose
-   ids and weights it must equal bit for bit on every path operand (both
-   timed paired); bf16 prefill and first-step logits against the eager
+   div`` chain; bf16 prefill and first-step logits against the eager
    ref-mode engine over several weight seeds; then (with the float32
    checks) the model cut to 4 layers in float32, with a fault planted in
    the router kernel.
@@ -160,12 +156,16 @@ result line):
    kernel; every kernel against its plain version on the path's operands,
    timed beside its bound and a PyTorch call (the ``x + res ->
    F.rms_norm`` chain, ``F.cross_entropy``, the ``masked_fill -> softmax``
-   and ``mul -> softmax`` chains); the outputs
-   against the same functions run eagerly in ref mode over several seeds;
-   then in float32 at the same widths, with faults planted in the four
-   Triton kernels (the residual norm of x alone, the cross-entropy's
-   running sum not rescaled, the split softmax's fold adding a chunk's sum
-   without its exp(m_c - M) rescale, the mask ignored).
+   and ``mul -> softmax`` chains); the masked softmax's CUDA kernel beside
+   the Triton kernel it replaced, whose outputs it must equal bit for bit
+   on every path launch (both timed paired), and beside both of its
+   bounds (x read whole, and only in the sectors that hold a kept lane);
+   the outputs against the same functions run eagerly in ref mode over
+   several seeds; then in float32 at the same widths, with faults planted
+   in three Triton kernels (the residual norm of x alone, the
+   cross-entropy's running sum not rescaled, the split softmax's fold
+   adding a chunk's sum without its exp(m_c - M) rescale) and in the CUDA
+   masked softmax (the mask ignored).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1136,8 +1136,8 @@ HAND = {
     "_softmax_kernel": ("softmax", "triton",
                         "src/repro_torch/kernels/softmax.py",
                         "src/repro/kernels/softmax.py:43"),
-    "_softmax_masked_kernel": ("softmax_masked", "triton",
-                               "src/repro_torch/kernels/softmax.py",
+    "_softmax_masked_kernel": ("softmax_masked", "cuda",
+                               "src/repro_torch/csrc/softmax.cu",
                                "src/repro/kernels/softmax.py:53"),
     "_xent_kernel": ("cross_entropy", "triton",
                      "src/repro_torch/kernels/cross_entropy.py",
@@ -1205,7 +1205,8 @@ def expected_launches(cfg, bucket: int | None = None) -> tuple[dict, dict]:
 # decode's combine adds a chunk's partial without its exp(m_c - M) rescale;
 # every row of a RoPE block reads the angle table of the block's first row;
 # RMSNorm writes a lane's second repetition of columns through unnormalised
-# (x itself); LayerNorm drops beta; SwiGLU drops the sigmoid (a = g).
+# (x itself); LayerNorm drops beta; SwiGLU drops the sigmoid (a = g); the
+# masked softmax's 16-byte path keeps every lane (its mask ignored).
 # Keyed by fault: (CUDA source stem, sound text, planted text)
 FAULTS = {
     "decode_attention": ("decode_attention",
@@ -1246,6 +1247,9 @@ FAULTS = {
     "layernorm_no_beta": ("norms", "return __fmaf_rn(t, gs[e], bs[e]);",
                           "return __fmul_rn(t, gs[e]);"),
     "glu_no_sigmoid": ("activations", "a = silu(g);", "a = g;"),
+    "softmax_mask_ignored": ("softmax",
+                             "kb |= keep_bits(m.w[j]) << (4 * j);",
+                             "kb |= 0xFu << (4 * j);"),
 }
 
 
@@ -1254,9 +1258,8 @@ FAULTS = {
 # Squared ReLU squares before the max, so negative
 # inputs come out as their squares; the residual RMSNorm normalises x
 # instead of x + res; the cross-entropy drops the exp(m_old - m_new)
-# rescale of its running sum; the masked softmax ignores its mask; the
-# split softmax's fold adds each chunk's sum without its exp(m_c - M)
-# rescale
+# rescale of its running sum; the split softmax's fold adds each chunk's
+# sum without its exp(m_c - M) rescale
 TRITON_FAULTS = {
     "sqrelu_square_first": (
         "activations", "_sqrelu_kernel",
@@ -1273,16 +1276,13 @@ TRITON_FAULTS = {
     "xent_no_rescale": (
         "cross_entropy", "_xent_kernel",
         "l = l * tl.exp(m - m_new) + ", "l = l + "),
-    "softmax_mask_ignored": (
-        "softmax", "_softmax_kernel",
-        "valid = valid & (keep != 0)", "valid = valid"),
     "softmax_split_no_rescale": (
         "softmax", "_softmax_split_kernel",
         "lc * tl.exp(mc - M)", "lc"),
 }
 # the module global each Triton kernel's jitted function is kept in
 TRITON_JIT = {"_sqrelu_kernel": "_SQ_JIT",
-              "_rmsnorm_residual_kernel": "_RES_JIT", "_softmax_kernel": "_JIT",
+              "_rmsnorm_residual_kernel": "_RES_JIT",
               "_softmax_split_kernel": "_SPLIT_JIT", "_xent_kernel": "_JIT"}
 
 
@@ -1545,10 +1545,6 @@ def hand_samples(dev):
         if not within((out,), (ref,)):
             fail(f"hand-written kernel {name} disagrees with its plain version "
                  f"(max err {errs[name]})")
-        if tag == "_glu_kernel" and not torch.equal(
-                out, activations._launch_variant("triton", *args)):
-            fail(f"the CUDA GLU differs from the Triton kernel it replaced in "
-                 f"some bits at {name}")
     print(f"hand-written kernel samples vs plain: "
           + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
     n_flash = len(FLASH_SAMPLES)
@@ -1755,8 +1751,7 @@ def router_samples(rnd):
     """The router kernel against its plain version (``router_compare``) at
     the sample shapes, f32 and bf16, renormalised or not; and on
     bf16-rounded f32 logits, where exact ties are common, with one row of
-    equal logits.  Every case's ids and weights also equal, bit for bit,
-    the kernel of k argmax rounds the rank kernel replaced."""
+    equal logits."""
     from repro_torch.kernels import router
     cases = []
     for dt in (torch.float32, torch.bfloat16):
@@ -1777,10 +1772,6 @@ def router_samples(rnd):
         torch.cuda.synchronize()
         stats[name] = router_compare(name, x, k, out,
                                      router.topk_router_plain(x, k, renorm))
-        old = router._launch_variant("rounds", x, k, renorm)
-        if not (torch.equal(out[0], old[0]) and torch.equal(out[1], old[1])):
-            fail(f"router {name}: the rank kernel differs from the round "
-                 f"kernel it replaced in some bits")
     if not stats[cases[-1][0]]["tie_rows"]:
         fail("the bf16-rounded router samples hold no exact tie")
     if out[1][0].tolist() != list(range(8)):
@@ -1874,8 +1865,10 @@ def api_samples(rnd):
     (a row of 10001), each with a row of -inf (NaN in both, as in the
     reference) and a row holding a NaN; the masked softmax with fully
     masked rows (exactly 0) and rows masked in their first half, one-pass
-    and wide; the cross-entropy at a vocabulary of 50001 (no multiple of a
-    power-of-two block) and at a ragged width.  NaN must sit at the same
+    (the CUDA kernel, also bit for bit the Triton kernel it replaced; a
+    ragged width takes its one-element path) and wide; the cross-entropy
+    at a vocabulary of 50001 (no multiple of a power-of-two block) and at
+    a ragged width.  NaN must sit at the same
     places in both; the rest within ``TOL``."""
     from repro_torch.kernels import cross_entropy, norms, softmax
     gen = torch.Generator().manual_seed(SEED + 9)
@@ -1897,7 +1890,7 @@ def api_samples(rnd):
             x[2, d // 3] = float("nan")
             cases.append((f"softmax_{t}_{rows}x{d}", softmax.softmax_op,
                           "_softmax_kernel", (x, scale)))
-        for rows, d in ((64, 256), (4, 10001)):
+        for rows, d in ((64, 256), (6, 333), (4, 10001)):
             mask = (torch.rand((rows, d), generator=gen) < 0.6).to(dev)
             mask[0] = False
             mask[1, : d // 2] = False
@@ -1927,6 +1920,11 @@ def api_samples(rnd):
         if tag == "_softmax_masked_kernel" and not (
                 (outs[0][0] == 0).all() and (outs[0][~args[1]] == 0).all()):
             fail(f"{name}: masked lanes or a fully masked row are not 0")
+        if tag == "_softmax_masked_kernel" and softmax.split_plan(
+                args[0].shape[1]) is None and not bits_equal(
+                    outs[0], softmax._launch_variant("triton", *args)):
+            fail(f"{name}: the CUDA masked softmax differs from the Triton "
+                 f"kernel it replaced in some bits")
         ok = [torch.nan_to_num(o.float(), nan=0.0) for o in outs]
         ok_ref = [torch.nan_to_num(r.float(), nan=0.0) for r in refs]
         errs[name] = max_err(ok, ok_ref)
@@ -2051,7 +2049,10 @@ def hand_bound(tag, args, out) -> tuple[float, str, str]:
     reciprocals of the sigmoids' divisions, a square root) at the SFU's
     rate and 14 other f32 operations an element at the f32 rate; the
     softmaxes and the cross-entropy count one exponential an input element
-    at the SFU's rate and ``HAND_OPS`` f32 operations an input element.
+    at the SFU's rate and ``HAND_OPS`` f32 operations an input element; the
+    masked softmax counts them at its kept lanes and reads x only in the
+    32-byte sectors that hold one (:func:`masked_bytes`; all of x is
+    :func:`masked_full_bound`).
     Returns (ms, "bytes" or "operations", the bounding term)."""
     def nbytes(t):
         return t.numel() * t.element_size()
@@ -2098,6 +2099,12 @@ def hand_bound(tag, args, out) -> tuple[float, str, str]:
         b = sum(nbytes(a) for a in (x, ig, rg, lam)) + nbytes(out)
         ops = 14 * x.numel()
         extra = 6 * x.numel() / sfu_rate()[0]
+    elif tag == "_softmax_masked_kernel":
+        x, mask, _ = args
+        b = masked_bytes(x, mask)[1]
+        kept = int(mask.sum())
+        ops = HAND_OPS[tag] * kept
+        extra = kept / sfu_rate()[0]
     else:
         b = sum(nbytes(a) for a in args if isinstance(a, torch.Tensor)) \
             + sum(nbytes(o) for o in outs)
@@ -2109,6 +2116,26 @@ def hand_bound(tag, args, out) -> tuple[float, str, str]:
     term = max(terms, key=terms.get)
     return (terms[term] * 1e3, "bytes" if term == "bytes" else "operations",
             term)
+
+
+def masked_bytes(x, mask) -> tuple[int, int]:
+    """The masked softmax's bytes on (x, mask): all of x, the bool mask and
+    the output; and the same with x counted only in its 32-byte sectors
+    that hold a kept lane."""
+    rows, d = x.shape
+    per = 32 // x.element_size()
+    sectors = F.pad(mask, (0, (-d) % per)).reshape(rows, -1, per).any(-1)
+    rest = mask.numel() + x.numel() * x.element_size()
+    return (rest + x.numel() * x.element_size(),
+            rest + 32 * int(sectors.sum()))
+
+
+def masked_full_bound(args) -> float:
+    """The masked softmax's bound (ms) with all of x read: its bytes over
+    the memory rate, or its exponentials over the SFU's rate."""
+    x, mask, _ = args
+    return 1e3 * max(masked_bytes(x, mask)[0] / HBM_BW,
+                     x.numel() / sfu_rate()[0])
 
 
 def flash_variant(args) -> str:
@@ -2131,24 +2158,20 @@ def source_of(tag, args, source):
 def replaced_kernel(tag, args, refs, outs) -> dict:
     """The kernel a rebuild replaced, on the same inputs, timed beside the
     new one: the CUDA-core flash kernel for a bf16 call that runs the
-    Hopper one, held against the plain version; the router's kernel of k
-    argmax rounds for the rank kernel and the Triton GLU kernel for the
-    CUDA one, each held against the new kernel's ``outs`` bit for bit (the
-    same rounded operations, the same order of sums) and timed paired."""
-    from repro_torch.kernels import activations, flash_attention, router
+    Hopper one, held against the plain version; the Triton masked softmax
+    for the CUDA one, held against the new kernel's ``outs`` bit for bit
+    (the same rounded operations, the same order of sums) and timed
+    paired."""
+    from repro_torch.kernels import flash_attention, softmax
     if tag == "_flash_kernel":
         variant = flash_variant(args)
         if variant != "sm90":
             return {"variant": variant}
         old, name = functools.partial(flash_attention._launch_variant,
                                       "simt", *args), "simt"
-    elif tag == "_router_kernel":
-        variant, name = "rank", "rounds"
-        launch = router._launch_variant
-        old = functools.partial(launch, name, *args)
-    elif tag == "_glu_kernel":
+    elif tag == "_softmax_masked_kernel":
         variant, name = "cuda", "triton"
-        launch = activations._launch_variant
+        launch = softmax._launch_variant
         old = functools.partial(launch, name, *args)
     else:
         return {}
@@ -2163,7 +2186,7 @@ def replaced_kernel(tag, args, refs, outs) -> dict:
                  f"version (max err {err})")
     else:
         err = max_err(olds, outs)
-        if not all(torch.equal(o, n) for o, n in zip(olds, outs)):
+        if not all(bits_equal(o, n) for o, n in zip(olds, outs)):
             fail(f"the {variant} {HAND[tag][0]} kernel differs from the "
                  f"{name} kernel it replaced in some bits (max diff {err})")
         new = functools.partial(launch, variant, *args)
@@ -2328,6 +2351,8 @@ def hand_rows(parts, path):
             lib_ms = timed(lib, 50)
             lib_dev_ms = device_ms(lib)
         bound_ms, bound_by, term = hand_bound(tag, full, out)
+        if tag == "_softmax_masked_kernel":
+            extra["bound_all_bytes_ms"] = masked_full_bound(full)
         tensor_sig = [a for a in sig if isinstance(a, tuple)]
         shapes = ",".join("x".join(map(str, s)) for s, _ in tensor_sig)
         dt = next(d for _, d in tensor_sig if "float" in d).replace("torch.", "")
@@ -3482,8 +3507,10 @@ def kernel_api_phase(dev, checked):
         for r in hand:
             print(f"{tag} {r['name']} per launch: " + " ".join(
                 f"{k}={r[k] * 1e3:.2f}us" for k in (
-                    "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
-                    "library_device_ms") if r[k] is not None)
+                    "ms", "device_ms", "plain_ms", "bound_ms",
+                    "bound_all_bytes_ms", "library_ms", "library_device_ms",
+                    "paired_device_ms", "paired_old_device_ms", "old_ms",
+                    "old_device_ms") if r.get(k) is not None)
                 + f" bound_term={r['bound_term']}")
         plan = sf.report()["plan"]
         print(f"plan {tag}: " + json.dumps({
@@ -3536,7 +3563,7 @@ def kernel_api_f32(dev):
             continue
         for fault, what in API_FAULTS.items():
             path = what.split(" ")[0]
-            with planted_triton(fault):
+            with planted_fault(fault):
                 out = fns[path](*inputs[path])
             if path == "seam":
                 # the planted residual fault leaves the residual sound

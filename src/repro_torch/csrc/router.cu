@@ -19,11 +19,10 @@
 // time: the launch (0.8-1.0 us in a graph replay) and the kernel's own
 // critical path.
 //
-// rank_kernel, the kernel the op launches.  The kernel it replaced,
-// rounds_kernel below (kept one release as a yardstick, variant 1), ran k
+// The kernel it replaced (since retired; PERF.md keeps its times) ran k
 // argmax rounds one after another, each a 5-step (value, index) shuffle
-// butterfly: 1.3-1.4 us of a 2.8-3.1 us launch (PERF.md).  Here no step
-// waits on a previous pick:
+// butterfly: 1.3-1.4 us of a 2.8-3.1 us launch.  Here no step waits on a
+// previous pick:
 //
 // * Layout.  One warp a row, 8 rows a block, lane q holding column q and,
 //   past 32 experts, q + 32: the round kernel's layout, so its softmax tree
@@ -44,8 +43,9 @@
 // A row whose probabilities are NaN (a NaN or +inf logit, or every logit
 // -inf) is outside what either kernel defines: here its ids come in index
 // order, as the plain version's argmax gives them; the round kernel
-// repeated id 0.  Every other row gets the round kernel's ids and weights
-// bit for bit (chip_smoke.py holds every path launch and sample to that).
+// repeated id 0.  Every other row got the round kernel's ids and weights
+// bit for bit (chip_smoke.py held every path launch and sample to that
+// while the round kernel stayed).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,8 +54,7 @@
 namespace {
 
 constexpr int kMaxExperts = 64;
-constexpr int kRowsPerBlock = 8;  // one warp a row, in both kernels
-constexpr int kPerLane = kMaxExperts / 32;
+constexpr int kRowsPerBlock = 8;  // one warp a row
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -185,106 +184,14 @@ rank_kernel(const T* __restrict__ x, T* __restrict__ w,
   }
 }
 
-// The kernel rank_kernel replaced (variant 1), kept one release as a
-// yardstick: one warp a row, kRowsPerBlock rows a block, lane l holding
-// columns l and l + 32 (past E -inf).  Then k rounds: each reduces (value,
-// index) pairs across the warp, a pair winning on a larger value or on an
-// equal value with a smaller index, the lane owning the winner's column
-// masks it to -1.0, and round r's weight and id stay in the registers of
-// lane r % 32, which writes them after the last round.
-template <typename T>
-__global__ void __launch_bounds__(kRowsPerBlock * 32)
-rounds_kernel(const T* __restrict__ x, T* __restrict__ w,
-              int* __restrict__ ids, int rows, int e, int k,
-              long long x_rs, int renorm) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
-  if (row >= rows) return;  // the whole warp leaves together
-  const T* xr = x + row * x_rs;
-
-  float p[kPerLane];
-  float mx = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < kPerLane; ++j) {
-    const int c = lane + 32 * j;
-    p[j] = c < e ? to_f32(xr[c]) : -INFINITY;
-    mx = fmaxf(mx, p[j]);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-  float s = 0.f;
-#pragma unroll
-  for (int j = 0; j < kPerLane; ++j) {
-    p[j] = lane + 32 * j < e ? expf(p[j] - mx) : 0.f;
-    s += p[j];
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    s += __shfl_xor_sync(kFull, s, off);
-#pragma unroll
-  for (int j = 0; j < kPerLane; ++j)
-    p[j] = lane + 32 * j < e ? p[j] / s : -INFINITY;
-
-  float my_w[kPerLane] = {};
-  int my_i[kPerLane] = {};
-  float wsum = 0.f;
-  for (int r = 0; r < k; ++r) {
-    // the lane's own best, lowest column first, then the warp's
-    float bv = p[0];
-    int bi = lane;
-#pragma unroll
-    for (int j = 1; j < kPerLane; ++j) {
-      if (p[j] > bv) {
-        bv = p[j];
-        bi = lane + 32 * j;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, bv, off);
-      const int oi = __shfl_xor_sync(kFull, bi, off);
-      if (ov > bv || (ov == bv && oi < bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-      if (lane + 32 * j == bi) p[j] = -1.0f;
-    }
-    wsum += bv;
-#pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-      if (r == lane + 32 * j) {
-        my_w[j] = bv;
-        my_i[j] = bi;
-      }
-    }
-  }
-  const float denom = renorm ? fmaxf(wsum, 1e-30f) : 1.f;
-#pragma unroll
-  for (int j = 0; j < kPerLane; ++j) {
-    const int r = lane + 32 * j;
-    if (r < k) {
-      store(w + (long long)row * k + r, renorm ? my_w[j] / denom : my_w[j]);
-      ids[(long long)row * k + r] = my_i[j];
-    }
-  }
-}
-
 template <typename T>
 cudaError_t launch(const void* x, void* w, void* ids, int rows, int e, int k,
-                   long long x_rs, int renorm, int variant,
-                   cudaStream_t stream) {
+                   long long x_rs, int renorm, cudaStream_t stream) {
   const dim3 grid((rows + kRowsPerBlock - 1) / kRowsPerBlock);
   const auto xt = static_cast<const T*>(x);
   const auto wt = static_cast<T*>(w);
   const auto it = static_cast<int*>(ids);
-  if (variant == 1)
-    rounds_kernel<T><<<grid, kRowsPerBlock * 32, 0, stream>>>(
-        xt, wt, it, rows, e, k, x_rs, renorm);
-  else if (e > 32)
+  if (e > 32)
     rank_kernel<T, 2><<<grid, kRowsPerBlock * 32, 0, stream>>>(
         xt, wt, it, rows, e, k, x_rs, renorm);
   else
@@ -297,26 +204,22 @@ cudaError_t launch(const void* x, void* w, void* ids, int rows, int e, int k,
 
 // dtype: 0 = float32, 1 = bfloat16 (the logits' and the weights' type).
 // x_rs and x_cs are the logits' row and column strides in elements; the
-// columns must be contiguous (x_cs == 1).  variant: 0 the rank kernel, 1
-// the round kernel it replaced.  Refused with cudaErrorInvalidValue: E < 1
-// or E > 64, k < 1 or k > E, x_cs != 1, any other dtype or variant.
-// Returns the launch's cudaError_t (0 on success); the kernel runs
-// asynchronously on `stream`, on the current device.
+// columns must be contiguous (x_cs == 1).  Refused with
+// cudaErrorInvalidValue: E < 1 or E > 64, k < 1 or k > E, x_cs != 1, any
+// other dtype.  Returns the launch's cudaError_t (0 on success); the kernel
+// runs asynchronously on `stream`, on the current device.
 extern "C" int repro_topk_router(const void* x, void* w, void* ids, int dtype,
                                  int rows, int e, int k, long long x_rs,
-                                 long long x_cs, int renorm, int variant,
-                                 void* stream) {
-  if (rows < 0 || e < 1 || e > kMaxExperts || k < 1 || k > e || x_cs != 1 ||
-      (variant != 0 && variant != 1))
+                                 long long x_cs, int renorm, void* stream) {
+  if (rows < 0 || e < 1 || e > kMaxExperts || k < 1 || k > e || x_cs != 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch<float>(x, w, ids, rows, e, k, x_rs, renorm, variant, s);
+    err = launch<float>(x, w, ids, rows, e, k, x_rs, renorm, s);
   else if (dtype == 1)
-    err = launch<__nv_bfloat16>(x, w, ids, rows, e, k, x_rs, renorm, variant,
-                                s);
+    err = launch<__nv_bfloat16>(x, w, ids, rows, e, k, x_rs, renorm, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -5,18 +5,15 @@ ReLU, the port of its ``_sqrelu_kernel`` (``:54``).
 SwiGLU and GeGLU are CUDA C++ for ``sm_90a`` (``repro_torch/csrc/
 activations.cu``, built by :mod:`.build` at first use and bound with
 ``ctypes``); its source note gives the bound, the design and the rounded
-operations.  It computes what the Triton kernel below computed, bit for
-bit: ``act(gate) * up`` in f32 with the same rounded operations (SiLU as
+operations.  It computes what the Triton ``_glu_kernel`` it replaced
+computed (since retired; ``PERF.md`` keeps its times), bit for bit:
+``act(gate) * up`` in f32 with the same rounded operations (SiLU as
 ``1 / (1 + 2^(-g log2 e))`` with Triton's approximate ``ex2`` and
-``div.full``; GeGLU's tanh as Triton's libdevice ``tanhf``) and one cast
-out; a block of 128 threads takes 1024 columns of a row (or several rows
-narrower than that) in 16-byte loads.
-``_glu_kernel`` (a
-(rows, F / ``BLOCK``) grid of 4-warp programs, ``ACT`` a compile-time
-switch: 0 SiLU, 1 the tanh GELU, which is what ``jax.nn.gelu`` computes by
-default and ``F.gelu(approximate="tanh")`` in the plain version) stays one
-release as a yardstick (``_launch_variant("triton", ...)``), launched by
-no op.
+``div.full``; GeGLU's tanh, the tanh GELU that ``jax.nn.gelu`` computes by
+default and ``F.gelu(approximate="tanh")`` in the plain version, as
+Triton's libdevice ``tanhf``) and one cast out; a block of 128 threads
+takes 1024 columns of a row (or several rows narrower than that) in
+16-byte loads.
 
 Squared ReLU is a Triton kernel, bound by bytes: 100.7 MB a launch at
 nemotron-4-15b's prefill, (1024, 24576) bf16, 30.0 us at 3.35 TB/s.
@@ -46,30 +43,14 @@ __all__ = ["bind", "swiglu", "geglu", "glu_plain", "launches",
 
 _ACTS = {"silu": 0, "gelu": 1}
 _FLOAT = {torch.float32: 0, torch.bfloat16: 1}
-BLOCK = 1024
-VARIANTS = ("cuda", "triton")   # cuda: the op's; triton: the one replaced
+BLOCK = 1024          # squared ReLU's elements a program
 
 # kernel launches since the last reset, by build.signature of the arguments
 launches: Counter = Counter()               # _glu_kernel
 sqrelu_launches: Counter = Counter()        # _sqrelu_kernel
-_JIT = _SQ_JIT = None
+_SQ_JIT = None
 _LIB: ctypes.CDLL | None = None
-tl = libdevice = None  # bound by build.triton_jit at the first launch
-
-
-def _glu_kernel(g_ptr, u_ptr, o_ptr, F, stride_g, stride_u,
-                ACT: tl.constexpr, BLOCK: tl.constexpr):
-    row = tl.program_id(0).to(tl.int64)
-    col = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
-    mask = col < F
-    g = tl.load(g_ptr + row * stride_g + col, mask=mask, other=0.0).to(tl.float32)
-    u = tl.load(u_ptr + row * stride_u + col, mask=mask, other=0.0).to(tl.float32)
-    if ACT == 0:
-        a = g * tl.sigmoid(g)
-    else:
-        a = 0.5 * g * (1.0 + libdevice.tanh(
-            0.7978845608028654 * (g + 0.044715 * g * g * g)))
-    tl.store(o_ptr + row * F + col, (a * u).to(o_ptr.dtype.element_ty), mask=mask)
+tl = None  # bound by build.triton_jit at the first launch
 
 
 def _sqrelu_kernel(x_ptr, o_ptr, n, BLOCK: tl.constexpr):
@@ -104,8 +85,20 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
-def _cuda(gate, up, act: str):
-    """One launch of the CUDA kernel on (rows, F) gate and up."""
+def _launch(gate, up, act: str):
+    """One launch of the CUDA kernel on (rows, F) gate and up, after the
+    checks, counted."""
+    if act not in _ACTS:
+        raise ValueError(f"glu: act {act!r}, expected one of {sorted(_ACTS)}")
+    if gate.dim() != 2 or gate.shape != up.shape or gate.dtype != up.dtype \
+            or gate.dtype not in _FLOAT:
+        raise ValueError(f"glu: gate {tuple(gate.shape)} {gate.dtype}, up "
+                         f"{tuple(up.shape)} {up.dtype}; need equal (rows, F)")
+    if up.device != gate.device:
+        raise ValueError(f"glu: up on {up.device}, gate on {gate.device}")
+    if gate.stride(1) != 1 or up.stride(1) != 1:
+        raise ValueError(f"glu: strides {gate.stride()}, {up.stride()}: rows "
+                         f"must be contiguous")
     rows, F = gate.shape
     out = torch.empty((rows, F), dtype=gate.dtype, device=gate.device)
     err = _lib().repro_glu(
@@ -119,41 +112,7 @@ def _cuda(gate, up, act: str):
                              f"{tuple(gate.shape)} strides {gate.stride()}, "
                              f"up strides {up.stride()})")
         raise RuntimeError(f"glu kernel launch failed: {msg} ({err})")
-    return out
-
-
-def _launch(gate, up, act: str):
-    out = _launch_variant("cuda", gate, up, act)
     launches[build.signature(gate, up, act)] += 1
-    return out
-
-
-def _launch_variant(variant: str, gate, up, act: str):
-    """One launch of the CUDA kernel (``variant="cuda"``, the one the op
-    launches) or the Triton kernel it replaced (``"triton"``), with the
-    op's checks and no launch counted."""
-    global _JIT
-    if variant not in VARIANTS:
-        raise ValueError(f"glu: unknown variant {variant!r}")
-    if act not in _ACTS:
-        raise ValueError(f"glu: act {act!r}, expected one of {sorted(_ACTS)}")
-    if gate.dim() != 2 or gate.shape != up.shape or gate.dtype != up.dtype \
-            or gate.dtype not in _FLOAT:
-        raise ValueError(f"glu: gate {tuple(gate.shape)} {gate.dtype}, up "
-                         f"{tuple(up.shape)} {up.dtype}; need equal (rows, F)")
-    if up.device != gate.device:
-        raise ValueError(f"glu: up on {up.device}, gate on {gate.device}")
-    if gate.stride(1) != 1 or up.stride(1) != 1:
-        raise ValueError(f"glu: strides {gate.stride()}, {up.stride()}: rows "
-                         f"must be contiguous")
-    if variant == "cuda":
-        return _cuda(gate, up, act)
-    rows, F = gate.shape
-    out = torch.empty((rows, F), dtype=gate.dtype, device=gate.device)
-    if _JIT is None:
-        _JIT = build.triton_jit(_glu_kernel)
-    _JIT[(rows, -(-F // BLOCK))](gate, up, out, F, gate.stride(0), up.stride(0),
-                                ACT=_ACTS[act], BLOCK=BLOCK, num_warps=4)
     return out
 
 

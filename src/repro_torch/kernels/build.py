@@ -13,13 +13,14 @@ import time.
 from __future__ import annotations
 
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 from pathlib import Path
 
 __all__ = ["BuildError", "CSRC", "NVCC_FLAGS", "build_dir", "library",
-           "next_pow2", "nvcc", "signature", "triton_jit"]
+           "next_pow2", "nvcc", "signature", "triton_jit", "triton_vector"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -100,3 +101,14 @@ def triton_jit(fn):
 def next_pow2(n: int) -> int:
     """The least power of two >= n (Triton's block sizes)."""
     return 1 << max(0, (n - 1).bit_length())
+
+
+def triton_vector(itemsize: int, ptr16: bool, stride16: bool,
+                  block_d: int) -> int:
+    """Triton's elements a thread for one pointer of a (rows, BLOCK_D)
+    program: the bytes it proves the address divisible by (16 for a pointer
+    it specialised as 16-byte aligned, else 1; a row offset times 16
+    elements where the row stride was specialised divisible by 16, else one
+    element), up to 16 bytes and the block's width."""
+    div = math.gcd(16 if ptr16 else 1, (16 if stride16 else 1) * itemsize)
+    return max(1, min(div // itemsize, 16 // itemsize, block_d))

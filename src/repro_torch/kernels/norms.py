@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 from collections import Counter
 from typing import NamedTuple
 
@@ -137,16 +136,6 @@ class Plan(NamedTuple):
     early: bool
 
 
-def _vector(itemsize: int, ptr16: bool, stride16: bool, block_d: int) -> int:
-    """Triton's elements a thread for one pointer: the bytes it proves the
-    address divisible by (16 for a pointer it specialised as 16-byte
-    aligned, else 1; a row offset times 16 elements where the row stride
-    was specialised divisible by 16, else one element), up to 16 bytes and
-    the block's width."""
-    div = math.gcd(16 if ptr16 else 1, (16 if stride16 else 1) * itemsize)
-    return max(1, min(div // itemsize, 16 // itemsize, block_d))
-
-
 def block_plan(rows: int, d: int, dtype: torch.dtype, ptr: int, stride: int,
                vectors_aligned: bool = True) -> Plan:
     """The plan of an operand x (rows, d) of ``dtype`` at address ``ptr``
@@ -171,10 +160,10 @@ def _plan(rows: int, d: int, itemsize: int, ptr16: bool, stride16: bool,
     if rows < 1 or d < 1:
         raise ValueError(f"norms: {rows} rows of {d}: nothing to normalise")
     block_r, block_d, nw = _blocks(rows, d)
-    vec = max(_vector(itemsize, ptr16, stride16, block_d),
-              _vector(itemsize, True, d % 16 == 0, block_d))
+    vec = max(build.triton_vector(itemsize, ptr16, stride16, block_d),
+              build.triton_vector(itemsize, True, d % 16 == 0, block_d))
     if block_r == 1:
-        vec = max(vec, _vector(itemsize, vectors16, True, block_d))
+        vec = max(vec, build.triton_vector(itemsize, vectors16, True, block_d))
     vec = min(vec, max(block_r * block_d // (32 * nw), 1))
     row_threads = min(32 * nw, max(1, block_d // vec))
     lanes = min(row_threads, 32)

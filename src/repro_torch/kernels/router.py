@@ -13,9 +13,8 @@ implementation is the plain version below, the CUDA implementation
 launches the kernel, so ``make_fx`` sees one node with two projections,
 which the tracer tags ``_router_kernel`` for the planner's registry.  As in
 the reference wrapper, no op surrounds the kernel: the node's one operand
-is the logits.  The kernel of k argmax rounds it replaced stays one
-release as a yardstick (``_launch_variant("rounds", ...)``), launched by no
-op.
+is the logits.  It gives the bits of the kernel of k argmax rounds it
+replaced (since retired; ``PERF.md`` keeps its times).
 
 Equal probabilities rank by the lower expert index, in the kernel's counts
 and in the plain version's ``argmax`` rounds (``torch.argmax`` returns the
@@ -37,7 +36,6 @@ __all__ = ["bind", "topk_router", "topk_router_plain", "launches"]
 
 MAX_EXPERTS = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-VARIANTS = {"rank": 0, "rounds": 1}   # rank: the op's; rounds: replaced
 
 # kernel launches since the last reset, by build.signature of the arguments
 launches: Counter = Counter()
@@ -68,8 +66,7 @@ def topk_router_plain(logits, k: int, renormalize: bool = True):
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a built ``router`` library."""
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.repro_topk_router.argtypes = ([vp] * 3 + [ci] * 4 + [cl] * 2
-                                      + [ci, ci, vp])
+    lib.repro_topk_router.argtypes = [vp] * 3 + [ci] * 4 + [cl] * 2 + [ci, vp]
     lib.repro_topk_router.restype = ci
     lib.repro_cuda_error_string.argtypes = [ci]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -84,17 +81,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(logits, k: int, renormalize: bool = True):
-    w, ids = _launch_variant("rank", logits, k, renormalize)
-    launches[build.signature(logits, k, renormalize)] += 1
-    return w, ids
-
-
-def _launch_variant(variant: str, logits, k: int, renormalize: bool = True):
-    """One launch of the rank kernel (``variant="rank"``, the one the op
-    launches) or the round kernel it replaced (``"rounds"``), with the op's
-    checks and no launch counted."""
-    if variant not in VARIANTS:
-        raise ValueError(f"topk_router: unknown variant {variant!r}")
+    """One launch of the kernel, after the checks, counted."""
     if logits.dim() != 2:
         raise ValueError(f"topk_router: logits {tuple(logits.shape)}, need "
                          f"(T, E)")
@@ -114,10 +101,11 @@ def _launch_variant(variant: str, logits, k: int, renormalize: bool = True):
     err = _lib().repro_topk_router(
         logits.data_ptr(), w.data_ptr(), ids.data_ptr(), _DTYPES[logits.dtype],
         T, E, k, logits.stride(0), logits.stride(1), int(bool(renormalize)),
-        VARIANTS[variant], torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream)
     if err:
         msg = _lib().repro_cuda_error_string(err).decode()
         raise RuntimeError(f"topk_router kernel launch failed: {msg} ({err})")
+    launches[build.signature(logits, k, renormalize)] += 1
     return w, ids
 
 

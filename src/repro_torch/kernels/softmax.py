@@ -1,7 +1,6 @@
 """Scaled softmax, plain and masked: the ports of the reference's
 ``_softmax_kernel`` and ``_softmax_masked_kernel``
-(``src/repro/kernels/softmax.py:18``, ``:25``), one Triton kernel with a
-``HAS_MASK`` switch.
+(``src/repro/kernels/softmax.py:18``, ``:25``).
 
 What it computes: ``softmax(x * scale)`` over the last axis with f32
 statistics; the masked variant first sets masked lanes to ``-inf``,
@@ -9,18 +8,30 @@ replaces a non-finite row max by 0 and divides by ``max(sum, 1e-30)``, so a
 fully masked row is 0.  The plain variant keeps the reference's NaN on a
 row that is all ``-inf``.
 
-Bound on this card: bytes.  A launch reads x (and the bool mask) once and
-writes the output once: 21.0 MB for the masked (4, 16, 256, 256) bf16
-scores of qwen3-1.7b's long prompts, 6.3 us at 3.35 TB/s.  Design:
+The masked softmax on rows the one-pass layout takes whole (``d`` up to
+``MAX_ONE_PASS``) is CUDA C++ for ``sm_90a`` (``repro_torch/csrc/
+softmax.cu``, built by :mod:`.build` at first use and bound with
+``ctypes``); its source note gives the bound and the design: the mask
+first, x read only where the mask keeps a lane, fully masked rows written
+as 0 without reading x, persistent blocks with the next rows' loads in
+flight.  It computes what the Triton kernel's ``HAS_MASK`` path computed,
+bit for bit: each row summed over the same lanes in the same order (the
+layout :func:`masked_plan` derives from Triton's view of the operand) with
+the same rounded operations.  That Triton path stays one release as a
+yardstick (``_launch_variant("triton", ...)``), launched by no op.
+
+The rest is Triton, bound by bytes: a launch reads x once and writes the
+output once.  Design:
 
 * rows that fit one register block (``next_pow2(d) <= MAX_ONE_PASS``):
   whole-row programs, ``BLOCK_R`` rows a program (about a thousand
   elements), one pass: ``x * scale`` in f32, the row max, ``exp(x - max)``,
   the sum and the division, one cast out; lanes past the row are ``-inf``
   and never enter the max;
-* wider rows (a vocabulary row, 151936 columns) split across the card:
-  a grid of (row, chunk of ``SPLIT_BLOCK`` columns) programs, so 4 rows
-  of 151936 take 300 programs where one program a row took 4 of 132 SMs.
+* wider rows (a vocabulary row, 151936 columns), masked or not, split
+  across the card: a grid of (row, chunk of ``SPLIT_BLOCK`` columns)
+  programs, so 4 rows of 151936 take 300 programs where one program a row
+  took 4 of 132 SMs.
   Pass 1 (``_softmax_partials_kernel``) writes each chunk's f32 max m_c
   and sum l_c of ``exp(x - m_c)`` into scratch.  Pass 2
   (``_softmax_split_kernel``), on the same grid, folds its row's partials
@@ -40,19 +51,26 @@ to ``(rows, d)`` outside the op, as the reference wrapper does.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from collections import Counter
+from typing import NamedTuple
 
 import torch
 
 from . import build
 from . import ref as _ref
 
-__all__ = ["softmax", "softmax_plain", "softmax_masked_plain",
-           "softmax_split_plain", "split_plan", "launches", "masked_launches"]
+__all__ = ["MaskedPlan", "bind", "masked_plan", "sm_count", "softmax",
+           "softmax_plain", "softmax_masked_plain", "softmax_split_plain",
+           "split_plan", "launches", "masked_launches"]
 
-_FLOAT = (torch.float32, torch.bfloat16)
+_FLOAT = {torch.float32: 0, torch.bfloat16: 1}
 MAX_ONE_PASS = 8192   # the widest row block of the one-pass layout
 SPLIT_BLOCK = 2048    # columns a program of the split layout
+MIN_THREADS = 128     # a CUDA block's threads at least: rows side by side
+BLOCKS_PER_SM = 8     # the masked kernel's grid: blocks an SM at most
+VARIANTS = ("cuda", "triton")   # cuda: the op's; triton: the one replaced
 
 # kernel launches since the last reset, by build.signature of the arguments
 launches: Counter = Counter()               # _softmax_kernel
@@ -60,6 +78,7 @@ masked_launches: Counter = Counter()        # _softmax_masked_kernel
 _JIT = None           # _softmax_kernel
 _PART_JIT = None      # _softmax_partials_kernel
 _SPLIT_JIT = None     # _softmax_split_kernel
+_LIB: ctypes.CDLL | None = None
 tl = None             # triton.language, bound by build.triton_jit at launch
 
 
@@ -207,6 +226,86 @@ def _layout(rows: int, d: int) -> tuple[int, int, int]:
     return block_r, block_d, 4 if block_r * block_d <= 2048 else 8
 
 
+class MaskedPlan(NamedTuple):
+    """An operand's layout as the Triton kernel took it (``vec``
+    consecutive columns a lane, a row over ``lanes`` lanes of ``warps``
+    warps, so ``elems`` = BLOCK_D / (lanes * warps) elements a lane) and
+    the CUDA kernel's launch: blocks of ``threads``, one row each lanes *
+    warps of them, ``blocks`` of them walking the row groups."""
+    vec: int
+    lanes: int
+    warps: int
+    elems: int
+    threads: int
+    blocks: int
+
+
+def masked_plan(rows: int, d: int, dtype: torch.dtype, x_ptr: int,
+                x_stride: int, m_ptr: int, m_stride: int,
+                sms: int) -> MaskedPlan:
+    """The plan of a masked operand x (rows, d) of ``dtype`` at address
+    ``x_ptr`` with rows ``x_stride`` elements apart, its byte mask at
+    ``m_ptr`` with rows ``m_stride`` apart, on a card of ``sms`` SMs
+    (:func:`sm_count`).  Triton's coalescing gives every load and store of
+    the program one vector: the widest that one of x, the mask and the
+    output (16-byte aligned, row stride d) allows,
+    at most the program's elements over its threads (the store's own
+    vector may be narrower; the reductions take the loads' layout).  Its
+    blocked layout then spreads a row over the threads that fill
+    ``BLOCK_D / vec`` columns: the lanes of a warp first, then warps.  The
+    CUDA block runs at least ``MIN_THREADS`` threads, rows side by side,
+    and the grid at most ``BLOCKS_PER_SM`` blocks an SM."""
+    return _masked_plan(rows, d, dtype.itemsize, x_ptr % 16 == 0,
+                        x_stride % 16 == 0, m_ptr % 16 == 0,
+                        m_stride % 16 == 0, sms)
+
+
+@functools.lru_cache(maxsize=1024)
+def _masked_plan(rows: int, d: int, itemsize: int, x16: bool, xs16: bool,
+                 m16: bool, ms16: bool, sms: int) -> MaskedPlan:
+    if rows < 1 or split_plan(d) is not None or d < 1:
+        raise ValueError(f"softmax_masked: {rows} rows of {d}: the one-pass "
+                         f"kernel takes rows of 1 to {MAX_ONE_PASS} columns")
+    block_r, block_d, nw = _layout(rows, d)
+    vec = max(build.triton_vector(itemsize, x16, xs16, block_d),
+              build.triton_vector(1, m16, ms16, block_d),
+              build.triton_vector(itemsize, True, d % 16 == 0, block_d))
+    vec = min(vec, max(block_r * block_d // (32 * nw), 1))
+    row_threads = min(32 * nw, max(1, block_d // vec))
+    lanes = min(row_threads, 32)
+    warps = min(max(row_threads // lanes, 1), nw)
+    threads = max(lanes * warps, MIN_THREADS)
+    groups = -(-rows // (threads // (lanes * warps)))
+    return MaskedPlan(vec, lanes, warps, block_d // (lanes * warps), threads,
+                      min(groups, sms * BLOCKS_PER_SM))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``, to which the masked kernel's grid
+    is sized."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built ``softmax`` library."""
+    vp, ci, cl, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_float)
+    lib.repro_softmax_masked.argtypes = [vp, vp, vp, ci, cl, ci, cl, cl, cf,
+                                         ci, ci, ci, ci, ci, vp]
+    lib.repro_softmax_masked.restype = ci
+    lib.repro_cuda_error_string.argtypes = [ci]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        _LIB = bind(ctypes.CDLL(str(build.library("softmax"))))
+    return _LIB
+
+
 def _check(name, x, mask=None):
     if x.dim() != 2 or x.dtype not in _FLOAT:
         raise ValueError(f"{name}: x {tuple(x.shape)} {x.dtype}; need (rows, d) "
@@ -267,11 +366,53 @@ def _launch(x, scale: float):
     return out
 
 
+def _cuda(x, mask, scale: float):
+    """One launch of the CUDA masked kernel on x and its bool mask (rows of
+    at most ``MAX_ONE_PASS`` columns)."""
+    rows, d = x.shape
+    out = torch.empty((rows, d), dtype=x.dtype, device=x.device)
+    m = mask.view(torch.uint8)
+    plan = masked_plan(max(rows, 1), d, x.dtype, x.data_ptr(), x.stride(0),
+                       m.data_ptr(), m.stride(0), sm_count(x.device.index))
+    err = _lib().repro_softmax_masked(
+        x.data_ptr(), m.data_ptr(), out.data_ptr(), _FLOAT[x.dtype], rows, d,
+        x.stride(0), m.stride(0), float(scale), plan.vec, plan.lanes,
+        plan.warps, plan.threads, plan.blocks,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        msg = _lib().repro_cuda_error_string(err).decode()
+        if err < 0:
+            raise ValueError(f"softmax_masked: {msg} (x {x.dtype} "
+                             f"{tuple(x.shape)} strides {x.stride()}, {plan})")
+        raise RuntimeError(f"softmax_masked kernel launch failed: {msg} "
+                           f"({err})")
+    return out
+
+
 def _launch_masked(x, mask, scale: float):
     _check("softmax_masked", x, mask)
-    out = _run(x, mask, scale)
+    if split_plan(x.shape[1]) is None:
+        out = _cuda(x, mask, scale)
+    else:
+        out = _run(x, mask, scale)
     masked_launches[build.signature(x, mask, scale)] += 1
     return out
+
+
+def _launch_variant(variant: str, x, mask, scale: float):
+    """One launch of the CUDA masked kernel (``variant="cuda"``, the one the
+    op launches on rows of at most ``MAX_ONE_PASS`` columns) or the Triton
+    one-pass kernel it replaced (``"triton"``), with the op's checks and no
+    launch counted."""
+    if variant not in VARIANTS:
+        raise ValueError(f"softmax_masked: unknown variant {variant!r}")
+    _check("softmax_masked", x, mask)
+    if split_plan(x.shape[1]) is not None:
+        raise ValueError(f"softmax_masked: rows of {x.shape[1]} columns take "
+                         f"the split layout, not the one-pass kernels")
+    if variant == "cuda":
+        return _cuda(x, mask, scale)
+    return _run(x, mask, scale)
 
 
 @torch.library.custom_op("repro_torch::softmax", mutates_args=(),

@@ -8,7 +8,9 @@ text must occur exactly once in the source it is planted in, and the
 planted text must differ from it, so a kernel edit that moves an anchor
 shows before a card run.  The same holds for the probes and variants two
 examples build from the Hopper flash kernel's source
-(``examples/torch_hybrid_loss_noise.py``, ``examples/torch_flash_depths.py``).
+(``examples/torch_hybrid_loss_noise.py``, ``examples/torch_flash_depths.py``)
+and for the row-loop variants of the masked softmax's source
+(``examples/torch_softmax_breakdown.py``).
 Runs without a card:
 
     PYTHONPATH=src python -m pytest tests/test_torch_faults.py
@@ -36,6 +38,8 @@ loss_noise = _load("torch_hybrid_loss_noise",
                    ROOT / "examples" / "torch_hybrid_loss_noise.py")
 flash_depths = _load("torch_flash_depths",
                      ROOT / "examples" / "torch_flash_depths.py")
+softmax_breakdown = _load("torch_softmax_breakdown",
+                          ROOT / "examples" / "torch_softmax_breakdown.py")
 FLASH_SM90 = ROOT / "src" / "repro_torch" / "csrc" / "flash_attention_sm90.cu"
 
 
@@ -62,3 +66,12 @@ def test_flash_depth_variant_anchors_are_unique(variant):
     for sound, _ in edits:
         assert src.count(sound) == 1, (variant, sound)
     assert any(new != sound for sound, new in edits)
+
+
+@pytest.mark.parametrize("variant", [*softmax_breakdown.LOOP_VARIANTS])
+def test_softmax_loop_variant_replaces_the_row_loop(variant):
+    src = (ROOT / "src" / "repro_torch" / "csrc" / "softmax.cu").read_text()
+    assert src.count(softmax_breakdown.LOOP) == 1
+    text = softmax_breakdown.variant_source(variant)
+    assert text != src and softmax_breakdown.LOOP not in text
+    assert softmax_breakdown.LOOP_VARIANTS[variant] in text

@@ -253,57 +253,38 @@ def test_norm_cuda_against_plain_on_card(kernel, dtype, tol):
                                    rtol=tol, atol=tol)
 
 
+# the GLU operands of examples/torch_router_glu_breakdown.py beside
+# GLU_SHAPES: recurrentgemma's scoring call, granite's experts at decode and
+# prefill (rows narrower than a block, side by side), and ragged widths
+GLU_CUDA_SHAPES = GLU_SHAPES + [(1024, 12288), (256, 512), (10240, 512),
+                                (7, 333), (37, 40)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
 @pytest.mark.parametrize("act", ["silu", "gelu"])
 def test_glu_kernel_on_card(act, dtype, tol):
-    _need_card()
-    from repro_torch.kernels import activations
-    for shape in GLU_SHAPES:
-        gate, up = _rand(shape, dtype), _rand(shape, dtype, 1)
-        out = activations.glu_op(gate, up, act)
-        torch.testing.assert_close(
-            out.float(), activations.glu_plain(gate, up, act).float(),
-            rtol=tol, atol=tol)
-    # row-strided operands (a column slice of a wider tensor) are taken as
-    # they are; a transposed one is refused
-    wide_g, wide_u = _rand((4, 2 * 6144), dtype), _rand((4, 2 * 6144), dtype, 1)
-    g2, u2 = wide_g[:, :6144], wide_u[:, 6144:]
-    torch.testing.assert_close(activations.glu_op(g2, u2, act).float(),
-                               activations.glu_plain(g2, u2, act).float(),
-                               rtol=tol, atol=tol)
-    with pytest.raises(ValueError, match="contiguous"):
-        activations.glu_op(gate.t(), up.t(), act)
-
-
-# the GLU operands of examples/torch_router_glu_breakdown.py: qwen3's
-# decode and bucket-64 prefill rows, recurrentgemma's scoring call,
-# granite's experts at decode and prefill (rows narrower than a block, side
-# by side), and ragged widths, a column slice and a misaligned operand
-GLU_BIT_SHAPES = GLU_SHAPES + [(1024, 12288), (256, 512), (10240, 512),
-                               (7, 333), (37, 40)]
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("act", ["silu", "gelu"])
-def test_glu_cuda_equals_triton_on_card(act, dtype):
-    """Bit for bit the Triton kernel it replaced, at the breakdown's
-    operands and at operands laid out otherwise (one element a chunk)."""
+    """At GLU_CUDA_SHAPES and at row-strided operands: a column slice of a
+    wider tensor (16-byte loads) and misaligned slices (one element a
+    chunk)."""
     _need_card()
     from repro_torch.kernels import activations
     cases = [(_rand(s, dtype, 2 * i), _rand(s, dtype, 2 * i + 1))
-             for i, s in enumerate(GLU_BIT_SHAPES)]
-    wide_g, wide_u = _rand((4, 2 * 6144), dtype, 7), _rand((4, 2 * 6144),
-                                                          dtype, 8)
+             for i, s in enumerate(GLU_CUDA_SHAPES)]
+    # row-strided operands (a column slice of a wider tensor) are taken as
+    # they are; a transposed one is refused
+    wide_g, wide_u = _rand((4, 2 * 6144), dtype), _rand((4, 2 * 6144), dtype, 1)
     cases += [(wide_g[:, :6144], wide_u[:, 6144:]),
               (wide_g[:, 1:6145], wide_u[:, 3:6147])]
     for gate, up in cases:
-        new = activations._launch_variant("cuda", gate, up, act)
-        old = activations._launch_variant("triton", gate, up, act)
-        torch.cuda.synchronize()
-        assert torch.equal(new, old), (tuple(gate.shape), gate.stride(),
-                                       int((new != old).sum()))
+        out = activations.glu_op(gate, up, act)
+        torch.testing.assert_close(
+            out.float(), activations.glu_plain(gate, up, act).float(),
+            rtol=tol, atol=tol, msg=lambda m: f"{tuple(gate.shape)} "
+            f"{gate.stride()}: {m}")
+    gate, up = cases[0]
+    with pytest.raises(ValueError, match="contiguous"):
+        activations.glu_op(gate.t(), up.t(), act)
 
 
 @pytest.mark.gpu
@@ -550,55 +531,42 @@ ROUTER_CASES = [(4, 32, 8), (1024, 32, 8), (1000, 60, 4), (512, 64, 8)]
 @pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
 @pytest.mark.parametrize("renorm", [True, False])
 def test_router_kernel_on_card(renorm, dtype, tol):
-    """Ids equal the plain version's, weights within tolerance; exact ties
-    (bf16-rounded logits, and a row of equal logits) take the lowest
-    index."""
+    """Ids equal the plain version's, weights within tolerance, at
+    ROUTER_CASES and at E of 1 to 33 (lanes past E masked, and the partly
+    filled second column past 32); exact ties (bf16-rounded logits, and a
+    row of equal logits) take the lowest index, and -inf logits are never
+    chosen ahead of finite ones."""
     _need_card()
     from repro_torch.kernels import router
+    cases = []
     for i, (T, E, k) in enumerate(ROUTER_CASES):
         x = _rand((T, E), dtype, 10 + i)
         if i == 1:
             x = x.to(torch.bfloat16).to(x.dtype)
             x[0] = 0.5
-        before = sum(router.launches.values())
-        w, ids = router.topk_router(x, k, renorm)
-        torch.cuda.synchronize()
-        assert sum(router.launches.values()) == before + 1
-        pw, pids = router.topk_router_plain(x, k, renorm)
-        torch.testing.assert_close(ids, pids, rtol=0, atol=0)
-        torch.testing.assert_close(w.float(), pw.float(), rtol=tol, atol=tol)
-        if i == 1:
-            assert ids[0].tolist() == list(range(k))
-    with pytest.raises(ValueError, match="contiguous"):
-        router.topk_router(_rand((32, 16), dtype).t(), 2)
-    with pytest.raises(ValueError, match="E <= 64"):
-        router.topk_router(_rand((4, 65), dtype), 2)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("renorm", [True, False])
-def test_router_rebuilt_equals_old_on_card(renorm, dtype):
-    """The rank kernel's ids and weights equal the round kernel's it
-    replaced, bit for bit, at ROUTER_CASES (the breakdown's operands), at
-    E of 1 to 33 and on rows with exact ties, equal logits and -inf
-    logits."""
-    _need_card()
-    from repro_torch.kernels import router
-    cases = [(_rand((T, E), dtype, 20 + i), k)
-             for i, (T, E, k) in enumerate(ROUTER_CASES)]
+        cases.append((x, k))
     cases += [(_rand((37, E), dtype, E), min(k, E))
               for E in (1, 3, 8, 17, 32, 33) for k in (1, 4, 8)]
     ties = _rand((512, 32), "bfloat16", 3).to(getattr(torch, dtype))
     ties[0] = 0.25
     ties[1::3, ::4] = -torch.inf
     cases.append((ties, 8))
-    for x, k in cases:
-        new = router._launch_variant("rank", x, k, renorm)
-        old = router._launch_variant("rounds", x, k, renorm)
+    for i, (x, k) in enumerate(cases):
+        before = sum(router.launches.values())
+        w, ids = router.topk_router(x, k, renorm)
         torch.cuda.synchronize()
-        assert torch.equal(new[1], old[1]), (tuple(x.shape), k)
-        assert torch.equal(new[0], old[0]), (tuple(x.shape), k)
+        assert sum(router.launches.values()) == before + 1
+        pw, pids = router.topk_router_plain(x, k, renorm)
+        torch.testing.assert_close(ids, pids, rtol=0, atol=0,
+                                   msg=lambda m: f"{tuple(x.shape)} k={k}: {m}")
+        torch.testing.assert_close(w.float(), pw.float(), rtol=tol, atol=tol,
+                                   msg=lambda m: f"{tuple(x.shape)} k={k}: {m}")
+        if i == 1 or x is ties:
+            assert ids[0].tolist() == list(range(k))
+    with pytest.raises(ValueError, match="contiguous"):
+        router.topk_router(_rand((32, 16), dtype).t(), 2)
+    with pytest.raises(ValueError, match="E <= 64"):
+        router.topk_router(_rand((4, 65), dtype), 2)
 
 
 @pytest.mark.gpu
@@ -1120,6 +1088,120 @@ def test_softmax_masked_kernel_on_card(dtype, tol):
             rtol=tol, atol=tol)
 
 
+def _same_bits(a, b) -> bool:
+    """Equal bit patterns, NaN included."""
+    ints = {4: torch.int32, 2: torch.int16}
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(ints[a.element_size()]),
+        b.contiguous().view(ints[b.element_size()]))
+
+
+def _masked_variants(x, mask, scale):
+    from repro_torch.kernels import softmax
+    new = softmax._launch_variant("cuda", x, mask, scale)
+    old = softmax._launch_variant("triton", x, mask, scale)
+    torch.cuda.synchronize()
+    return new, old
+
+
+def _attention_scores(dtype, seed):
+    """The kernel API's masked attention rows: (4 * 16 * 256, 256) scores
+    under the long prompts' padding mask, expanded over 16 q heads."""
+    import chip_smoke
+    lens = chip_smoke.LONG_LENS
+    L = int(lens.max())
+    x = 4.0 * _rand((len(lens) * 16 * L, L), dtype, seed)
+    mask = chip_smoke.padding_mask(lens, L, "cuda")
+    return x, mask.expand(len(lens), 16, L, L).reshape(-1, L)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_softmax_masked_cuda_equals_triton_on_card(dtype):
+    """At the kernel API's (16384, 256) attention operand and its mask (a
+    quarter of the rows fully masked) the CUDA kernel gives the Triton
+    kernel's bits; its fully masked rows are +0."""
+    _need_card()
+    x, mask = _attention_scores(dtype, 90)
+    new, old = _masked_variants(x, mask, 128 ** -0.5)
+    assert _same_bits(new, old), int((new != old).sum())
+    empty = ~mask.any(-1)
+    assert empty.sum() == 4432
+    assert (new[empty].view(torch.int16 if dtype == "bfloat16"
+                            else torch.int32) == 0).all()
+
+
+def _masked_edge_cases(dtype):
+    """(name, x, mask): ragged widths from 1 to 8192 (one-pass layouts of
+    1 to 8 warps a row, V of 1 to 16), rows strided in x and in the mask,
+    a misaligned x, rows fully masked, masked in their first half and fully
+    kept, and NaN and infinities at kept and masked lanes."""
+    cases = []
+    for i, (rows, d) in enumerate([(7, 1), (5, 3), (9, 16), (300, 128),
+                                   (6, 333), (33, 512), (3, 1000),
+                                   (4, 1024), (2, 2048), (3, 4097),
+                                   (2, 8192), (1, 256), (2, 256)]):
+        x = 3.0 * _rand((rows, d), dtype, 100 + i)
+        gen = torch.Generator().manual_seed(200 + i)
+        mask = (torch.rand((rows, d), generator=gen) < 0.6).cuda()
+        if rows > 2:
+            mask[0] = False
+            mask[1, : d // 2] = False
+            mask[2] = True
+        cases.append((f"{rows}x{d}", x, mask))
+    x = 3.0 * _rand((40, 640), dtype, 300)
+    mask = (torch.rand((40, 640), generator=torch.Generator().manual_seed(
+        301)) < 0.5).cuda()
+    cases.append(("strided", x[:, 64:576], mask[:, 64:576]))
+    cases.append(("misaligned", x[:, 1:257], mask[:, 3:259]))
+    cases.append(("strided_ragged", x[:, 5:338], mask[:, 7:340]))
+    x = 3.0 * _rand((16, 256), dtype, 302)
+    mask = (torch.rand((16, 256), generator=torch.Generator().manual_seed(
+        303)) < 0.5).cuda()
+    x[2, 5], x[3, 7], x[4, 9], x[5, 11] = (float("nan"), float("inf"),
+                                           -float("inf"), float("nan"))
+    mask[2, 5] = mask[3, 7] = mask[4, 9] = True
+    mask[5, 11] = False
+    x[6] = -float("inf")
+    mask[7] = True
+    mask[8] = False
+    x[9, ::2] = float("inf")
+    cases.append(("special", x, mask))
+    return cases
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_softmax_masked_cuda_equals_triton_at_edges_on_card(dtype):
+    _need_card()
+    for name, x, mask in _masked_edge_cases(dtype):
+        new, old = _masked_variants(x, mask, 0.7)
+        assert _same_bits(new, old), (name, int((new != old).sum()))
+        rows_out = ~mask.any(-1)
+        assert (new[rows_out] == 0).all() and not torch.signbit(
+            new[rows_out]).any(), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", KERNEL_TOL)
+def test_softmax_masked_cuda_against_plain_on_card(dtype, tol):
+    """The op's CUDA kernel against the plain version, NaN at the same
+    places, at the attention operand and the edge cases; one launch
+    counted a call."""
+    _need_card()
+    from repro_torch.kernels import softmax
+    x, mask = _attention_scores(dtype, 91)
+    for name, x, mask in [("attention", x, mask), *_masked_edge_cases(dtype)]:
+        before = sum(softmax.masked_launches.values())
+        out = softmax.softmax_masked_op(x, mask, 0.7)
+        torch.cuda.synchronize()
+        assert sum(softmax.masked_launches.values()) == before + 1
+        want = softmax.softmax_masked_plain(x, mask, 0.7)
+        assert torch.equal(torch.isnan(out), torch.isnan(want)), name
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                   atol=tol, equal_nan=True, msg=name)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cross_entropy_kernel_on_card(dtype):
@@ -1205,7 +1287,8 @@ def test_cuda_library_builds_from_an_empty_directory(tmp_path):
                      ("activations", "repro_glu"),
                      ("mamba_scan", "repro_mamba_scan"),
                      ("rg_lru", "repro_rg_lru"),
-                     ("rope", "repro_rope")):
+                     ("rope", "repro_rope"),
+                     ("softmax", "repro_softmax_masked")):
         lib = ctypes.CDLL(str(libs[stem]))
         assert hasattr(lib, fn)
         assert "registers" in libs[stem].with_suffix(".log").read_text()

@@ -7,11 +7,12 @@ as the 64-bit keys ``bits(p) << 32 | ~j``; the columns of rank below k are
 the ids in rank order, and the renormalising sum runs in slot order.  Here
 that rule, written in torch as the kernel computes it, equals the round
 kernel's rule (the plain version's k argmax rounds, the sum in slot order)
-bit for bit, and the plain version (``topk_router_plain``, whose sum is
-``w.sum``) in its ids and to an ulp in its weights, on rows with exact
-ties, rows of equal logits and rows with -inf logits, at E from 1 to 64.
-Also: the ``ctypes`` bindings against the C declarations and the
-wrappers' refusals before any build.
+bit for bit (the round kernel itself is retired; the card held the rank
+kernel to it while it stayed), and the plain version
+(``topk_router_plain``, whose sum is ``w.sum``) in its ids and to an ulp
+in its weights, on rows with exact ties, rows of equal logits and rows
+with -inf logits, at E from 1 to 64.  Also: the ``ctypes`` bindings
+against the C declarations and the wrappers' refusals before any build.
 The kernels themselves run on the card (``tests/test_torch_gpu.py``,
 ``chip_smoke.py``).
 """
@@ -61,40 +62,33 @@ def test_binding_matches_the_c_declaration(mod, stem, fn):
 
 
 def test_glu_wrapper_refuses_what_the_kernels_do_not_take():
-    """A column stride, unequal operands, another dtype, an unknown
-    activation or an unknown variant is refused before any build."""
+    """A column stride, unequal operands, another dtype or an unknown
+    activation is refused before any build."""
     g = torch.randn(4, 16)
-    launch = activations._launch_variant
-    for variant in activations.VARIANTS:
-        with pytest.raises(ValueError, match="contiguous"):
-            launch(variant, torch.randn(16, 4).t(), torch.randn(16, 4).t(),
-                   "silu")
-        with pytest.raises(ValueError, match="equal"):
-            launch(variant, g, g[:, :8], "silu")
-        with pytest.raises(ValueError, match="equal"):
-            launch(variant, g.half(), g.half(), "gelu")
-        with pytest.raises(ValueError, match="act"):
-            launch(variant, g, g, "relu")
-    with pytest.raises(ValueError, match="unknown variant"):
-        launch("pallas", g, g, "silu")
+    launch = activations._launch
+    with pytest.raises(ValueError, match="contiguous"):
+        launch(torch.randn(16, 4).t(), torch.randn(16, 4).t(), "silu")
+    with pytest.raises(ValueError, match="equal"):
+        launch(g, g[:, :8], "silu")
+    with pytest.raises(ValueError, match="equal"):
+        launch(g.half(), g.half(), "gelu")
+    with pytest.raises(ValueError, match="act"):
+        launch(g, g, "relu")
 
 
 def test_router_wrapper_refuses_what_the_kernels_do_not_take():
-    launch = router._launch_variant
+    launch = router._launch
     x = torch.randn(4, 32)
-    for variant in router.VARIANTS:
-        with pytest.raises(ValueError, match="contiguous"):
-            launch(variant, torch.randn(32, 16).t(), 2)
-        with pytest.raises(ValueError, match="E <= 64"):
-            launch(variant, torch.randn(4, 65), 2)
-        with pytest.raises(ValueError, match="k <= E"):
-            launch(variant, x, 33)
-        with pytest.raises(TypeError, match="float32 or bfloat16"):
-            launch(variant, x.half(), 2)
-        with pytest.raises(ValueError, match=r"\(T, E\)"):
-            launch(variant, x[None], 2)
-    with pytest.raises(ValueError, match="unknown variant"):
-        launch("sort", x, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        launch(torch.randn(32, 16).t(), 2)
+    with pytest.raises(ValueError, match="E <= 64"):
+        launch(torch.randn(4, 65), 2)
+    with pytest.raises(ValueError, match="k <= E"):
+        launch(x, 33)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        launch(x.half(), 2)
+    with pytest.raises(ValueError, match=r"\(T, E\)"):
+        launch(x[None], 2)
 
 
 def rank_router(logits, k: int, renormalize: bool):
