@@ -20,9 +20,7 @@ result line):
    attention, flash attention, the MoE router, the selective scan, the
    RG-LRU) at sample shapes, each held against its plain PyTorch version
    on the card (the router's ids exactly on rows without a near tie, ties
-   to the lowest index; NaN rows of the softmax at the same places).  The
-   masked softmax's one-pass samples also equal, bit for bit, the Triton
-   kernel its CUDA kernel replaced.
+   to the lowest index; NaN rows of the softmax at the same places).
    Flash attention runs its bf16 samples through both kernels (the Hopper
    one, wgmma fed by TMA, and the CUDA-core one it replaced for bf16) and
    its f32 samples through the CUDA-core one; decode attention runs the
@@ -73,6 +71,22 @@ result line):
    launch the split kernel's.  Both decode plans
    are printed side by side; the kernel-mode bf16 logits are held against
    the eager ref-mode decode over several weight seeds.
+   Plan cache (after the kernel-mode path, the same model and requests in
+   kernel mode): an engine over a ``CompilationService`` whose
+   ``StitchCache`` writes to an empty directory serves the prompts while
+   both stitched plans compile in the background (the fallback plans
+   answer; calls by plan, tokens and decode ms during and after the
+   compile printed), then ``svc.wait()`` and a second serve: stitched
+   plans only, status hit, no service error; both serves' first-step
+   logits within ``KM_LOGIT_TOL`` of the offline kernel-mode engine's, and
+   bit for bit where the landed plans equal the offline ones (printed with
+   both plans' ILP method).  Then a fresh cache over the same directory
+   replays both plans: two disk hits, no planner stage or tuner call
+   (counted), the landed plans' groups and kinds, an engine over it with
+   no fallback call whose prefill and first-step logits are the landed
+   plans' bit for bit and whose decode step launches the landed plan's
+   kernels by signature (and the offline plan's where the plans are
+   equal); warm against cold compile seconds printed.
 4. Float32 checks: full width cut to 4 layers, the first decode step of the
    stitched ref-mode and kernel-mode engines against the eager one over
    several weight seeds, with faults planted in the stitched RMSNorm
@@ -157,9 +171,8 @@ result line):
    timed beside its bound and a PyTorch call (the ``x + res ->
    F.rms_norm`` chain, ``F.cross_entropy``, the ``masked_fill -> softmax``
    and ``mul -> softmax`` chains); the masked softmax's CUDA kernel beside
-   the Triton kernel it replaced, whose outputs it must equal bit for bit
-   on every path launch (both timed paired), and beside both of its
-   bounds (x read whole, and only in the sectors that hold a kept lane);
+   both of its bounds (x read whole, and only in the sectors that hold a
+   kept lane);
    the outputs against the same functions run eagerly in ref mode over
    several seeds; then in float32 at the same widths, with faults planted
    in three Triton kernels (the residual norm of x alone, the
@@ -1865,8 +1878,8 @@ def api_samples(rnd):
     (a row of 10001), each with a row of -inf (NaN in both, as in the
     reference) and a row holding a NaN; the masked softmax with fully
     masked rows (exactly 0) and rows masked in their first half, one-pass
-    (the CUDA kernel, also bit for bit the Triton kernel it replaced; a
-    ragged width takes its one-element path) and wide; the cross-entropy
+    (the CUDA kernel; a ragged width takes its one-element path) and wide;
+    the cross-entropy
     at a vocabulary of 50001 (no multiple of a power-of-two block) and at
     a ragged width.  NaN must sit at the same
     places in both; the rest within ``TOL``."""
@@ -1920,11 +1933,6 @@ def api_samples(rnd):
         if tag == "_softmax_masked_kernel" and not (
                 (outs[0][0] == 0).all() and (outs[0][~args[1]] == 0).all()):
             fail(f"{name}: masked lanes or a fully masked row are not 0")
-        if tag == "_softmax_masked_kernel" and softmax.split_plan(
-                args[0].shape[1]) is None and not bits_equal(
-                    outs[0], softmax._launch_variant("triton", *args)):
-            fail(f"{name}: the CUDA masked softmax differs from the Triton "
-                 f"kernel it replaced in some bits")
         ok = [torch.nan_to_num(o.float(), nan=0.0) for o in outs]
         ok_ref = [torch.nan_to_num(r.float(), nan=0.0) for r in refs]
         errs[name] = max_err(ok, ok_ref)
@@ -2155,46 +2163,26 @@ def source_of(tag, args, source):
     return source
 
 
-def replaced_kernel(tag, args, refs, outs) -> dict:
+def replaced_kernel(tag, args, refs) -> dict:
     """The kernel a rebuild replaced, on the same inputs, timed beside the
     new one: the CUDA-core flash kernel for a bf16 call that runs the
-    Hopper one, held against the plain version; the Triton masked softmax
-    for the CUDA one, held against the new kernel's ``outs`` bit for bit
-    (the same rounded operations, the same order of sums) and timed
-    paired."""
-    from repro_torch.kernels import flash_attention, softmax
-    if tag == "_flash_kernel":
-        variant = flash_variant(args)
-        if variant != "sm90":
-            return {"variant": variant}
-        old, name = functools.partial(flash_attention._launch_variant,
-                                      "simt", *args), "simt"
-    elif tag == "_softmax_masked_kernel":
-        variant, name = "cuda", "triton"
-        launch = softmax._launch_variant
-        old = functools.partial(launch, name, *args)
-    else:
+    Hopper one, held against the plain version."""
+    from repro_torch.kernels import flash_attention
+    if tag != "_flash_kernel":
         return {}
+    variant = flash_variant(args)
+    if variant != "sm90":
+        return {"variant": variant}
+    old = functools.partial(flash_attention._launch_variant, "simt", *args)
     out = old()
     torch.cuda.synchronize()
     olds = out if isinstance(out, tuple) else (out,)
-    extra = {}
-    if name == "simt":
-        err = max_err(olds, refs)
-        if not within(olds, refs):
-            fail(f"the replaced {name} kernel disagrees with the plain "
-                 f"version (max err {err})")
-    else:
-        err = max_err(olds, outs)
-        if not all(bits_equal(o, n) for o, n in zip(olds, outs)):
-            fail(f"the {variant} {HAND[tag][0]} kernel differs from the "
-                 f"{name} kernel it replaced in some bits (max diff {err})")
-        new = functools.partial(launch, variant, *args)
-        extra = dict(zip(("paired_device_ms", "paired_old_device_ms"),
-                         paired_device_ms(new, old)))
-    return {"variant": variant, "old_variant": name, "old_max_abs_err": err,
-            "old_ms": timed(old, 50), "old_device_ms": device_ms(old),
-            **extra}
+    err = max_err(olds, refs)
+    if not within(olds, refs):
+        fail(f"the replaced simt kernel disagrees with the plain version "
+             f"(max err {err})")
+    return {"variant": variant, "old_variant": "simt", "old_max_abs_err": err,
+            "old_ms": timed(old, 50), "old_device_ms": device_ms(old)}
 
 
 def paired_device_times(*fns, rounds: int = 5, reps: int = 100) -> list:
@@ -2209,12 +2197,6 @@ def paired_device_times(*fns, rounds: int = 5, reps: int = 100) -> list:
         for i in (order if r % 2 == 0 else order[::-1]):
             times[i].append(device_ms(fns[i], reps))
     return times
-
-
-def paired_device_ms(*fns, rounds: int = 5, reps: int = 100):
-    """The median of each function's ``paired_device_times``."""
-    return tuple(float(np.median(t)) for t in
-                 paired_device_times(*fns, rounds=rounds, reps=reps))
 
 
 def launch_signature(name, node, tensors) -> tuple:
@@ -2335,7 +2317,7 @@ def hand_rows(parts, path):
             extra = {"chain": what, "chain_ms": timed(chain, 50),
                      "chain_device_ms": device_ms(chain)}
         source = source_of(tag, full, source)
-        extra.update(replaced_kernel(tag, full, refs, outs))
+        extra.update(replaced_kernel(tag, full, refs))
         lib = hand_library(tag, full)
         lib_ms = lib_dev_ms = lib_err = None
         if lib is not None:
@@ -2376,9 +2358,6 @@ def hand_rows(parts, path):
                    for f in ("ms", "device_ms", "plain_ms", "bound_ms")}
             if mine and all(r.get("old_ms") is not None for r, _ in mine):
                 for f in ("old_ms", "old_device_ms"):
-                    agg[f] = sum(n * r[f] for r, n in mine)
-            if mine and all("paired_device_ms" in r for r, _ in mine):
-                for f in ("paired_device_ms", "paired_old_device_ms"):
                     agg[f] = sum(n * r[f] for r, n in mine)
             for lib in ("library", "chain"):
                 if mine and all(r.get(f"{lib}_ms") is not None for r, _ in mine):
@@ -2439,7 +2418,8 @@ def serve_kernel_mode(dev, model, params, lens, prompts, max_len, tag,
 def kernel_mode_phase(dev, model, params, lens, prompts, checked):
     """The kernel-mode path at the 64 bucket (``serve_kernel_mode``); then
     its bf16 decode logits against the ref-mode eager decode over several
-    weight seeds."""
+    weight seeds.  Returns the rows, the plan summary and the engine (the
+    plan-cache phase's offline yardstick)."""
     from repro_torch.kernels import ops
     from repro_torch.serve import Engine, ServeConfig
     cfg = model.cfg
@@ -2465,7 +2445,279 @@ def kernel_mode_phase(dev, model, params, lens, prompts, checked):
           f"max={max(readings):.6g}")
     if not all(np.isfinite(r) and r <= KM_LOGIT_TOL for r in readings):
         fail("kernel-mode decode logits disagree with the ref-mode eager decode")
-    return kernels, summary
+    return kernels, summary, eng
+
+
+# ---------------------------------------------------------------------------
+# the plan cache: miss-then-upgrade serving and replay from disk
+# ---------------------------------------------------------------------------
+
+CACHE_STEPS = 15          # decode steps a serve of the plan-cache phase
+
+
+def cache_serve(e, prompts, lens, svc=None):
+    """One serve of the prompts in kernel mode: a prefill, then
+    ``CACHE_STEPS`` decode steps from each row's first prompt token (as
+    ``first_step_logits``), each timed alone and marked by whether
+    ``svc`` still had a background compile in flight when it began.
+    Returns the tokens, the first step's logits (f32), the steps' ms
+    during and after the compile (the first step apart: it traces and
+    compiles on a first serve), and the prefill call's seconds."""
+    from repro_torch.kernels import ops
+    with ops.kernel_mode("kernels"):
+        t0 = time.perf_counter()
+        px = e.prefill(prompts, prompt_lens=lens)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        for row in range(len(lens)):
+            e.insert(px, slot=row, row=row)
+        e._tok[:len(lens), 0] = np.asarray(prompts)[:, 0]
+        toks, first, during, after = [px.first_tokens[:, None]], None, [], []
+        for i in range(CACHE_STEPS):
+            busy = svc is not None and svc.pending() > 0
+            t0 = time.perf_counter()
+            tok, lg = e.generate_step(steps=1, return_logits=True)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            toks.append(tok[:len(lens)])
+            if i == 0:
+                first, first_ms = lg[0].float(), ms
+            else:
+                (during if busy else after).append(ms)
+        for row in range(len(lens)):
+            e.release(row)
+    return (np.concatenate(toks, axis=1), first, during, after,
+            (prefill_s, first_ms))
+
+
+def step_counts(e):
+    """One decode step's launches: generated kernels by digest and view
+    patterns by digest (nonzero only), hand-written kernels by signature."""
+    from repro_torch.kernels import ops, stitched
+    cache = {k: v.clone() for k, v in e.kv.decode_cache().items()}
+    tok = torch.as_tensor(e._tok.copy(), device=e.device)
+    stitched.reset_launch_counts()
+    ops.reset_launch_counts()
+    e._exec(e.params, cache, tok)
+    torch.cuda.synchronize()
+    gen = {k: v for k, v in stitched.launch_counts().items() if v}
+    views = {k: v for k, v in stitched.view_counts().items() if v}
+    return gen, views, ops.launch_counts_by_signature()
+
+
+def plan_record(svc, sf):
+    """The active plan of a stitched function in canonical coordinates:
+    its graph's key and its groups (members, kind, row block, scratch,
+    pack), in a fixed order."""
+    from repro_torch.cache import extract_record
+    g, compiled = sf.graph, sf.compiled
+    sig = svc.cache.signature_of(g)
+    rec = extract_record(g, sig, compiled, "", "")
+    return rec.graph_key, sorted(rec.groups, key=repr)
+
+
+def counted(stages: Counter):
+    """Wrap pattern generation, the ILP and the tuner so each call is
+    counted in ``stages``; returns a function that unwraps them."""
+    from repro_torch.core import compiler as comp_mod
+    from repro_torch.core.tuner import TemplateTuner
+    saved = [(comp_mod, "generate_patterns"), (comp_mod, "solve_fusion_plan"),
+             (TemplateTuner, "tune")]
+    originals = [getattr(o, n) for o, n in saved]
+
+    def wrap(name, fn):
+        def run(*a, **k):
+            stages[name] += 1
+            return fn(*a, **k)
+        return run
+
+    for (owner, name), fn in zip(saved, originals):
+        setattr(owner, name, wrap(name, fn))
+
+    def restore():
+        for (owner, name), fn in zip(saved, originals):
+            setattr(owner, name, fn)
+    return restore
+
+
+def plan_cache_phase(dev, model, params, lens, prompts, offline):
+    """The plan cache at full width in kernel mode (bucket 64).
+
+    1. Cold serve: an engine over a ``CompilationService`` with a
+       ``DiskStore`` in an empty directory serves the prompts; the fallback
+       plans answer while both stitched plans compile in the background;
+       ``svc.wait()``; a second serve must run the stitched plans only
+       (status hit, no fallback call, no service error).  Both serves'
+       first decode step within ``KM_LOGIT_TOL`` of the offline kernel-mode
+       engine's (``offline``); the second serve's tokens and logits equal
+       to the offline engine's bit for bit where the landed plans are the
+       offline plans.
+    2. Warm replay: a fresh cache and service over the same directory
+       compile both graphs: each a hit from disk, no planner stage or tuner
+       call; the replayed plans equal the landed ones (groups, kinds,
+       row blocks, packs) and the offline ones where those equal; an
+       engine over that service serves with no fallback call, its prefill
+       and first-step logits bit for bit the landed plans', one decode
+       step's launches by kernel and signature the landed plan's (and the
+       offline plan's where the plans are equal).  Prints warm against
+       cold compile seconds."""
+    import tempfile
+    from repro_torch.cache import CompilationService, StitchCache
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Engine, ServeConfig
+    scfg = ServeConfig(batch=4, max_len=128, max_new_tokens=CACHE_STEPS + 1,
+                       stitch_execute=True, paged=False)
+    off_toks, off_first, _, off_ms, _ = cache_serve(offline, prompts, lens)
+    with ops.kernel_mode("kernels"):
+        off_pre, _ = prefill_and_step_logits(offline, prompts, lens)
+    root = Path(tempfile.mkdtemp(prefix="plan_cache_"))
+    try:
+        svc = CompilationService(StitchCache(directory=str(root)),
+                                 plan_budget=PLAN_BUDGET)
+        eng = Engine(model, params, scfg, device=dev, stitch_service=svc)
+        t0 = time.perf_counter()
+        toks1, first1, during1, after1, call1 = cache_serve(eng, prompts, lens,
+                                                            svc)
+        serve1 = time.perf_counter() - t0
+        calls1 = {k: dict(eng.report()[k]["plan_calls"])
+                  for k in ("prefill", "decode")}
+        t0 = time.perf_counter()
+        svc.wait()
+        waited = time.perf_counter() - t0
+        toks2, first2, during2, after2, call2 = cache_serve(eng, prompts, lens,
+                                                            svc)
+        rep = eng.report()
+        calls2 = {k: {m: n - calls1[k].get(m, 0)
+                      for m, n in rep[k]["plan_calls"].items()}
+                  for k in ("prefill", "decode")}
+        print(f"plan cache cold serve: {serve1:.1f}s (prefill call "
+              f"{call1[0]:.1f}s, first decode step {call1[1] / 1e3:.1f}s: "
+              f"trace and fallback plan; second serve {call2[0]:.3f}s / "
+              f"{call2[1]:.1f}ms), plan calls {calls1}, "
+              f"tokens {toks1.tolist()}; waited {waited:.1f}s for the "
+              f"background compiles; second serve plan calls {calls2}, "
+              f"status {eng.stitch_status}")
+        print(f"plan cache decode ms a step (the first of each serve "
+              f"apart): during the background compile {len(during1)} steps, "
+              f"median {np.median(during1) if during1 else float('nan'):.2f}; "
+              f"after it {len(after1) + len(after2)} steps, median "
+              f"{np.median(after1 + after2):.2f} (first serve after it "
+              f"{len(after1)}); offline engine median {np.median(off_ms):.2f}")
+        errs = svc.error_report()
+        if svc.last_error is not None or errs or any(
+                rep[k]["service_error"] for k in ("prefill", "decode")):
+            fail(f"plan cache: background compile failed: {svc.last_error} "
+                 f"{errs}")
+        if eng.stitch_status != "hit" or eng._prefill_exec.status != "hit":
+            fail(f"plan cache: after svc.wait() the plans are "
+                 f"{eng._prefill_exec.status} / {eng.stitch_status}, not hit")
+        if any(c.get("xla") for c in calls2.values()) or any(
+                rep[k]["calls"]["fallback"] for k in ("prefill", "decode")):
+            fail(f"plan cache: a fallback call after the plans landed: "
+                 f"{calls2}, {[rep[k]['calls'] for k in ('prefill', 'decode')]}")
+        records = {p.name: json.loads(p.read_text())
+                   for p in sorted(root.glob("plan_*.json"))}
+        if len(records) != 2:
+            fail(f"plan cache: {len(records)} plan files, expected 2")
+        cold_s = {("prefill" if r["placement"] else "decode"): r["solve_seconds"]
+                  for r in records.values()}
+        off_plans = {k: offline.report()[k]["plan"] for k in ("prefill", "decode")}
+        landed = {k: rep[k]["plan"] for k in ("prefill", "decode")}
+        execs = {"prefill": ("_prefill_exec",), "decode": ("_exec",)}
+        same = {}
+        for k, (attr,) in execs.items():
+            same[k] = (plan_record(svc, getattr(eng, attr))
+                       == plan_record(svc, getattr(offline, attr)))
+            print(f"plan cache {k}: landed plan equals the offline plan: "
+                  f"{same[k]} (ilp landed {landed[k]['ilp_method']}, offline "
+                  f"{off_plans[k]['ilp_method']}); cold compile "
+                  f"{cold_s[k]:.2f}s in the background, "
+                  f"{off_plans[k]['compile_seconds']:.2f}s offline")
+        readings = [rel_diff(first1, off_first), rel_diff(first2, off_first)]
+        print(f"plan cache first-step logits vs the offline kernel mode: "
+              f"cold serve rel={readings[0]:.6g}, second serve "
+              f"rel={readings[1]:.6g} (tol {KM_LOGIT_TOL})")
+        if not all(np.isfinite(r) and r <= KM_LOGIT_TOL for r in readings):
+            fail("plan cache: a serve's first-step logits disagree with the "
+                 "offline kernel mode")
+        with ops.kernel_mode("kernels"):
+            pre2, step2 = prefill_and_step_logits(eng, prompts, lens)
+        if same["prefill"] and not bits_equal(pre2, off_pre):
+            fail("plan cache: the landed prefill plan is the offline one but "
+                 "its logits differ in some bits")
+        if all(same.values()) and not (
+                bits_equal(first2, off_first) and np.array_equal(toks2, off_toks)):
+            fail("plan cache: the landed plans are the offline ones but the "
+                 "second serve's tokens or logits differ in some bits")
+
+        # 2. warm replay: a fresh cache over the same directory
+        stages: Counter = Counter()
+        restore = counted(stages)
+        try:
+            warm = CompilationService(StitchCache(directory=str(root)),
+                                      plan_budget=PLAN_BUDGET)
+            if len(warm.cache.store.memory):
+                fail("plan cache: the fresh cache's memory tier is not empty")
+            warm_s = {}
+            for k, (attr,) in execs.items():
+                sf = getattr(eng, attr)
+                t0 = time.perf_counter()
+                cg = warm.compiler("stitch", sf.placement).compile(sf.graph)
+                warm_s[k] = time.perf_counter() - t0
+                if cg.stats.cache_status != "hit":
+                    fail(f"plan cache: the warm {k} compile was a "
+                         f"{cg.stats.cache_status}")
+            wrep = warm.cache.report()
+            weng = Engine(model, params, scfg, device=dev, stitch_service=warm)
+            with ops.kernel_mode("kernels"):
+                pre_w, step_w = prefill_and_step_logits(weng, prompts, lens)
+            wr = weng.report()
+        finally:
+            restore()
+        print(f"plan cache warm replay: {wrep['total_hits']} hits, "
+              f"{wrep['total_misses']} misses from {wrep['disk_entries']} "
+              f"disk entries (memory tier {wrep['memory_entries']} after); "
+              f"planner and tuner calls {dict(stages)}; engine plan calls "
+              f"{ {k: wr[k]['plan_calls'] for k in ('prefill', 'decode')} }")
+        for k in execs:
+            print(f"plan cache {k} compile: warm {warm_s[k]:.3f}s against cold "
+                  f"{cold_s[k]:.2f}s (background) and "
+                  f"{off_plans[k]['compile_seconds']:.2f}s (offline): "
+                  f"{cold_s[k] / warm_s[k]:.1f}x")
+        if wrep["total_hits"] != 2 or wrep["total_misses"] or sum(stages.values()):
+            fail(f"plan cache: the warm compiles were not two disk hits with "
+                 f"no planner or tuner call ({wrep}, {dict(stages)})")
+        if any(wr[k]["plan_calls"].get("xla") or wr[k]["calls"]["fallback"]
+               for k in execs):
+            fail("plan cache: the warm engine served a fallback call")
+        for k, (attr,) in execs.items():
+            if plan_record(warm, getattr(weng, attr)) != plan_record(
+                    svc, getattr(eng, attr)):
+                fail(f"plan cache: the replayed {k} plan is not the landed one")
+        if not (bits_equal(pre_w, pre2) and bits_equal(step_w, step2)):
+            fail("plan cache: the replayed plans' logits differ in some bits "
+                 "from the plans they replay")
+        counts = {"landed": step_counts(eng), "warm": step_counts(weng),
+                  "offline": step_counts(offline)}
+        print("plan cache launches a decode step (generated, views, "
+              "hand-written by kernel): " + " ".join(
+                  f"{k}={sum(g.values())}/{sum(v.values())}/"
+                  f"{ {n: sum(c.values()) for n, c in h.items() if c} }"
+                  for k, (g, v, h) in counts.items()))
+        if counts["warm"] != counts["landed"]:
+            fail("plan cache: the replayed decode plan launches other kernels "
+                 "than the plan it replays")
+        if counts["warm"][2] != counts["offline"][2]:
+            fail("plan cache: hand-written launches a step differ from the "
+                 "offline kernel mode's")
+        if same["decode"] and counts["warm"] != counts["offline"]:
+            fail("plan cache: the decode plan is the offline one but launches "
+                 "other kernels")
+        print(f"plan cache: prefill and first-step logits of the replayed "
+              f"plans bit for bit the landed plans'; equal to the offline "
+              f"engine's where the plans are ({same})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # four prompts in the 256 bucket: a support ticket thread or a RAG query
@@ -3509,8 +3761,7 @@ def kernel_api_phase(dev, checked):
                 f"{k}={r[k] * 1e3:.2f}us" for k in (
                     "ms", "device_ms", "plain_ms", "bound_ms",
                     "bound_all_bytes_ms", "library_ms", "library_device_ms",
-                    "paired_device_ms", "paired_old_device_ms", "old_ms",
-                    "old_device_ms") if r.get(k) is not None)
+                    "old_ms", "old_device_ms") if r.get(k) is not None)
                 + f" bound_term={r['bound_term']}")
         plan = sf.report()["plan"]
         print(f"plan {tag}: " + json.dumps({
@@ -3919,12 +4170,20 @@ def main() -> int:
     prompts = prompts_for(cfg, lens, SEED)
     checked: dict = {}
     kernels, summaries = [], {}
-    for tag, phase in (("ref-mode", serve_phase),
-                       ("kernel-mode", kernel_mode_phase)):
-        t0 = time.perf_counter()
-        rows, summaries[tag] = phase(dev, model, params, lens, prompts, checked)
-        kernels += rows
-        print(f"{tag} phase: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    rows, summaries["ref-mode"] = serve_phase(dev, model, params, lens,
+                                              prompts, checked)
+    kernels += rows
+    print(f"ref-mode phase: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    rows, summaries["kernel-mode"], offline = kernel_mode_phase(
+        dev, model, params, lens, prompts, checked)
+    kernels += rows
+    print(f"kernel-mode phase: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    plan_cache_phase(dev, model, params, lens, prompts, offline)
+    del offline
+    print(f"plan cache phase: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     rows, summaries["kernel-mode long"] = long_prompt_phase(dev, model, params,
                                                             checked)

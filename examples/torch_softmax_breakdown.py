@@ -1,13 +1,10 @@
 """Where a masked softmax launch's time goes, on the kernel API's attention
-operand and the card check's samples, and what Triton compiled for the
-Triton masked softmax.
+operand and the card check's samples.
 
 Device us a launch, paired (``chip_smoke.paired_device_times``: the median
 of 5 alternations of 100-launch CUDA-graph replays, every column of an
 operand in turn; the least and the most of the 5 beside it), of:
 
-* ``empty_triton``, an empty Triton kernel at the Triton kernel's grid
-  and warps (``softmax._layout``);
 * ``empty_cuda``, an empty CUDA kernel at the CUDA kernel's grid and
   threads (``softmax.masked_plan``);
 * ``copy``, a CUDA kernel that reads the mask and every x vector and
@@ -15,11 +12,10 @@ operand in turn; the least and the most of the 5 beside it), of:
   of a 256-column row) over the CUDA kernel's grid;
 * ``copy_kept``, the same reading x only in the 16-byte vectors that hold
   a kept lane;
-* ``triton``, the Triton kernel the op launched before
-  (``softmax._launch_variant("triton", ...)``);
-* ``cuda``, the CUDA kernel the op launches (``csrc/softmax.cu``: the mask
-  first, then x only in the 16-byte words that hold a kept lane, the next
-  group's x and the mask of the group after it in flight);
+* ``cuda``, the CUDA kernel the op launches (``softmax._launch_cuda``;
+  ``csrc/softmax.cu``: the mask first, then x only in the 16-byte words
+  that hold a kept lane, the next group's x and the mask of the group
+  after it in flight);
 * ``cuda_xm1`` and ``cuda_xm2``, the same kernel with x's words loaded
   together with their mask, every word inside the row, one or two groups
   ahead (``LOOP_VARIANTS``: the mask-to-x dependency gone, the warps whose
@@ -36,15 +32,14 @@ mask.  Each line gives the share of kept lanes, of x's 32-byte sectors
 holding a kept lane and the fully masked rows, and both bounds at 3.35
 TB/s: all of x, the mask and the output, and only the kept sectors of x.
 
-It first holds the CUDA kernel against the Triton kernel, and each loop
-variant against the CUDA kernel, bit for bit (as ``torch.equal`` of
-integer views, NaN included), f32 and bf16, at those operands and at
-ragged widths, strided rows, and NaN and infinities at kept and masked
-lanes.
+It first holds each loop variant against the CUDA kernel, bit for bit (as
+``torch.equal`` of integer views, NaN included), f32 and bf16, at those
+operands and at ragged widths, strided rows, and NaN and infinities at
+kept and masked lanes.  (The Triton kernel the CUDA one replaced, bit for
+bit, is deleted; ``PERF.md`` keeps its times.)
 
-With ``--asm DIR`` it also writes the Triton kernel's TTGIR, PTX and SASS
-(the masked path, bf16 and f32, at (16384, 256), (6, 333) and (1, 8192))
-and the CUDA library's ptxas report and SASS.  Needs one card:
+With ``--asm DIR`` it also writes the CUDA library's ptxas report and
+SASS.  Needs one card:
 
     PYTHONPATH=src python3 examples/torch_softmax_breakdown.py [--asm DIR]
 """
@@ -65,8 +60,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (paired_device_times, padding_mask)
 
 from repro_torch.kernels import build, softmax  # noqa: E402
-
-tl = None             # triton.language, bound by build.triton_jit at launch
 
 HEADS = 16            # qwen3-1.7b's q heads
 GRIDS = (2, 4, 8, 16)  # blocks an SM of the cuda_g<k> designs
@@ -293,25 +286,11 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _empty_triton_kernel(x_ptr, BLOCK: tl.constexpr):
-    pass
-
-
-_JITS: dict = {}
-
-
-def _jit(fn):
-    if fn not in _JITS:
-        _JITS[fn] = build.triton_jit(fn)
-    return _JITS[fn]
-
-
 def variants(x, m, scale: float) -> dict:
     """name -> a function of no arguments launching that variant once."""
     rows, d = x.shape
     mu = m.view(torch.uint8)
     out = torch.empty_like(x)
-    block_r, block_d, warps = softmax._layout(rows, d)
     sms = softmax.sm_count(x.device.index)
     plan = softmax.masked_plan(rows, d, x.dtype, x.data_ptr(), x.stride(0),
                                mu.data_ptr(), mu.stride(0), sms)
@@ -329,16 +308,11 @@ def variants(x, m, scale: float) -> dict:
                 rows, d, x.stride(0), mu.stride(0), blocks, _stream()), "copy")
         return run
 
-    fns = {
-        "empty_triton": lambda: _jit(_empty_triton_kernel)[
-            (-(-rows // block_r),)](x, BLOCK=block_d, num_warps=warps),
-        "empty_cuda": empty(blocks, threads),
-    }
+    fns = {"empty_cuda": empty(blocks, threads)}
     if d % 256 == 0:
         fns["copy"] = copy(True)
         fns["copy_kept"] = copy(False)
-    fns["triton"] = lambda: softmax._launch_variant("triton", x, m, scale)
-    fns["cuda"] = lambda: softmax._launch_variant("cuda", x, m, scale)
+    fns["cuda"] = lambda: softmax._launch_cuda(x, m, scale)
     for name in LOOP_VARIANTS:
         fns[f"cuda_{name}"] = (lambda lib=libraries()[name]: launch_masked(
             lib, x, m, scale))
@@ -439,10 +413,9 @@ def bit_cases():
 def bits() -> bool:
     bad, n = [], 0
     for name, x, m, scale in bit_cases():
-        new = softmax._launch_variant("cuda", x, m, scale)
-        pairs = [("triton", softmax._launch_variant("triton", x, m, scale))]
-        pairs += [(v, launch_masked(libraries()[v], x, m, scale))
-                  for v in LOOP_VARIANTS]
+        new = softmax._launch_cuda(x, m, scale)
+        pairs = [(v, launch_masked(libraries()[v], x, m, scale))
+                 for v in LOOP_VARIANTS]
         for other, old in pairs:
             n += 1
             if not same_bits(new, old):
@@ -450,7 +423,7 @@ def bits() -> bool:
                 bad.append(f"{name} against {other}: {int(diff.sum())} of "
                            f"{new.numel()} differ")
     torch.cuda.synchronize()
-    print(f"cuda vs triton and the loop variants, masked softmax, bit for "
+    print(f"cuda vs the loop variants, masked softmax, bit for "
           f"bit: {n - len(bad)} of {n} pairs equal"
           + "".join(f"\n  {b}" for b in bad), flush=True)
     return not bad
@@ -467,46 +440,8 @@ def breakdown() -> None:
             f"{1e3 * max(t):.3f}]" for n, t in zip(fns, times)), flush=True)
 
 
-def _sass(compiled) -> str:
-    try:
-        return compiled.asm["sass"]
-    except Exception:  # older Triton: disassemble the cubin ourselves
-        import tempfile
-        with tempfile.NamedTemporaryFile(suffix=".cubin") as f:
-            f.write(compiled.asm["cubin"])
-            f.flush()
-            for tool in (Path(build.nvcc()).parent / "cuobjdump", "cuobjdump"):
-                try:
-                    return subprocess.run([str(tool), "-sass", f.name],
-                                          capture_output=True, text=True,
-                                          check=True).stdout
-                except (OSError, subprocess.CalledProcessError):
-                    continue
-    return "no disassembler found"
-
-
 def dump_asm(out: Path) -> None:
     out.mkdir(parents=True, exist_ok=True)
-    import triton
-    print(f"triton {triton.__version__}")
-    for dt in (torch.bfloat16, torch.float32):
-        for rows, d in ((16384, 256), (6, 333), (1, 8192)):
-            if (rows, d) == (16384, 256):
-                x, m, scale = attention_operand(dt)
-            else:
-                x, m, scale = sample_operand(rows, d, dt)
-            mu = m.view(torch.uint8)
-            o = torch.empty_like(x)
-            block_r, block_d, warps = softmax._layout(rows, d)
-            k = _jit(softmax._softmax_kernel)[(-(-rows // block_r),)](
-                x, mu, o, rows, d, x.stride(0), mu.stride(0), float(scale),
-                HAS_MASK=True, BLOCK_R=block_r, BLOCK_D=block_d,
-                num_warps=warps)
-            torch.cuda.synchronize()
-            stem = f"softmax_masked_{str(dt)[6:]}_{rows}x{d}"
-            (out / f"{stem}.ttgir").write_text(k.asm["ttgir"])
-            (out / f"{stem}.ptx").write_text(k.asm["ptx"])
-            (out / f"{stem}.sass").write_text(_sass(k))
     lib = build.library("softmax")
     (out / "softmax_cu_ptxas.log").write_text(
         lib.with_suffix(".log").read_text())
@@ -536,8 +471,7 @@ def main():
     same = bits()
     breakdown()
     if not same:
-        raise SystemExit("the CUDA kernel differs from the Triton kernel "
-                         "or a loop variant")
+        raise SystemExit("the CUDA kernel differs from a loop variant")
 
 
 if __name__ == "__main__":

@@ -105,6 +105,7 @@ class FusionStats:
     torch_groups: int = 0            # chosen patterns run as fused torch
     packs: int = 0                   # horizontal PackPatterns in the plan
     packed_subgraphs: int = 0        # independent subgraphs absorbed by packs
+    cache_status: str = "off"        # "off" | "miss" | "hit"
     ilp: PlanResult | None = None
     compile_seconds: float = 0.0     # wall time spent producing this artifact
     # wall seconds per compile stage: pattern_gen, ilp, verify, tune
@@ -244,6 +245,9 @@ class StitchCompiler:
         gen_cfg: GenConfig | None = None,
         plan_budget: float | None = None,
         verify: str = "plans",
+        execution_based_eval: bool = False,
+        cache=None,
+        placement: str = "",
     ):
         assert mode in ("off", "xla", "stitch")
         assert verify in ("off", "plans", "full")
@@ -254,10 +258,21 @@ class StitchCompiler:
         # degrades to the greedy heuristic (None = solve to optimality)
         self.plan_budget = plan_budget
         self.cost = CostModel(hw, reg_budget=self.gen_cfg.reg_budget)
-        self.tuner = TemplateTuner(hw)
+        # execution-based tuning times each candidate kernel on the sample
+        # inputs given to compile(); without them it tunes by the model
+        self.tuner = TemplateTuner(hw, execution_based=execution_based_eval)
+        # Optional repro_torch.cache.StitchCache (duck-typed: lookup/insert)
+        # — when set, stitch-mode compiles replay cached plans and populate
+        # the cache on a miss; pattern generation, ILP and tuning run only
+        # cold.
+        self.cache = cache
+        # The specialization this compile targets, part of the cache key
+        # ("" = a plain single-device compile; see exec.function).
+        self.placement = placement
         # Static verification level (repro_torch.analysis): "plans" runs the
         # plan verifier post-ILP/pre-tune and refuses ERROR plans; "full"
-        # also runs the IR verifier on the graph; "off" skips both.
+        # also runs the IR verifier on the graph; "off" skips both.  The
+        # same knob gates cache-replay verification (StitchCache.lookup).
         self.verify = verify
 
     # -- planning -------------------------------------------------------------
@@ -341,14 +356,53 @@ class StitchCompiler:
                 total += self.cost.fused_time(p) + self.hw.launch_latency
         return total
 
-    def compile(self, g: Graph) -> CompiledGraph:
+    def compile(self, g: Graph, *, bypass_cache_lookup: bool = False,
+                sample_inputs: Mapping | None = None) -> CompiledGraph:
+        """Plan, verify and tune ``g``.  With a cache, a hit replays the
+        cached plan (unless ``bypass_cache_lookup``) and a miss inserts the
+        new one.  ``sample_inputs`` (graph inputs by name, on the device to
+        tune for) feed execution-based tuning."""
         with obs.span("compile.graph", cat="compile", graph=g.name,
-                      mode=self.mode) as osp:
-            return self._compile(g, osp)
+                      mode=self.mode, placement=self.placement) as osp:
+            return self._compile(g, bypass_cache_lookup, sample_inputs, osp)
 
-    def _compile(self, g: Graph, osp) -> CompiledGraph:
+    def _pattern_inputs(self, g: Graph, chosen: list[FusionPattern],
+                        inputs: Mapping) -> list[list]:
+        """Each chosen pattern's external inputs, from one eager run of
+        ``g`` on ``inputs`` (values dropped after their last use)."""
+        need = {i for p in chosen for i in p.external_inputs}
+        order = g.topo_order()
+        last = {o: i for i, n in enumerate(order) for o in g[n].operands}
+        device = next((v.device for v in inputs.values()
+                       if hasattr(v, "device")), None)
+        env, kept = {}, {}
+        for i, name in enumerate(order):
+            node = g[name]
+            if node.is_source():
+                env[name] = source_value(node, inputs, device)
+            else:
+                env[name] = eval_node(node, [env[o] for o in node.operands], g)
+            if name in need:
+                kept[name] = env[name]
+            for o in set(node.operands):
+                if last[o] == i:
+                    env.pop(o, None)
+        return [[kept[i] for i in p.external_inputs] for p in chosen]
+
+    def _compile(self, g: Graph, bypass_cache_lookup, sample_inputs,
+                 osp) -> CompiledGraph:
         t0 = _time.perf_counter()
         g.validate()
+        cached = self.cache is not None and self.mode == "stitch"
+        sig = None
+        if cached:
+            sig = self.cache.signature_of(g)   # computed once, reused by insert
+            if not bypass_cache_lookup:
+                hit = self.cache.lookup(g, self, sig=sig)
+                if hit is not None:
+                    hit.stats.compile_seconds = _time.perf_counter() - t0
+                    osp.set(cache="hit", n_kernels=hit.stats.n_kernels)
+                    return hit
         stage: dict[str, float] = {}
         chosen, ilp = self.plan(g, stage)
         verify_summary = None
@@ -370,9 +424,13 @@ class StitchCompiler:
 
         diag_start = len(self.tuner.diagnostics)
         tt = _time.perf_counter()
+        samples = [None] * len(chosen)
+        if (self.tuner.execution_based and sample_inputs is not None
+                and self.mode == "stitch"):
+            samples = self._pattern_inputs(g, chosen, sample_inputs)
         with obs.span("compile.tune", cat="compile", graph=g.name,
                       patterns=len(chosen)):
-            for p in chosen:
+            for p, sample in zip(chosen, samples):
                 stats.pattern_classes[p.pattern_class] = (
                     stats.pattern_classes.get(p.pattern_class, 0) + 1
                 )
@@ -382,7 +440,7 @@ class StitchCompiler:
                     stats.packed_subgraphs += len(pack)
                 tuned = None
                 if self.mode == "stitch":
-                    tuned = self.tuner.tune(p)
+                    tuned = self.tuner.tune(p, sample)
                 if tuned is not None:
                     groups.append(_Group(p.members, "triton", tuned, pack))
                     stats.triton_groups += 1
@@ -410,5 +468,19 @@ class StitchCompiler:
         stats.compile_seconds = _time.perf_counter() - t0
         stats.stage_seconds = stage
         compiled = CompiledGraph(g, groups, stats)
-        osp.set(n_kernels=stats.n_kernels, modeled_time_s=stats.modeled_time)
+        osp.set(cache=stats.cache_status, n_kernels=stats.n_kernels,
+                modeled_time_s=stats.modeled_time)
+        if cached:
+            stats.cache_status = "miss"
+            self.cache.insert(
+                g, compiled, sig=sig, solve_seconds=stats.compile_seconds,
+                compiler=self,
+            )
+            # the plan is now available for replay: every poller's next
+            # lookup upgrades — this is the moment a compile "lands"
+            obs.event("compile.land", cat="compile", graph=g.name,
+                      placement=self.placement,
+                      n_kernels=stats.n_kernels,
+                      modeled_time_s=stats.modeled_time,
+                      compile_seconds=stats.compile_seconds)
         return compiled

@@ -5,12 +5,16 @@ parallelization / scratch / launch trade-offs), run RegisterPlanning and
 SharedPlanning (volume + layout constraints; Alg. 4 reuse), generate the
 kernel per schedule kind, evaluate, keep the best.
 
-Evaluation is model-based (the paper's JIT story); timing candidates on
-sample inputs comes with the plan-cache slice.
+Evaluation is model-based by default (fast, the paper's JIT story) and
+execution-based on request: each candidate's generated kernel is timed on
+sample inputs on their device (the "optimize once, run many times" offline
+path).  :meth:`TemplateTuner.instantiate` rebuilds one recorded choice
+without search — the warm path of :mod:`repro_torch.cache`.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -40,6 +44,7 @@ class TunedKernel:
     template: Template
     scratch_plan: ScratchPlan
     modeled_time: float
+    measured_time: float | None = None   # seconds a call, execution-based only
     callable: Callable | None = field(default=None, repr=False)
 
 
@@ -144,9 +149,10 @@ class TemplateTuner:
     # many graphs and only the recent tail is useful for debugging
     MAX_DIAGNOSTICS = 256
 
-    def __init__(self, hw: HardwareModel = TPU_V5E):
+    def __init__(self, hw: HardwareModel = TPU_V5E, execution_based: bool = False):
         self.hw = hw
         self.cost = CostModel(hw)
+        self.execution_based = execution_based
         # structured StitchInfeasible records (see _diagnostic); the compiler
         # snapshots the slice produced by each graph's tuning run into
         # FusionStats.diagnostics
@@ -198,7 +204,53 @@ class TemplateTuner:
         return [(tuple(s), str(d)) for s, d in zip(shapes, dtypes)] == want
 
     # -- KernelEvalUpdate -----------------------------------------------------
-    def tune(self, p: FusionPattern) -> TunedKernel | None:
+    def _modeled(self, p: FusionPattern, rb: int | None) -> float:
+        modeled = self.cost.fused_time(p)
+        # tiny grid-utilization nudge: prefer sublane-aligned row blocks
+        if rb and rb % 8:
+            modeled *= 1.05
+        return modeled
+
+    def _measure(self, fn: Callable, args: list, repeats: int = 3,
+                 inner: int = 10) -> float:
+        """Least seconds a call over ``repeats`` rounds of ``inner`` calls,
+        after one warm-up call (the kernel's build).  On the card the rounds
+        are bracketed by CUDA events on the inputs' device; on the CPU by
+        the host clock (the plain version runs there).  ``fn`` is called
+        with ``count=False``: these launches are left out of the launch
+        counts, so a synchronous compile's tuning does not move what a
+        caller counts on its own path."""
+        import torch
+
+        dev = next((a.device for a in args if isinstance(a, torch.Tensor)),
+                   None)
+        fn(*args, count=False)
+        best = float("inf")
+        if dev is not None and dev.type == "cuda":
+            with torch.cuda.device(dev):
+                torch.cuda.synchronize(dev)
+                for _ in range(repeats):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    for _ in range(inner):
+                        fn(*args, count=False)
+                    end.record()
+                    end.synchronize()
+                    best = min(best, start.elapsed_time(end) / 1e3 / inner)
+            return best
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            for _ in range(inner):
+                fn(*args, count=False)
+            best = min(best, (time.perf_counter() - t0) / inner)
+        return best
+
+    def tune(self, p: FusionPattern, sample_inputs: list | None = None
+             ) -> TunedKernel | None:
+        """The best validated candidate: by modeled time, or, with
+        ``execution_based`` and ``sample_inputs`` (one tensor per
+        ``p.external_inputs``), by measured time."""
         from repro_torch.kernels.stitched import StitchInfeasible, build_stitched_callable
 
         templates = generate_templates(p, self.cost,
@@ -214,15 +266,74 @@ class TemplateTuner:
             except StitchInfeasible as err:
                 self._note_infeasible(p, "build", err)
                 continue
-            modeled = self.cost.fused_time(p)
-            # tiny grid-utilization nudge: prefer sublane-aligned row blocks
-            if rb and rb % 8:
-                modeled *= 1.05
-            candidates.append((modeled, i, TunedKernel(p, template, plan,
-                                                       modeled, fn)))
+            modeled = self._modeled(p, rb)
+            measured = None
+            if self.execution_based and sample_inputs is not None:
+                try:
+                    measured = self._measure(fn, sample_inputs)
+                except StitchInfeasible as err:
+                    # the emitter's refusal skips the candidate; a kernel
+                    # that fails to build or launch raises to the caller
+                    self._note_infeasible(p, "measure", err)
+                    continue
+            cand = TunedKernel(p, template, plan, modeled, measured, fn)
+            candidates.append((measured if measured is not None else modeled,
+                               i, cand))
         # best candidate first; abstract validation runs once per pattern in
         # the common case and only walks down on analysis soundness gaps
         for _key, _i, cand in sorted(candidates, key=lambda t: (t[0], t[1])):
             if self.validate(p, cand.callable):
                 return cand
         return None
+
+    # -- plan replay (cache hits) --------------------------------------------
+    def instantiate(
+        self,
+        p: FusionPattern,
+        row_block: int | None = None,
+        scratch_names=(),
+    ) -> TunedKernel | None:
+        """Build ONE kernel from a previously tuned ``(row_block, scratch)``
+        choice, skipping template enumeration and candidate evaluation.
+
+        This is the warm path of :mod:`repro_torch.cache`: the stored choice
+        is re-validated against this pattern's concrete shapes (row blocks
+        are clamped to the feasible set; scratch must fit the on-chip
+        budget), so a plan recorded at a nearby bucketed shape still
+        instantiates soundly or falls back to a fused-torch group (return
+        None).  At the recorded shapes it emits the kernel :meth:`tune`
+        chose, source for source.
+        """
+        from repro_torch.kernels.stitched import (
+            StitchInfeasible, build_stitched_callable, emission_plan)
+
+        try:
+            _, ana = emission_plan(p)
+        except StitchInfeasible as err:
+            self._note_infeasible(p, "analyze", err)
+            return None
+        rb = row_block or ana.feasible_blocks[0]
+        if rb not in ana.feasible_blocks:
+            rb = max((b for b in ana.feasible_blocks if b <= rb),
+                     default=ana.feasible_blocks[0])
+        member_names = {n.name for n in p.compute_members}
+        scratch = {n for n in scratch_names if n in member_names}
+        template = Template(tuple(
+            Schedule(
+                node.name,
+                _attrs_for_node(node, rb, seq_small_reduce=False),
+                scratch=node.name in scratch,
+            )
+            for node in p.compute_members
+        ))
+        plan = self.shared_planning(p, template)
+        if plan is None:
+            return None
+        try:
+            fn = build_stitched_callable(p, row_block=rb)
+        except StitchInfeasible as err:
+            self._note_infeasible(p, "build", err)
+            return None
+        if not self.validate(p, fn):
+            return None
+        return TunedKernel(p, template, plan, self._modeled(p, rb), None, fn)

@@ -14,17 +14,18 @@ softmax.cu``, built by :mod:`.build` at first use and bound with
 ``ctypes``); its source note gives the bound and the design: the mask
 first, x read only where the mask keeps a lane, fully masked rows written
 as 0 without reading x, persistent blocks with the next rows' loads in
-flight.  It computes what the Triton kernel's ``HAS_MASK`` path computed,
-bit for bit: each row summed over the same lanes in the same order (the
-layout :func:`masked_plan` derives from Triton's view of the operand) with
-the same rounded operations.  That Triton path stays one release as a
-yardstick (``_launch_variant("triton", ...)``), launched by no op.
+flight.  It computes what the Triton one-pass kernel's masked path
+computed, bit for bit: each row summed over the same lanes in the same
+order (the layout :func:`masked_plan` derives from Triton's view of the
+operand) with the same rounded operations.  That Triton path is gone;
+:func:`_launch_cuda` launches the CUDA kernel with the op's checks and no
+launch counted, for timing.
 
 The rest is Triton, bound by bytes: a launch reads x once and writes the
 output once.  Design:
 
-* rows that fit one register block (``next_pow2(d) <= MAX_ONE_PASS``):
-  whole-row programs, ``BLOCK_R`` rows a program (about a thousand
+* unmasked rows that fit one register block (``next_pow2(d) <=
+  MAX_ONE_PASS``): whole-row programs, ``BLOCK_R`` rows a program (about a thousand
   elements), one pass: ``x * scale`` in f32, the row max, ``exp(x - max)``,
   the sum and the division, one cast out; lanes past the row are ``-inf``
   and never enter the max;
@@ -70,7 +71,6 @@ MAX_ONE_PASS = 8192   # the widest row block of the one-pass layout
 SPLIT_BLOCK = 2048    # columns a program of the split layout
 MIN_THREADS = 128     # a CUDA block's threads at least: rows side by side
 BLOCKS_PER_SM = 8     # the masked kernel's grid: blocks an SM at most
-VARIANTS = ("cuda", "triton")   # cuda: the op's; triton: the one replaced
 
 # kernel launches since the last reset, by build.signature of the arguments
 launches: Counter = Counter()               # _softmax_kernel
@@ -82,27 +82,18 @@ _LIB: ctypes.CDLL | None = None
 tl = None             # triton.language, bound by build.triton_jit at launch
 
 
-def _softmax_kernel(x_ptr, m_ptr, o_ptr, rows, d, stride_x, stride_m, scale,
-                    HAS_MASK: tl.constexpr, BLOCK_R: tl.constexpr,
-                    BLOCK_D: tl.constexpr):
+def _softmax_kernel(x_ptr, o_ptr, rows, d, stride_x, scale,
+                    BLOCK_R: tl.constexpr, BLOCK_D: tl.constexpr):
     r = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)[:, None]
     c = tl.arange(0, BLOCK_D)[None, :]
     inb = (r < rows) & (c < d)
     r64 = r.to(tl.int64)
     x = tl.load(x_ptr + r64 * stride_x + c, mask=inb,
                 other=0.0).to(tl.float32) * scale
-    valid = inb
-    if HAS_MASK:
-        keep = tl.load(m_ptr + r64 * stride_m + c, mask=inb, other=0)
-        valid = valid & (keep != 0)
-    x = tl.where(valid, x, float("-inf"))
+    x = tl.where(inb, x, float("-inf"))
     mx = tl.max(x, axis=1)[:, None]
-    if HAS_MASK:
-        mx = tl.where(tl.abs(mx) < float("inf"), mx, 0.0)
     e = tl.exp(x - mx)
     s = tl.sum(e, axis=1)[:, None]
-    if HAS_MASK:
-        s = tl.maximum(s, 1e-30, propagate_nan=tl.PropagateNan.ALL)
     tl.store(o_ptr + r64 * d + c, tl.div_rn(e, s).to(o_ptr.dtype.element_ty),
              mask=inb)
 
@@ -324,44 +315,45 @@ def _check(name, x, mask=None):
                              f"must be contiguous")
 
 
-def _run(x, mask, scale: float):
-    """The kernel on x (and the mask): rows wider than the one-pass block
-    go through the split layout."""
-    global _JIT, _PART_JIT, _SPLIT_JIT
+def _split(x, mask, scale: float):
+    """The split layout's two kernels on x (and the mask): rows wider than
+    the one-pass block."""
+    global _PART_JIT, _SPLIT_JIT
     rows, d = x.shape
     out = torch.empty((rows, d), dtype=x.dtype, device=x.device)
     # the bool mask is read as bytes
     m = mask.view(torch.uint8) if mask is not None else x
-    plan = split_plan(d)
-    if plan is not None:
-        block, n = plan
-        if _PART_JIT is None:
-            _PART_JIT = build.triton_jit(_softmax_partials_kernel)
-        if _SPLIT_JIT is None:
-            _SPLIT_JIT = build.triton_jit(_softmax_split_kernel)
-        part = torch.empty((rows, n, 2), dtype=torch.float32, device=x.device)
-        grid = (rows, n)
-        _PART_JIT[grid](x, m, part, d, n, x.stride(0), m.stride(0),
-                        float(scale), HAS_MASK=mask is not None,
-                        BLOCK_D=block, num_warps=4)
-        _SPLIT_JIT[grid](x, m, part, out, d, n, x.stride(0), m.stride(0),
-                         float(scale), HAS_MASK=mask is not None,
-                         BLOCK_D=block, BLOCK_C=build.next_pow2(n),
-                         num_warps=4)
-        return out
-    block_r, block_d, warps = _layout(rows, d)
-    if _JIT is None:
-        _JIT = build.triton_jit(_softmax_kernel)
-    _JIT[(-(-rows // block_r),)](
-        x, m, out, rows, d, x.stride(0), m.stride(0), float(scale),
-        HAS_MASK=mask is not None, BLOCK_R=block_r, BLOCK_D=block_d,
-        num_warps=warps)
+    block, n = split_plan(d)
+    if _PART_JIT is None:
+        _PART_JIT = build.triton_jit(_softmax_partials_kernel)
+    if _SPLIT_JIT is None:
+        _SPLIT_JIT = build.triton_jit(_softmax_split_kernel)
+    part = torch.empty((rows, n, 2), dtype=torch.float32, device=x.device)
+    grid = (rows, n)
+    _PART_JIT[grid](x, m, part, d, n, x.stride(0), m.stride(0),
+                    float(scale), HAS_MASK=mask is not None,
+                    BLOCK_D=block, num_warps=4)
+    _SPLIT_JIT[grid](x, m, part, out, d, n, x.stride(0), m.stride(0),
+                     float(scale), HAS_MASK=mask is not None,
+                     BLOCK_D=block, BLOCK_C=build.next_pow2(n),
+                     num_warps=4)
     return out
 
 
 def _launch(x, scale: float):
+    global _JIT
     _check("softmax", x)
-    out = _run(x, None, scale)
+    rows, d = x.shape
+    if split_plan(d) is not None:
+        out = _split(x, None, scale)
+    else:
+        out = torch.empty((rows, d), dtype=x.dtype, device=x.device)
+        block_r, block_d, warps = _layout(rows, d)
+        if _JIT is None:
+            _JIT = build.triton_jit(_softmax_kernel)
+        _JIT[(-(-rows // block_r),)](
+            x, out, rows, d, x.stride(0), float(scale), BLOCK_R=block_r,
+            BLOCK_D=block_d, num_warps=warps)
     launches[build.signature(x, scale)] += 1
     return out
 
@@ -394,25 +386,20 @@ def _launch_masked(x, mask, scale: float):
     if split_plan(x.shape[1]) is None:
         out = _cuda(x, mask, scale)
     else:
-        out = _run(x, mask, scale)
+        out = _split(x, mask, scale)
     masked_launches[build.signature(x, mask, scale)] += 1
     return out
 
 
-def _launch_variant(variant: str, x, mask, scale: float):
-    """One launch of the CUDA masked kernel (``variant="cuda"``, the one the
-    op launches on rows of at most ``MAX_ONE_PASS`` columns) or the Triton
-    one-pass kernel it replaced (``"triton"``), with the op's checks and no
+def _launch_cuda(x, mask, scale: float):
+    """One launch of the CUDA masked kernel (the one the op launches on
+    rows of at most ``MAX_ONE_PASS`` columns), with the op's checks and no
     launch counted."""
-    if variant not in VARIANTS:
-        raise ValueError(f"softmax_masked: unknown variant {variant!r}")
     _check("softmax_masked", x, mask)
     if split_plan(x.shape[1]) is not None:
         raise ValueError(f"softmax_masked: rows of {x.shape[1]} columns take "
-                         f"the split layout, not the one-pass kernels")
-    if variant == "cuda":
-        return _cuda(x, mask, scale)
-    return _run(x, mask, scale)
+                         f"the split layout, not the one-pass kernel")
+    return _cuda(x, mask, scale)
 
 
 @torch.library.custom_op("repro_torch::softmax", mutates_args=(),

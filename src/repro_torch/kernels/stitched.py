@@ -60,6 +60,7 @@ import hashlib
 import importlib.util
 import math
 import os
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -1201,6 +1202,9 @@ _LAUNCHES: dict[str, int] = {}       # kernel digest -> launches
 _VIEWS: dict[str, int] = {}          # view pattern digest -> calls
 _VIEW_COPIES: dict[str, int] = {}    # view pattern digest -> outputs copied
 _MODULES: dict[str, object] = {}     # kernel digest -> imported module
+# one import at a time: a background plan compile may load the kernels it
+# chose while the serving thread loads others, or the same digest
+_MODULES_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -1236,18 +1240,27 @@ def build_dir() -> Path:
 
 def _load_module(em: _Emitted):
     mod = _MODULES.get(em.digest)
-    if mod is None:
-        d = build_dir()
-        d.mkdir(parents=True, exist_ok=True)
-        path = d / f"k_{em.digest}.py"
-        if not path.exists() or path.read_text() != em.source:
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            tmp.write_text(em.source)
-            tmp.replace(path)
-        spec = importlib.util.spec_from_file_location(f"stitched_{em.digest}", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        _MODULES[em.digest] = mod
+    if mod is not None:
+        return mod
+    with _MODULES_LOCK:
+        mod = _MODULES.get(em.digest)
+        if mod is None:
+            d = build_dir()
+            d.mkdir(parents=True, exist_ok=True)
+            path = d / f"k_{em.digest}.py"
+            if not path.exists() or path.read_text() != em.source:
+                # written whole under a name of this process and thread,
+                # then renamed: another process writing the same digest
+                # never leaves a torn file
+                tmp = path.with_suffix(
+                    f".{os.getpid()}.{threading.get_ident()}.tmp")
+                tmp.write_text(em.source)
+                tmp.replace(path)
+            spec = importlib.util.spec_from_file_location(
+                f"stitched_{em.digest}", path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            _MODULES[em.digest] = mod
     return mod
 
 
@@ -1290,12 +1303,20 @@ class StitchedKernel:
             env[node.name] = eval_node(node, [env[o] for o in node.operands], g)
         return tuple(env[n] for n in self.pattern.external_outputs)
 
-    def __call__(self, *inputs) -> tuple:
+    def __call__(self, *inputs, count: bool = True) -> tuple:
         if not inputs or all(x.device.type == "cpu" for x in inputs):
             return self.plain(*inputs)
-        return self.launch(*inputs)
+        return self.launch(*inputs, count=count)
 
-    def launch(self, *inputs) -> tuple:
+    def load(self) -> None:
+        """Write the kernel's source into :func:`build_dir` and import it,
+        ahead of the first launch (a background plan compile does this for
+        the kernels it chose); Triton still compiles at the first launch."""
+        _load_module(self.emitted)
+
+    def launch(self, *inputs, count: bool = True) -> tuple:
+        """Launch the Triton kernel; ``count=False`` leaves the launch out of
+        ``launches`` and :func:`launch_counts` (the tuner's timing runs)."""
         em = self.emitted
         g = self.pattern.graph
         ins = self.pattern.external_inputs
@@ -1323,8 +1344,9 @@ class StitchedKernel:
         mod.stitched_kernel[(em.grid,)](*args, num_warps=em.num_warps)
         if t0 is not None:
             self.build_seconds = time.perf_counter() - t0
-        self.launches += 1
-        _LAUNCHES[em.digest] = _LAUNCHES.get(em.digest, 0) + 1
+        if count:
+            self.launches += 1
+            _LAUNCHES[em.digest] = _LAUNCHES.get(em.digest, 0) + 1
         result: list = [None] * len(outs)
         for o, k, dt in zip(outs, self._out_idx, em.out_dtypes):
             result[k] = o.view(torch.bool) if dt == "bool" else o
@@ -1364,7 +1386,7 @@ class StitchedView:
         """The plain PyTorch version: the members evaluated eagerly."""
         return StitchedKernel.plain(self, *inputs)
 
-    def __call__(self, *inputs) -> tuple:
+    def __call__(self, *inputs, count: bool = True) -> tuple:
         outs, copies = [], 0
         for r, shape, dt in zip(self._roots, self.out_shapes, self._dtypes):
             x = inputs[r]
@@ -1374,8 +1396,8 @@ class StitchedView:
             y = x.to(dt).reshape(shape).contiguous()
             copies += y.data_ptr() != x.data_ptr()
             outs.append(y)
-        _VIEWS[self.digest] += 1
-        if copies:
+        if count:
+            _VIEWS[self.digest] += 1
             _VIEW_COPIES[self.digest] += copies
         return tuple(outs)
 

@@ -10,10 +10,15 @@
   greedy tokens through the one stitched decode step (one host readback
   per chunk).  :meth:`Engine.release` frees a finished slot.
 
-``ServeConfig.stitch_execute=True`` runs both through ``stitch()`` in
-``offline`` mode (blocking compile at the first call of each signature);
-otherwise the engine runs the model eagerly (``jit`` mode), as the
-reference does without a compilation service.
+With a ``stitch_service`` (a :class:`repro_torch.cache.CompilationService`)
+both run through ``stitch()`` in ``stitch`` mode when
+``ServeConfig.stitch_execute`` is set (miss-then-upgrade: the fallback
+plan answers the first call of a signature while the stitched plan
+compiles in the background; every call polls for it), else in ``shadow``
+mode (compiled and reported, served eagerly), as in the reference.
+Without a service, ``stitch_execute=True`` runs both in ``offline`` mode
+(blocking compile at the first call of each signature through
+``compiler``); otherwise the engine runs the model eagerly (``jit``).
 """
 
 from __future__ import annotations
@@ -50,9 +55,14 @@ class ServeConfig:
 
 class Engine:
     def __init__(self, model: Model, params, cfg: ServeConfig, device=None,
-                 compiler=None):
-        """``compiler``: the ``StitchCompiler`` both plans are compiled
-        with in ``stitch_execute`` mode (default: H100 model, exact ILP)."""
+                 compiler=None, stitch_service=None):
+        """``stitch_service``: the ``CompilationService`` of the stitch and
+        shadow modes.  ``compiler``: the ``StitchCompiler`` both plans are
+        compiled with in the offline mode (default: H100 model, exact
+        ILP)."""
+        if stitch_service is not None and compiler is not None:
+            raise ValueError("pass stitch_service= (stitch/shadow modes) or "
+                             "compiler= (offline mode), not both")
         if cfg.paged:
             raise NotImplementedError(
                 "paged KV is not ported yet; use paged=False (dense)")
@@ -68,7 +78,11 @@ class Engine:
         self._tok = np.zeros((cfg.batch, 1), np.int64)
         self._occupied: set[int] = set()
         self._kv: DenseKV | None = None
-        mode = "offline" if cfg.stitch_execute else "jit"
+        self.stitch_service = stitch_service
+        if stitch_service is not None:
+            mode = "stitch" if cfg.stitch_execute else "shadow"
+        else:
+            mode = "offline" if cfg.stitch_execute else "jit"
 
         def decode_step(params, cache, tok):
             return model.decode_step(params, cache, tok)
@@ -79,10 +93,11 @@ class Engine:
         # the drift check covers (cache, tok) / (tokens, true_len): params
         # are fixed for an engine's lifetime
         self._exec = stitch(decode_step, mode=mode, compiler=compiler,
-                            device=self.device, eligibility_argnums=(1, 2),
-                            name="decode_step")
+                            service=stitch_service, device=self.device,
+                            eligibility_argnums=(1, 2), name="decode_step")
         self._prefill_exec = stitch(prefill_step, mode=mode,
-                                    compiler=compiler, device=self.device,
+                                    compiler=compiler, service=stitch_service,
+                                    device=self.device,
                                     eligibility_argnums=(1, 2),
                                     respecialize=cfg.prefill_cache_size,
                                     name="prefill")
@@ -192,9 +207,24 @@ class Engine:
         return np.concatenate(out, axis=1)
 
     # -- observability ---------------------------------------------------------
+    @property
+    def stitch_status(self) -> str | None:
+        """None before the first decode (or without a service), else the
+        decode step's status: hit | miss | pending | failed."""
+        if self.stitch_service is None:
+            return None
+        return self._exec.status
+
     def stitch_report(self) -> dict:
-        """The decode step's exec report: plan stats, call counts, errors."""
+        """The decode step's exec report: plan stats, call counts, cache
+        hit rates and every background-compile failure."""
         return self._exec.report()
+
+    def land_plans(self, timeout: float | None = None) -> int:
+        """Join background compiles for decode AND every live prefill
+        specialization; returns how many still lack a stitched plan."""
+        return (self._exec.land_plans(timeout)
+                + self._prefill_exec.land_plans(timeout))
 
     def report(self) -> dict:
         prefill = self._prefill_exec.report()

@@ -1088,20 +1088,18 @@ def test_softmax_masked_kernel_on_card(dtype, tol):
             rtol=tol, atol=tol)
 
 
-def _same_bits(a, b) -> bool:
-    """Equal bit patterns, NaN included."""
-    ints = {4: torch.int32, 2: torch.int16}
-    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
-        a.contiguous().view(ints[a.element_size()]),
-        b.contiguous().view(ints[b.element_size()]))
-
-
-def _masked_variants(x, mask, scale):
+def _masked_cuda(x, mask, scale, tol):
+    """The CUDA kernel, launched uncounted, against the plain version: NaN
+    at the same places, the rest within ``tol``."""
     from repro_torch.kernels import softmax
-    new = softmax._launch_variant("cuda", x, mask, scale)
-    old = softmax._launch_variant("triton", x, mask, scale)
+    new = softmax._launch_cuda(x, mask, scale)
     torch.cuda.synchronize()
-    return new, old
+    want = softmax.softmax_masked_plain(x, mask, scale)
+    assert torch.equal(torch.isnan(new), torch.isnan(want))
+    torch.testing.assert_close(torch.nan_to_num(new.float(), nan=0.0),
+                               torch.nan_to_num(want.float(), nan=0.0),
+                               rtol=tol, atol=tol)
+    return new
 
 
 def _attention_scores(dtype, seed):
@@ -1119,12 +1117,12 @@ def _attention_scores(dtype, seed):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_softmax_masked_cuda_equals_triton_on_card(dtype):
     """At the kernel API's (16384, 256) attention operand and its mask (a
-    quarter of the rows fully masked) the CUDA kernel gives the Triton
-    kernel's bits; its fully masked rows are +0."""
+    quarter of the rows fully masked) the CUDA kernel agrees with its plain
+    version within ``KERNEL_TOL`` (the Triton kernel it replaced, whose
+    bits it gave, is deleted); its fully masked rows are +0."""
     _need_card()
     x, mask = _attention_scores(dtype, 90)
-    new, old = _masked_variants(x, mask, 128 ** -0.5)
-    assert _same_bits(new, old), int((new != old).sum())
+    new = _masked_cuda(x, mask, 128 ** -0.5, dict(KERNEL_TOL)[dtype])
     empty = ~mask.any(-1)
     assert empty.sum() == 4432
     assert (new[empty].view(torch.int16 if dtype == "bfloat16"
@@ -1173,10 +1171,11 @@ def _masked_edge_cases(dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_softmax_masked_cuda_equals_triton_at_edges_on_card(dtype):
+    """The edge cases, each against the plain version within
+    ``KERNEL_TOL``; fully masked rows +0."""
     _need_card()
     for name, x, mask in _masked_edge_cases(dtype):
-        new, old = _masked_variants(x, mask, 0.7)
-        assert _same_bits(new, old), (name, int((new != old).sum()))
+        new = _masked_cuda(x, mask, 0.7, dict(KERNEL_TOL)[dtype])
         rows_out = ~mask.any(-1)
         assert (new[rows_out] == 0).all() and not torch.signbit(
             new[rows_out]).any(), name
@@ -1292,3 +1291,148 @@ def test_cuda_library_builds_from_an_empty_directory(tmp_path):
         lib = ctypes.CDLL(str(libs[stem]))
         assert hasattr(lib, fn)
         assert "registers" in libs[stem].with_suffix(".log").read_text()
+
+
+# -- the plan cache ------------------------------------------------------------
+
+def _first_logits(eng, prompts, lens):
+    """Prefill logits at each row's last position (one call of the bucketed
+    prefill) and the first decode step's logits after a fresh prefill."""
+    from repro_torch.serve.engine import ADMISSION_BUCKET
+    pb = min(ADMISSION_BUCKET.bucket_dim(prompts.shape[1]), eng.cfg.max_len)
+    padded = np.zeros((len(prompts), pb), np.int64)
+    padded[:, :prompts.shape[1]] = prompts
+    pre, _ = eng._prefill_exec(eng.params, torch.as_tensor(padded).cuda(),
+                               torch.as_tensor(lens, dtype=torch.int32).cuda())
+    px = eng.prefill(prompts, prompt_lens=lens)
+    for row in range(len(lens)):
+        eng.insert(px, slot=row, row=row)
+    _, steps = eng.generate_step(steps=1, return_logits=True)
+    for row in range(len(lens)):
+        eng.release(row)
+    torch.cuda.synchronize()
+    return pre, steps[0]
+
+
+@pytest.mark.gpu
+def test_replayed_kernel_mode_plan_bitwise_on_card(tmp_path):
+    """Reduced qwen3 in kernel mode, bf16 weights: an offline engine compiles both
+    plans into a disk cache; a fresh engine over a fresh service on that
+    directory replays them (no fallback call, no tuner call) and gives the
+    fresh plans' prefill and first-step logits bit for bit."""
+    _need_card()
+    from repro_torch.cache import CompilationService, StitchCache
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import StitchCompiler
+    from repro_torch.core.tuner import TemplateTuner
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = replace(get_reduced("qwen3_1_7b"), dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(0, "cuda")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (3, 7))
+    lens = np.array([7, 5, 6], np.int32)
+    scfg = ServeConfig(batch=3, max_len=32, max_new_tokens=4,
+                       stitch_execute=True)
+    with ops.kernel_mode("kernels"):
+        fresh = Engine(model, params, scfg, device="cuda",
+                       compiler=StitchCompiler(cache=StitchCache(str(tmp_path))))
+        want = _first_logits(fresh, prompts, lens)
+        tune = TemplateTuner.tune
+        TemplateTuner.tune = None              # a call would raise
+        try:
+            svc = CompilationService(StitchCache(str(tmp_path)))
+            warm = Engine(model, params, scfg, device="cuda",
+                          stitch_service=svc)
+            got = _first_logits(warm, prompts, lens)
+        finally:
+            TemplateTuner.tune = tune
+    rep = warm.report()
+    assert svc.cache.report()["total_hits"] == 2
+    triton = {}
+    for k in ("prefill", "decode"):
+        assert rep[k]["status"] == "hit" and rep[k]["plan_calls"] == {
+            "stitch": rep[k]["calls"]["stitched"]}
+        triton[k] = fresh.report()[k]["plan"]["triton_groups"]
+        assert rep[k]["plan"]["triton_groups"] == triton[k]
+    assert sum(triton.values()) > 0
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.gpu
+def test_two_background_compiles_share_kernels_on_card():
+    """Two background compiles of one graph under two placements run at
+    once and load the same generated kernels: both land, each kernel's
+    source is one file in the build directory with no temporary left, and
+    both plans give the same outputs."""
+    _need_card()
+    from repro_torch.cache import CompilationService, StitchCache
+    from repro_torch.core.trace import trace_to_graph
+    from repro_torch.kernels import stitched
+
+    def fn(x, w):
+        h = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-6) * w
+        return torch.softmax(h * 0.5, -1) * 2.0 + torch.tanh(x)
+
+    x, w = _rand((64, 1000), "float32", 1), _rand((1000,), "float32", 2)
+    g, names = trace_to_graph(fn, x, w)
+    svc = CompilationService(StitchCache())
+    assert svc.ensure_compiling(g, placement="a", device="cuda")
+    assert svc.ensure_compiling(g, placement="b", device="cuda")
+    svc.wait(300)
+    assert svc.pending() == 0 and svc.last_error is None
+    plans = [svc.cache.lookup(g, svc.compiler("stitch", p)) for p in "ab"]
+    assert all(p is not None for p in plans)
+    digests = {grp.tuned.callable.digest for p in plans for grp in p.groups
+               if grp.kind == "triton"
+               and hasattr(grp.tuned.callable, "emitted")}
+    assert digests
+    d = stitched.build_dir()
+    for dg in digests:
+        assert len(list(d.glob(f"k_{dg}.py"))) == 1
+        assert not list(d.glob(f"k_{dg}.*.tmp"))
+    inputs = dict(zip(names, (x, w)))
+    outs = [p(inputs) for p in plans]
+    torch.cuda.synchronize()
+    for k in outs[0]:
+        assert torch.equal(outs[0][k], outs[1][k])
+        torch.testing.assert_close(outs[0][k], fn(x, w), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_execution_based_tuning_measures_every_triton_group_on_card():
+    """With execution-based tuning and sample inputs on the card, every
+    Triton group's kernel carries its measured seconds a call, no candidate
+    was dropped at the measure stage, and the timing launches are not
+    counted."""
+    _need_card()
+    from repro_torch.core import StitchCompiler
+    from repro_torch.core.trace import trace_to_graph
+    from repro_torch.kernels import stitched
+
+    def fn(x, w):
+        h = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-6) * w
+        return torch.softmax(h, -1) + torch.exp(-x)
+
+    x, w = _rand((256, 2048), "float32", 3), _rand((2048,), "float32", 4)
+    g, names = trace_to_graph(fn, x, w)
+    inputs = dict(zip(names, (x, w)))
+    before = stitched.launch_counts()
+    cg = StitchCompiler(execution_based_eval=True).compile(
+        g, sample_inputs=inputs)
+    triton = [grp for grp in cg.groups if grp.kind == "triton"]
+    assert triton and cg.stats.triton_groups == len(triton)
+    assert [d for d in cg.stats.diagnostics if d["stage"] == "measure"] == []
+    for grp in triton:
+        t = grp.tuned.measured_time
+        assert t is not None and 0 < t < 1.0
+    after = stitched.launch_counts()
+    assert {k: v for k, v in after.items() if v != before.get(k, 0)} == {}
+    out = cg(inputs)
+    torch.cuda.synchronize()
+    (y,) = out.values()
+    torch.testing.assert_close(y, fn(x, w), rtol=2e-5, atol=2e-5)

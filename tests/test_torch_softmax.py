@@ -1,6 +1,6 @@
 """The masked softmax's CUDA kernel (``csrc/softmax.cu``) on the CPU.
 
-The kernel gives the bits of the Triton kernel's ``HAS_MASK`` path, so each
+The kernel gives the bits of the Triton kernel it replaced (deleted since), so each
 row is summed over the lanes and in the order the Triton program used:
 :func:`softmax.masked_plan` derives that layout from Triton's view of the
 operand's pointers and strides.  Here the plan is held to hand-worked
@@ -216,23 +216,24 @@ def test_binding_matches_the_c_declaration():
     assert lib.repro_softmax_masked.restype is ctypes.c_int
 
 
-@pytest.mark.parametrize("variant", softmax.VARIANTS)
+@pytest.mark.parametrize("variant", ["cuda", "op"])
 def test_wrapper_refuses_what_the_kernels_do_not_take(variant):
-    """A column stride, another dtype, a mask of another shape or dtype,
-    rows past the one-pass block, or an unknown variant is refused before
-    any build or launch."""
-    launch = softmax._launch_variant
+    """A column stride, another dtype, or a mask of another shape or dtype
+    is refused before any build or launch, by the uncounted launch of the
+    CUDA kernel (``"cuda"``, which also refuses rows past the one-pass
+    block) and by the op's own launcher (``"op"``, which sends those rows
+    to the split layout)."""
+    launch = {"cuda": softmax._launch_cuda, "op": softmax._launch_masked}[variant]
     x, m = torch.randn(4, 16), torch.rand(4, 16) < 0.5
     with pytest.raises(ValueError, match="contiguous"):
-        launch(variant, torch.randn(16, 4).t(), m.t().contiguous().t(), 1.0)
+        launch(torch.randn(16, 4).t(), m.t().contiguous().t(), 1.0)
     with pytest.raises(ValueError, match="f32 or bf16"):
-        launch(variant, x.half(), m, 1.0)
+        launch(x.half(), m, 1.0)
     with pytest.raises(ValueError, match="x's shape"):
-        launch(variant, x, m[:, :8], 1.0)
+        launch(x, m[:, :8], 1.0)
     with pytest.raises(ValueError, match="x's shape"):
-        launch(variant, x, m.to(torch.uint8), 1.0)
-    wide = torch.randn(2, softmax.MAX_ONE_PASS + 1)
-    with pytest.raises(ValueError, match="split layout"):
-        launch(variant, wide, wide > 0, 1.0)
-    with pytest.raises(ValueError, match="unknown variant"):
-        launch("pallas", x, m, 1.0)
+        launch(x, m.to(torch.uint8), 1.0)
+    if variant == "cuda":
+        wide = torch.randn(2, softmax.MAX_ONE_PASS + 1)
+        with pytest.raises(ValueError, match="split layout"):
+            launch(wide, wide > 0, 1.0)
