@@ -33,25 +33,31 @@ result line):
    4096, timed; its angle tables equal the spec computed in numpy at
    positions up to 2^17 (one ulp at most); a fault planted in it (each row
    of a block reading its first row's angles) must fail the sample gate.
-2. Ref-mode path: full-width qwen3-1.7b (random weights from a seed)
-   answers 4 requests through ``Engine(stitch_execute=True)``: the stitched
+2. Ref-mode path: full-width qwen3-1.7b cut to 8 of its 28 layers
+   (``REF_LAYERS``: the time limit; random weights from a seed) answers 4
+   requests through ``Engine(stitch_execute=True)``: the stitched
    prefill and the stitched decode on every step.  Launch counts are zeroed
    just before this run and read just after.  Every generated kernel of the
    decode and prefill plans is then called on the inputs the main path gives
    it and held against its plain version; its time, its bound and its
    launches go into the ``kernels`` line.  A generated kernel that computes
    an RMSNorm chain is also timed against ``F.rms_norm``, one of a single
-   elementwise op and views against that op's PyTorch call; one in the
-   flat layout is held bit for bit against the rows layout it had, both
-   timed.  A layout-only pattern launches nothing: its calls are counted
-   apart from the launches (a pattern of the path never called fails as a
-   kernel never launched does), its outputs held bit for bit against its
-   plain version and the rows-layout kernel it replaced (timed).  Every
-   path prints a line per generated kernel or view pattern (members and
-   shapes, layout, launches or views a call, device us beside the bound,
-   layout-only or not) and a tally a call: launched, views, view copies.
-   Per plan, the bytes moved by generated kernels, fused-torch groups and
-   single ops.
+   elementwise op and views against that op's PyTorch call.  A kernel
+   whose members only move data (slices, transposes, reshapes, broadcasts,
+   gathers) is held bit for bit against its plain version; a kernel of a
+   member class the emitter renders since data movement was ported is also
+   timed against its plain version replayed on the card (the fused-torch
+   group it replaces).  A layout-only pattern launches nothing: its calls
+   are counted apart from the launches (a pattern of the path never called
+   fails as a kernel never launched does), its outputs held bit for bit
+   against its plain version.  Every path prints a line per generated
+   kernel or view pattern (members and shapes, layout, launches or views a
+   call, device us beside the bound, layout-only or not), a tally a call
+   (launched, views, view copies) and the data-movement kernels' device
+   time against their plain versions'.  Per plan, the bytes moved by
+   generated kernels, fused-torch groups and single ops, the torch groups
+   by the first cause and by every cause of their refusal, and a digest of
+   the plan's member sets.
    Then the first decode step's bf16 logits against the eager decode over
    several weight seeds, with faults planted in the stitched RMSNorm
    kernels.
@@ -185,8 +191,10 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 """
 
 import contextlib
+import dataclasses
 import functools
 import gc
+import hashlib
 import json
 import re
 import shutil
@@ -260,6 +268,9 @@ SEED = 0
 # a 5 s budget gives the same plans and saves 15 s on each of 13 plans
 PLAN_BUDGET = 5.0
 LOGIT_SEEDS = 3           # weight seeds of the full-width bf16 logit check
+# the ref-mode qwen3 phase's depth, cut from 28 layers for the time limit:
+# its plans took 90 of the phase's 250 s at full depth (a 994 s run)
+REF_LAYERS = 8
 F32_SEEDS = 5             # weight seeds of the 4-layer f32 logit check
 
 
@@ -328,16 +339,162 @@ def within(outs, refs) -> bool:
     return True
 
 
+# An f32 value within this many of its ulps of the midpoint between its two
+# 16-bit neighbours is a rounding tie for a kernel that computes it in
+# another order: Triton's reduction tree against PyTorch's moves a sum by
+# an ulp or two, which can carry the value across the midpoint.
+TIE_ULPS = 16
+LOW = (torch.bfloat16, torch.float16)
+
+
+def round_other_way(x, r):
+    """``r`` (``x`` rounded to 16 bits) with each element whose ``x`` lies
+    within ``TIE_ULPS`` f32 ulps of the midpoint to the next 16-bit value
+    on ``x``'s side rounded to that value instead; and how many."""
+    xd, rd = x.double(), r.double()
+    bits = r.view(torch.int16)
+    # the neighbour on x's side: one step up in magnitude for a positive
+    # r that x exceeds (or a negative r that x undercuts), else down
+    up = (xd > rd) == (bits >= 0)
+    other = (bits + torch.where(up, 1, -1).to(torch.int16)).view(r.dtype)
+    x32 = x.float()
+    ulp = (torch.nextafter(x32, torch.full_like(x32, float("inf"))) - x32).double()
+    mid = (rd + other.double()) / 2
+    near = ((xd - mid).abs() <= TIE_ULPS * ulp) & torch.isfinite(other) \
+        & torch.isfinite(xd) & (xd != rd)
+    return torch.where(near, other, r), int(near.sum())
+
+
+def tie_alternative(k, args):
+    """The plain version of generated kernel ``k`` with every element of a
+    ``convert`` to 16 bits that lies at a rounding tie (``round_other_way``)
+    rounded the other way, all at once, and the count of such elements:
+    (outputs, ties), or (None, 0) when no such convert has a tie."""
+    from repro_torch.core.codegen import eval_node
+    p, g = k.pattern, k.pattern.graph
+    env = dict(zip(p.external_inputs, args))
+    ties = 0
+    for node in p.nodes:
+        if node.is_source() and node.name in env:
+            continue
+        ops = [env[o] for o in node.operands]
+        val = eval_node(node, ops, g)
+        if node.attrs.get("op") == "convert" and val.dtype in LOW \
+                and ops[0].dtype.is_floating_point and ops[0].dtype not in LOW:
+            val, n = round_other_way(ops[0], val)
+            ties += n
+        env[node.name] = val
+    if not ties:
+        return None, 0
+    return tuple(env[n] for n in p.external_outputs), ties
+
+
+def tie_flips(outs, refs, alts):
+    """Output elements of a kernel that miss the plain version's gate and
+    meet, at the same gate, the plain version with its rounding ties
+    rounded the other way (``tie_alternative``): (elements, their max abs
+    error against the plain version, the max abs error of every other
+    element); None when an element meets neither."""
+    flips, err_flip, err_rest = 0, 0.0, 0.0
+    for o, r, a in zip(outs, refs, alts):
+        if o.dtype == torch.bool or not o.dtype.is_floating_point:
+            ok_r, ok_a = o == r, o == a
+        else:
+            rtol, atol = TOL.get(str(o.dtype).replace("torch.", ""),
+                                 TOL["bfloat16"])
+            ok_r = torch.isclose(o.float(), r.float(), rtol=rtol, atol=atol)
+            ok_a = torch.isclose(o.float(), a.float(), rtol=rtol, atol=atol)
+        if not bool((ok_r | ok_a).all()):
+            return None
+        diff = (o.float() - r.float()).abs()
+        flips += int((~ok_r).sum())
+        if bool((~ok_r).any()):
+            err_flip = max(err_flip, float(diff[~ok_r].max()))
+        if bool(ok_r.any()):
+            err_rest = max(err_rest, float(diff[ok_r].max()))
+    return flips, err_flip, err_rest
+
+
 def kernel_bound(k) -> tuple[float, str]:
     """Least time for the kernel's work: its inputs read once and outputs
     written once over the memory rate, or its elementwise operations over
-    the f32 rate, whichever is larger."""
+    the f32 rate, whichever is larger.  A scratch workspace (a value stored
+    and loaded again at other offsets, a few KB a program) is L2 traffic,
+    not device-memory traffic, and is not counted."""
     g = k.pattern.graph
-    nbytes = sum(g[n].bytes for n in k.pattern.external_inputs) + \
-        sum(g[n].bytes for n in k.pattern.external_outputs)
+    ins, outs = moved(k)
+    nbytes = sum(g[n].bytes for n in ins) + sum(g[n].bytes for n in outs)
     ops = sum(n.size for n in k.pattern.compute_members)
     tb, to = nbytes / HBM_BW, ops / F32_PEAK
     return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
+
+
+def moved(k) -> tuple[list, list]:
+    """The external inputs and outputs whose bytes the kernel moves: an
+    output returned as a view of an input (``emitted.view_outs``) moves
+    nothing, nor does an input only such outputs read."""
+    p, g = k.pattern, k.pattern.graph
+    views = {o for o, _, _ in getattr(k, "emitted", None).view_outs} \
+        if hasattr(k, "emitted") else set()
+    outs = [n for n in p.external_outputs if n not in views]
+    read, stack = set(), list(outs)
+    while stack:
+        n = stack.pop()
+        if n in read:
+            continue
+        read.add(n)
+        if n in p.members:
+            stack.extend(g[n].operands)
+    return [n for n in p.external_inputs if n in read], outs
+
+
+def sweep_bound_ms(k) -> float:
+    """The bytes bound of the kernel's design: a wide row's later sweeps
+    read their inputs again (``emitted.rereads``), counted once each."""
+    g = k.pattern.graph
+    extra = sum(g[n].bytes for n in k.emitted.rereads)
+    return kernel_bound(k)[0] + extra / HBM_BW * 1e3
+
+
+MOVE_KINDS = ("reshape", "transpose", "slice", "gather", "broadcast")
+
+
+def data_movement_only(k) -> bool:
+    """Whether every member of the kernel's pattern only moves elements
+    (a slice, transpose, reshape, broadcast or gather, or a convert to the
+    same dtype): such a kernel rounds nothing, and must give its plain
+    version's bits."""
+    from repro_torch.kernels.stitched import layout_member
+    g = k.pattern.graph
+    return all(m.kind.value in MOVE_KINDS or layout_member(m, g)
+               for m in k.pattern.compute_members)
+
+
+def stage1_classes(k) -> list:
+    """The member classes of a generated kernel that the emitter renders
+    since data movement was ported (each was a ``torch`` group's refusal
+    before): slices, gathers, transposes that move an axis, reshapes of
+    non-power-of-two dims, wide rows (sweeps), values through scratch."""
+    from repro_torch.kernels.stitched import layout_member
+    g = k.pattern.graph
+    out = set()
+    for m in k.pattern.compute_members:
+        kind = m.kind.value
+        if kind in ("slice", "gather"):
+            out.add(kind)
+        elif kind == "transpose" and not layout_member(m, g):
+            out.add("transpose")
+        elif kind == "reshape":
+            a = [d for d in g[m.operands[0]].shape if d != 1]
+            b = [d for d in m.shape if d != 1]
+            if a != b and any(d & (d - 1) for d in a + b):
+                out.add("reshape")
+    em = getattr(k, "emitted", None)
+    if em is not None and em.sweeps:
+        out.add("wide")
+    if em is not None and em.scratch:
+        out.add("scratch")
+    return sorted(out)
 
 
 def rms_chain(p):
@@ -498,8 +655,20 @@ def check_kernel(name, k, args, library=None, launches=None):
     torch.cuda.synchronize()
     ref = k.plain(*args)
     err = max_err(out, ref)
+    # an element may miss the gate only where a convert to 16 bits met a
+    # rounding tie, and must then meet the plain version rounded the
+    # other way there
+    alt, ties = tie_alternative(k, args)
+    flips = (0, 0.0, err)
     if not within(out, ref):
-        fail(f"kernel {name} disagrees with its plain version (max err {err})")
+        flips = tie_flips(out, ref, alt) if alt is not None else None
+        if flips is None:
+            fail(f"kernel {name} disagrees with its plain version (max err "
+                 f"{err}; {ties} rounding ties)")
+    moves = data_movement_only(k)
+    if moves and not all(bits_equal(o, r) for o, r in zip(out, ref)):
+        fail(f"kernel {name} moves data only, yet differs from its plain "
+             f"version in some bits")
     ms = timed(lambda: k.launch(*args), 50)
     dev_ms = device_ms(lambda: k.launch(*args))
     plain_ms = timed(lambda: k.plain(*args), 20)
@@ -531,16 +700,22 @@ def check_kernel(name, k, args, library=None, launches=None):
                 "ops": len(k.pattern.compute_members),
                 "layout": k.emitted.layout, "grid": k.emitted.grid,
                 "block_r": k.emitted.block_r, "block": k.emitted.block,
-                "num_warps": k.emitted.num_warps})
-    if k.emitted.layout != "rows":
-        old_out, old = rows_layout(k, args)
-        if not all(bits_equal(o, c) for o, c in zip(out, old_out)):
-            fail(f"kernel {name} in the {k.emitted.layout} layout differs "
-                 f"from the rows layout in some bits")
-        row.update({"bits_equal_rows_layout": True,
-                    "rows_layout_ms": timed(lambda: old.launch(*args), 50),
-                    "rows_layout_device_ms": device_ms(
-                        lambda: old.launch(*args))})
+                "num_warps": k.emitted.num_warps,
+                "data_movement_only": moves, "bits_equal_plain": moves,
+                "rounding_ties": ties, "tie_flips": flips[0],
+                "max_abs_err_at_flips": flips[1],
+                "max_abs_err_off_flips": flips[2],
+                "stage1": stage1_classes(k),
+                "scratch_bytes": sum(
+                    n * (1 if dt == "bool" else
+                         torch.empty(0, dtype=getattr(torch, dt)).element_size())
+                    for n, dt in k.emitted.scratch),
+                "sweeps": k.emitted.sweeps,
+                "sweep_bound_ms": sweep_bound_ms(k)})
+    if row["stage1"]:
+        # the fused-torch group the kernel replaces runs the plain version
+        # member by member: its device time, replayed from a CUDA graph
+        row["plain_device_ms"] = device_ms(lambda: k.plain(*args))
     return row
 
 
@@ -630,6 +805,25 @@ def plan_bytes(compiled):
     return {k: (v / 1e9, v / total) for k, v in by_kind.items()}
 
 
+def every_cause(compiled) -> tuple[list, int, int]:
+    """Every cause of every ``torch`` group of a plan (``refusal_causes``,
+    node names stripped), counted once a group; and how many torch groups
+    there are, and how many of them hold stage-1 causes only."""
+    from repro_torch.core.pattern import FusionPattern
+    from repro_torch.kernels.stitched import cause_stage, refusal_causes
+    g = compiled.graph
+    counts, only1, n = Counter(), 0, 0
+    for grp in compiled.groups:
+        if grp.kind != "torch":
+            continue
+        n += 1
+        causes = refusal_causes(FusionPattern(g, grp.members))
+        counts.update({re.sub(r"\b[a-z_]+_\d+(\.bcast\d+)?\b", "*", c)
+                       for c in causes})
+        only1 += bool(causes) and all(cause_stage(c) == 1 for c in causes)
+    return sorted(counts.items(), key=lambda kv: -kv[1]), n, only1
+
+
 def plan_line(tag, rep, compiled):
     plan = rep["plan"]
     diags = {}
@@ -645,6 +839,12 @@ def plan_line(tag, rep, compiled):
           f"ilp={plan['ilp_method']} trace_s={plan['trace_seconds']:.2f} "
           f"stages_s={stages}")
     print(f"plan {tag} torch groups by reason: {top}")
+    every, n, only1 = every_cause(compiled)
+    print(f"plan {tag} torch groups by every cause: {every}")
+    print(f"plan {tag} torch groups with stage-1 causes only: {only1} of {n}")
+    members = sorted(sorted(grp.members) for grp in compiled.groups)
+    print(f"plan {tag} member sets digest: "
+          f"{hashlib.sha1(repr(members).encode()).hexdigest()[:16]}")
     share = plan_bytes(compiled)
     print(f"plan {tag} bytes per call by group kind: " + " ".join(
         f"{k}={gb:.4f}GB({frac:.4f})" for k, (gb, frac) in share.items()))
@@ -848,13 +1048,25 @@ def layout_line(k, row) -> str:
            if em is not None else
            f"layout=view host_us={row['host_us']:.2f} "
            f"outputs_sharing_an_input={row['outputs_sharing_an_input']}")
-    old = row.get("rows_layout_device_ms")
+    plain = row.get("plain_device_ms")
     return (f"members=[{' '.join(members)}] {lay} "
             f"device_us={row['device_ms'] * 1e3:.3f} "
-            + (f"rows_layout_device_us={old * 1e3:.3f} " if old is not None
+            f"bound_us={row['bound_ms'] * 1e3:.5f} "
+            + (f"stage1={','.join(row['stage1'])} sweeps={row['sweeps']} "
+               f"scratch_bytes={row['scratch_bytes']} "
+               f"plain_device_us={plain * 1e3:.3f} " if plain is not None
                else "")
-            + f"bound_us={row['bound_ms'] * 1e3:.5f} "
-            f"layout_only={layout_only(k.pattern)}")
+            + (f"rounding_ties={row['rounding_ties']} "
+               f"tie_flips={row['tie_flips']} "
+               f"err_off_flips={row['max_abs_err_off_flips']:.3g} "
+               if row.get("rounding_ties") else "")
+            + f"layout_only={layout_only(k.pattern)}")
+
+
+# digest -> the (elements, dtype) of each input it was checked at: one
+# digest is one kernel over the same bytes (a folded pattern's digest
+# carries its folded shapes, so the original shapes may differ)
+CHECKED_SIZES: dict[str, list] = {}
 
 
 def stitched_rows(parts, run, tag, checked):
@@ -871,7 +1083,12 @@ def stitched_rows(parts, run, tag, checked):
     rows = []
     seen = {}
     for _, res in parts:
-        seen.update(res[0])
+        for digest, (k, args) in res[0].items():
+            sizes = [(a.numel(), a.dtype) for a in args]
+            if CHECKED_SIZES.setdefault(digest, sizes) != sizes:
+                fail(f"{tag}: generated callable {digest} met at two input "
+                     f"sizes: {CHECKED_SIZES[digest]} and {sizes}")
+            seen[digest] = (k, args)
     for digest, (k, args) in seen.items():
         view = isinstance(k, StitchedView)
         n = (run["views"] if view else run["counts"]).get(digest, 0)
@@ -907,12 +1124,18 @@ def stitched_rows(parts, run, tag, checked):
               f"whole run)")
         agg = {key: sum(n * checked[d][key] for d, n in kern.items())
                for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
-        agg["rows_layout_device_ms"] = sum(
-            n * checked[d].get("rows_layout_device_ms", checked[d]["device_ms"])
-            for d, n in per_call.items())
         print(f"{tag} stitched kernels per {what}: kernels={len(kern)} "
               f"launches={sum(kern.values())} "
               + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
+        # the kernels of groups that ran member by member before data
+        # movement was emitted, against those eager groups (plain version)
+        new = {d: n for d, n in kern.items() if checked[d].get("stage1")}
+        agg = {key: sum(n * checked[d][key] for d, n in new.items())
+               for key in ("device_ms", "plain_device_ms", "bound_ms",
+                           "sweep_bound_ms")}
+        print(f"{tag} stitched data-movement kernels per {what}: "
+              f"kernels={len(new)} launches={sum(new.values())} "
+              + " ".join(f"{k}={v:.5f}" for k, v in agg.items()))
     return rows
 
 
@@ -922,33 +1145,18 @@ def bits_equal(a, b) -> bool:
         return False
     if a.dtype == torch.bool:
         return torch.equal(a, b)
-    return torch.equal(a.reshape(-1).view(torch.uint8),
-                       b.reshape(-1).view(torch.uint8))
-
-
-def rows_layout(k, args) -> tuple:
-    """The pattern of ``k`` emitted in the rows layout (the one every
-    generated kernel had before the flat layout and the views), launched
-    on ``args``: its outputs and its kernel."""
-    from repro_torch.kernels.stitched import build_stitched_callable
-    old = build_stitched_callable(k.pattern, layout="rows")
-    out = old.launch(*args)
-    torch.cuda.synchronize()
-    return out, old
+    return torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
+                       b.contiguous().reshape(-1).view(torch.uint8))
 
 
 def check_view(name, k, args, calls):
     """A view pattern on the path's operands: its outputs the plain
-    version's bit for bit and contiguous, as the rows-layout kernel it no
-    longer launches (timed: what the view saves) gives them too; the
-    view's host us a call."""
+    version's bit for bit and contiguous; the view's host us a call."""
     out = k(*args)
     ref = k.plain(*args)
-    old_out, old = rows_layout(k, args)
-    for o, r, c in zip(out, ref, old_out):
-        if not (bits_equal(o, r) and bits_equal(c, r) and o.is_contiguous()):
-            fail(f"view pattern {name} differs from its plain version or "
-                 f"from the rows-layout kernel")
+    for o, r in zip(out, ref):
+        if not (bits_equal(o, r) and o.is_contiguous()):
+            fail(f"view pattern {name} differs from its plain version")
     shared = sum(o.untyped_storage().data_ptr() == a.untyped_storage().data_ptr()
                  for o in out for a in args)
     reps = 1000
@@ -959,9 +1167,7 @@ def check_view(name, k, args, calls):
     bound_ms, bound_by = kernel_bound(k)
     return {"name": name, "view": True, "views": calls,
             "outputs_sharing_an_input": shared, "host_us": host_us,
-            "device_ms": 0.0, "bound_ms": bound_ms, "bound_by": bound_by,
-            "rows_layout_device_ms": device_ms(lambda: old.launch(*args)),
-            "rows_layout_ms": timed(lambda: old.launch(*args), 50)}
+            "device_ms": 0.0, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def single_op_library(k, args):
@@ -3000,7 +3206,8 @@ def stitched_call(tag, fn, args, dev):
     from repro_torch.exec import stitch
     from repro_torch.kernels import ops
     with ops.kernel_mode("kernels"):
-        sf = stitch(fn, device=dev, compiler=StitchCompiler(plan_budget=PLAN_BUDGET),
+        sf = stitch(fn, mode="offline", device=dev,
+                    compiler=StitchCompiler(plan_budget=PLAN_BUDGET),
                     name=tag.replace(" ", "_"))
         t0 = time.perf_counter()
         sf(*args)
@@ -4171,10 +4378,13 @@ def main() -> int:
     checked: dict = {}
     kernels, summaries = [], {}
     t0 = time.perf_counter()
-    rows, summaries["ref-mode"] = serve_phase(dev, model, params, lens,
-                                              prompts, checked)
+    ref_model = build_model(dataclasses.replace(cfg, n_layers=REF_LAYERS))
+    rows, summaries["ref-mode"] = serve_phase(
+        dev, ref_model, ref_model.init(SEED, dev), lens, prompts, checked)
     kernels += rows
-    print(f"ref-mode phase: {time.perf_counter() - t0:.1f}s")
+    del ref_model
+    print(f"ref-mode phase ({REF_LAYERS} of {cfg.n_layers} layers): "
+          f"{time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     rows, summaries["kernel-mode"], offline = kernel_mode_phase(
         dev, model, params, lens, prompts, checked)

@@ -17,8 +17,11 @@ depends on the mode:
 * ``"shadow"`` — compiles and reports as ``"stitch"`` does, but every call
   runs ``fn`` eagerly.
 * ``"offline"`` — compiles synchronously (no background thread) through
-  ``compiler`` (a :class:`repro_torch.core.StitchCompiler`, cached when it
-  has a ``cache``); every call at that signature runs the compiled plan.
+  ``service`` (a blocking ``service.compile``, as the reference's offline
+  mode does) or else ``compiler`` (a
+  :class:`repro_torch.core.StitchCompiler`, cached when it has a
+  ``cache``; the default compiler when neither is given); every call at
+  that signature runs the compiled plan.
 * ``"jit"`` — no stitching: every call runs ``fn`` eagerly.
 
 Tracing is pytree-aware: positional args, kwargs and nested containers
@@ -87,7 +90,7 @@ class _Specialization:
 class StitchedFunction:
     """The callable :func:`stitch` returns — see the module docstring."""
 
-    def __init__(self, fn: Callable, *, mode: str = "offline", compiler=None,
+    def __init__(self, fn: Callable, *, mode: str = "stitch", compiler=None,
                  service=None, device=None, static_argnums=(),
                  eligibility_argnums=None, respecialize: int = 0,
                  name: str | None = None):
@@ -96,9 +99,9 @@ class StitchedFunction:
         if mode in ("stitch", "shadow") and compiler is not None:
             raise ValueError(f"mode {mode!r} compiles through service=; "
                              f"compiler= is the offline mode's")
-        if mode == "offline" and service is not None:
-            raise ValueError("the offline mode compiles through compiler=; "
-                             "service= is the stitch and shadow modes'")
+        if mode == "offline" and service is not None and compiler is not None:
+            raise ValueError("the offline mode compiles through service= or "
+                             "compiler=, not both")
         self.fn = fn
         self.mode = mode
         self.device = resolve_device(device)
@@ -115,7 +118,7 @@ class StitchedFunction:
         self.eligibility_argnums = (
             tuple(sorted(set(eligibility_argnums)))
             if eligibility_argnums is not None else None)
-        if mode == "offline" and compiler is None:
+        if mode == "offline" and compiler is None and service is None:
             from repro_torch.core import StitchCompiler
             compiler = StitchCompiler()
         if mode in ("stitch", "shadow") and service is None:
@@ -198,7 +201,13 @@ class StitchedFunction:
             sp.graph, sp.names, sp.out_names, sp.out_spec = trace_to_graph(
                 run_fn, (dyn, kwargs), name=self.name, return_outputs=True)
             sp.trace_seconds = time.perf_counter() - t0
-            if self.mode == "offline":
+            if self.mode == "offline" and self.service is not None:
+                # the reference's offline mode: a blocking compile through
+                # the service (its cache, its stitch compiler)
+                sp.compiled = self.service.compile(sp.graph,
+                                                   placement=sp.placement)
+                sp.status = "compiled"
+            elif self.mode == "offline":
                 compiler = self.compiler
                 if sp.placement and compiler.placement != sp.placement:
                     # the specialization's cache key, as a service's
@@ -428,7 +437,7 @@ class StitchedFunction:
         return out
 
 
-def stitch(fn: Callable, *, mode: str = "offline", compiler=None,
+def stitch(fn: Callable, *, mode: str = "stitch", compiler=None,
            service=None, device=None, static_argnums=(),
            eligibility_argnums=None, respecialize: int = 0,
            name: str | None = None) -> StitchedFunction:
@@ -437,17 +446,19 @@ def stitch(fn: Callable, *, mode: str = "offline", compiler=None,
     Args:
       fn: a PyTorch function of pytree args/kwargs returning a pytree of
         tensors.
-      mode: ``"stitch"`` (miss-then-upgrade: the fallback plan at once,
-        the stitched plan once its background compile lands),
-        ``"shadow"`` (compile + report, serve eagerly), ``"offline"``
-        (blocking compile at the first call per signature; the port's
-        default) or ``"jit"`` (eager, no stitching).
+      mode: ``"stitch"`` (the default, as the reference's:
+        miss-then-upgrade, the fallback plan at once, the stitched plan once
+        its background compile lands), ``"shadow"`` (compile + report,
+        serve eagerly), ``"offline"`` (blocking compile at the first call
+        per signature) or ``"jit"`` (eager, no stitching).
       compiler: the offline mode's :class:`repro_torch.core.StitchCompiler`
-        (default: H100 hardware model, default ``GenConfig``); with a
-        ``cache`` its compiles replay and insert cached plans.
-      service: the stitch and shadow modes'
-        :class:`repro_torch.cache.CompilationService`; a default (in-memory
-        cache) is created when omitted.
+        when no ``service`` is given (default: H100 hardware model, default
+        ``GenConfig``); with a ``cache`` its compiles replay and insert
+        cached plans.  The stitch and shadow modes refuse it.
+      service: a :class:`repro_torch.cache.CompilationService`: the stitch
+        and shadow modes compile through it in the background (a default,
+        in-memory cache, is created when omitted); the offline mode, when
+        given one, compiles through it, blocking.
       device: where the function runs — ``"cuda"`` by default (raises when
         there is no card), ``"cpu"`` on request.
       static_argnums: hashable args baked into the trace; a new value

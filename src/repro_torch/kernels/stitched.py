@@ -19,18 +19,26 @@ generated per (pattern, shapes).
 
 Bound.  Every member is memory-bound: the least time is the bytes of the
 external inputs read once plus the outputs written once, over 3.35 TB/s;
-the design keeps every intermediate out of device memory.
+the design keeps every intermediate out of device memory (a value stored
+to the program's scratch to be loaded at other offsets stays in L2; a wide
+row's later sweeps read its inputs again, ``_Emitted.rereads``).
 
-Emitted in this stage: ELEMENTWISE (the whole ``EW_OPS`` vocabulary, an
-operand with size-1 dims broadcast implicitly as jnp does, lowered as an
-explicit BROADCAST), BROADCAST, RESHAPE of trailing power-of-two dims and
-REDUCTION over trailing axes, with every input ROW or INV.  A pattern the
-reference's analysis rejects, or whose rows are too wide for one block, is
-retried with its leading (B, S) dims folded into one row axis
-(:func:`fold_rows`): one row per token, as a prefill's norms and
-activations need.  Everything else raises
-:class:`StitchInfeasible` from the static check, naming the ROADMAP stage
-that will emit it; the compiler then runs the group as a ``"torch"`` group.
+Emitted: ELEMENTWISE (the whole ``EW_OPS`` vocabulary, an operand with
+size-1 dims broadcast implicitly as jnp does, lowered as an explicit
+BROADCAST), BROADCAST, REDUCTION over trailing axes, and data movement:
+SLICE (trailing dims of a ROW value, any slice of an INV one), TRANSPOSE
+keeping the row axis first, RESHAPE of a ROW value's trailing dims (any
+reshape of an INV one) and GATHER from an INV table, wherever the
+reference's analysis admits them, in rows of any width (:class:`_Emitter`:
+index maps composed into loads, register routes, scratch, sweeps over wide
+rows).  A pattern the reference's analysis rejects, or whose rows would
+need sweeps, is retried with its leading (B, S) dims folded into one row
+axis (:func:`fold_rows`): one row per token, as a prefill's norms and
+activations need.  Everything else (accumulator roles, GEMMs, customs)
+raises :class:`StitchInfeasible` from the static check, naming the ROADMAP
+stage that will emit it (:func:`emittable_causes` lists every cause,
+:func:`refusal_causes` those of a pattern's best form); the compiler then
+runs the group as a ``"torch"`` group.
 
 Two layouts.  A pattern that computes element by element (no reduction,
 every value the same N elements in row-major order or a scalar,
@@ -40,14 +48,16 @@ over 32-96 programs where the rows layout gave one; each element's
 arithmetic is the rows layout's, expression for expression.  Layouts are
 chosen here, not by the tuner, so plans do not depend on them.
 
-Layout-only patterns (every member a reshape, a transpose of size-1 axes, a
-broadcast adding size-1 dims or a convert to the same dtype,
-:func:`layout_only`) launch nothing: :class:`StitchedView` gives each
-output as a view of its input, counted apart from the launches
+An output that is a run of an input's contiguous elements (through
+reshapes, transposes of size-1 axes, broadcasts adding size-1 dims,
+converts to the same dtype and slices of one run, :func:`view_outputs`) is
+returned as a view of the input at its offset and stored by no kernel.  A
+pattern whose outputs are all such views launches nothing:
+:class:`StitchedView` serves it, counted apart from the launches
 (:func:`view_counts`).  A Pallas output is a fresh buffer on a TPU, so the
 reference copies; a torch tensor carries strides.  A graph output that
-would alias what a caller holds is refused the view (:func:`view_refusal`)
-and launches a kernel.
+would alias what a caller holds is refused the view (:func:`alias_refusal`)
+and is stored by a kernel.
 
 The wrapper runs the plain version (the members evaluated eagerly with
 :func:`repro_torch.core.codegen.eval_node`) only for CPU tensors; for CUDA
@@ -60,10 +70,13 @@ import hashlib
 import importlib.util
 import math
 import os
+import re
 import threading
 import time
+from collections import Counter
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Callable
 
 import torch
 
@@ -73,10 +86,12 @@ from repro_torch.core.pattern import FusionPattern, PackPattern
 
 __all__ = ["StitchAnalysis", "analyze_pattern", "build_stitched_callable",
            "StitchInfeasible", "StitchedKernel", "StitchedView",
-           "check_emittable", "emission_plan", "explicit_broadcasts",
+           "check_emittable", "emittable_causes", "refusal_causes",
+           "cause_stage", "emission_plan", "explicit_broadcasts",
            "flat_elements", "fold_rows", "layout_member", "layout_only",
            "reset_launch_counts", "launch_counts", "view_counts",
-           "view_copy_counts", "view_refusal", "MAX_BLOCK_ELEMS"]
+           "view_copy_counts", "view_outputs", "alias_refusal",
+           "MAX_BLOCK_ELEMS"]
 
 
 class StitchInfeasible(Exception):
@@ -370,19 +385,67 @@ def _is_float(dtype: str) -> bool:
 
 @dataclass
 class _Val:
-    """A value inside the kernel: its logical trailing dims that are kernel
-    axes (extent > 1), and whether axis 0 is the program's row block."""
+    """A value inside the kernel as a register tile: its logical trailing
+    dims that are kernel axes (extent > 1), whether axis 0 is the program's
+    row block, and which kernel axis (if any) holds a chunk of ``ch``
+    elements of a wide row instead of the whole padded extent."""
     var: str
     row: bool
     dims: tuple[int, ...]          # logical extents of the non-row kernel axes
     dtype: str
+    chunk: int | None = None       # kernel axis (row axis counted) chunked
+    ch: int = 0
 
     @property
     def pads(self) -> tuple[int, ...]:
         return tuple(_pow2(d) for d in self.dims)
 
     def kshape(self, block_r: int) -> tuple[int, ...]:
-        return ((block_r,) if self.row else ()) + self.pads
+        shape = ((block_r,) if self.row else ()) + self.pads
+        if self.chunk is not None:
+            shape = shape[:self.chunk] + (self.ch,) + shape[self.chunk + 1:]
+        return shape
+
+
+@dataclass
+class _View:
+    """Where a value's elements lie in memory: a base (a kernel argument or
+    a program's scratch) of logical shape ``shape``, contiguous, and the map
+    from the value's logical indices to the base's (``index``: index
+    expressions over the value's axes and the lanes' mask -> expressions
+    over the base's axes).  Slices, transposes, reshapes, broadcasts and
+    gathers compose their maps; nothing moves until a consumer loads."""
+    ptr: str
+    shape: tuple[int, ...]
+    dtype: str
+    index: Callable
+    base: str | None = None        # the external input it reads, if one
+    identity: bool = False         # the value is the base itself, reshaped
+
+
+def _same(ctx, mask):
+    return ctx
+
+
+def _contiguous_part(node: OpNode, g: Graph) -> int | None:
+    """The element offset at which ``node``'s value lies, whole and in
+    order, in its operand's contiguous bytes (a :func:`layout_member`, a
+    slice of one run of elements), else None."""
+    if layout_member(node, g):
+        return 0
+    if node.kind is not OpKind.SLICE:
+        return None
+    src = g[node.operands[0]].shape
+    starts, limits = node.attrs["starts"], node.attrs["limits"]
+    steps = node.attrs.get("strides") or (1,) * len(src)
+    cut = [a for a in range(len(src))
+           if (starts[a], limits[a], steps[a]) != (0, src[a], 1)]
+    if not cut:
+        return 0
+    a = cut[0]
+    if cut != [a] or steps[a] != 1 or any(src[i] != 1 for i in range(a)):
+        return None
+    return starts[a] * math.prod(src[a + 1:])
 
 
 def _kernel_dims(shape: tuple[int, ...], row: bool) -> tuple[int, ...]:
@@ -390,81 +453,114 @@ def _kernel_dims(shape: tuple[int, ...], row: bool) -> tuple[int, ...]:
     return tuple(d for d in trailing if d != 1)
 
 
-def check_emittable(p: FusionPattern, ana: StitchAnalysis) -> None:
-    """The emitter's static feasibility check (made at tune time).  Raises
-    :class:`StitchInfeasible` naming the ROADMAP stage that will emit what
-    this stage cannot."""
+_ATOM = re.compile(r"^[\w.]+(\([^()]*\))?(\[[^\]]*\])?$")
+
+
+def _par(e: str) -> str:
+    return e if _ATOM.match(e) else f"({e})"
+
+
+def _times(e: str, k: int) -> str:
+    if e == "0" or k == 0:
+        return "0"
+    return e if k == 1 else f"{_par(e)} * {k}"
+
+
+def _sum(terms) -> str:
+    kept = [t for t in terms if t != "0"]
+    return " + ".join(kept) or "0"
+
+
+def _strides(shape) -> list[int]:
+    return [math.prod(shape[i + 1:]) for i in range(len(shape))]
+
+
+def _shape_s(shape) -> str:
+    return "(" + ", ".join(str(s) for s in shape) + ("," if len(shape) == 1 else "") + ")"
+
+
+def emittable_causes(p: FusionPattern, ana: StitchAnalysis) -> list[str]:
+    """Every reason the emitter cannot render ``p`` under ``ana``, member by
+    member, each naming the ROADMAP stage that will emit it; empty when it
+    can.  :func:`check_emittable` raises the first.  A pattern with no
+    member-level cause is rendered once here, so what the renderer refuses
+    (:class:`_Emitter`) is a cause too."""
+    return _rendered(p, ana)[0]
+
+
+def _rendered(p: FusionPattern, ana: StitchAnalysis, aliases=None
+              ) -> tuple[list[str], _Emitter | None, _Emitted | None]:
+    """(:func:`emittable_causes`, and when there is none the emitter and
+    the kernel it rendered at ``ana``'s first row block with ``aliases``
+    returned as views)."""
     g = p.graph
+    causes: list[str] = []
     for name in p.external_inputs:
         if ana.roles.get(name) not in (ROW, INV):
-            raise StitchInfeasible(f"input {name} is not ROW/INV")
-        _check_dtype(g[name])
+            causes.append(f"input {name} is not ROW/INV")
+        causes += _dtype_causes(g[name])
     for node in p.compute_members:
         role = ana.roles.get(node.name)
         k = node.kind
         if role == ACC or ana.single_block:
-            raise StitchInfeasible(
+            causes.append(
                 f"{node.name}: accumulator roles are not emitted yet "
                 f"(ROADMAP Queue 2 stage 3, ACC roles)")
         if k in (OpKind.GEMM, OpKind.BATCHED_GEMM):
-            raise StitchInfeasible(
+            causes.append(
                 f"{node.name}: GEMM members are not emitted yet "
                 f"(ROADMAP Queue 2 stage 2, in-kernel GEMM)")
-        if k in (OpKind.CUSTOM, OpKind.SCATTER):
-            raise StitchInfeasible(
+            continue
+        if k in (OpKind.CUSTOM, OpKind.SCATTER, OpKind.TUPLE):
+            # a TUPLE member only carries a multi-output custom's results
+            causes.append(
                 f"{node.name}: custom members are not emitted yet "
                 f"(ROADMAP Queue 2 stage 5, registered customs)")
-        if k in (OpKind.SLICE, OpKind.GATHER, OpKind.TUPLE):
-            raise StitchInfeasible(
-                f"{node.name}: {k.value} members are not emitted yet "
-                f"(ROADMAP Queue 2 stage 1, data movement)")
-        _check_dtype(node)
-        row = role == ROW
+            continue
+        causes += _dtype_causes(node)
         if k is OpKind.ELEMENTWISE:
             op = node.attrs["op"]
             if op not in ("convert", "integer_pow", "select") \
                     and op not in _FLOAT_EW and op not in _INT_EW \
                     and op not in _BOOL_EW and op not in _CMP:
-                raise StitchInfeasible(f"{node.name}: elementwise op {op!r}")
+                causes.append(f"{node.name}: elementwise op {op!r}")
             for o in node.operands:
                 if g[o].shape and g[o].shape != node.shape:
                     # size-1 broadcasts are explicit by now
                     # (explicit_broadcasts); any other mismatch is refused
-                    raise StitchInfeasible(
+                    causes.append(
                         f"{node.name}: operand {o} of shape {g[o].shape} does "
                         f"not broadcast to {node.shape} by size-1 dims")
-        elif k is OpKind.RESHAPE:
-            src = g[node.operands[0]]
-            a = _kernel_dims(src.shape, row)
-            b = _kernel_dims(node.shape, row)
-            if a != b and any(_pow2(d) != d for d in a + b):
-                raise StitchInfeasible(
-                    f"{node.name}: reshape of non-power-of-two trailing dims "
-                    f"(ROADMAP Queue 2 stage 1)")
-        elif k is OpKind.TRANSPOSE:
-            src = g[node.operands[0]]
-            moved = [a for a in node.attrs["perm"] if src.shape[a] != 1]
-            if moved != sorted(moved):
-                raise StitchInfeasible(
-                    f"{node.name}: transpose moves an axis "
-                    f"(ROADMAP Queue 2 stage 1)")
         elif k is OpKind.REDUCTION:
             if node.attrs.get("op", "sum") not in _NEUTRAL:
-                raise StitchInfeasible(
+                causes.append(
                     f"{node.name}: reduce op {node.attrs.get('op')!r}")
-    for name in set(p.external_inputs) | {n.name for n in p.compute_members}:
-        node = g[name]
-        row = ana.roles[name] == ROW
-        elems = math.prod(_pow2(d) for d in _kernel_dims(node.shape, row))
-        if elems > MAX_BLOCK_ELEMS:
-            raise StitchInfeasible(
-                f"{name}: a row of {elems} padded elements exceeds one block "
-                f"({MAX_BLOCK_ELEMS}); wide rows are not tiled yet")
+    if causes:
+        return causes, None, None
+    try:
+        em = _Emitter(p, ana, ana.feasible_blocks[0], aliases)
+        return [], em, em.run()
+    except StitchInfeasible as err:
+        return [str(err)], None, None
 
 
-def _check_dtype(node: OpNode) -> None:
+def check_emittable(p: FusionPattern, ana: StitchAnalysis) -> None:
+    """The emitter's static feasibility check (made at tune time).  Raises
+    :class:`StitchInfeasible` with the first of :func:`emittable_causes`."""
+    _checked(p, ana)
+
+
+def _checked(p, ana, aliases=None) -> tuple[_Emitter, _Emitted]:
+    causes, em, emitted = _rendered(p, ana, aliases)
+    if causes:
+        raise StitchInfeasible(causes[0])
+    return em, emitted
+
+
+def _dtype_causes(node: OpNode) -> list[str]:
     if str(node.dtype) not in _TL_DTYPES:
-        raise StitchInfeasible(f"{node.name}: dtype {node.dtype} not emitted")
+        return [f"{node.name}: dtype {node.dtype} not emitted"]
+    return []
 
 
 # ---------------------------------------------------------------------------
@@ -506,31 +602,56 @@ def layout_only(p: FusionPattern) -> bool:
 
 
 def _view_base(g: Graph, name: str) -> str:
-    """The node whose bytes ``name`` views: back through layout members."""
-    while not g[name].is_source() and layout_member(g[name], g):
+    """The node whose bytes ``name`` views: back through layout members and
+    slices of one run of elements."""
+    while not g[name].is_source() and _contiguous_part(g[name], g) is not None:
         name = g[name].operands[0]
     return name
 
 
-def view_refusal(p: FusionPattern) -> str | None:
-    """Why a layout-only pattern must not be served as views, or None.  A
+def input_run(p: FusionPattern, name: str) -> tuple[str, int] | None:
+    """(external input, element offset) when ``name`` is a run of an
+    input's contiguous elements in their order (layout members, slices of
+    one run), else None."""
+    g, off = p.graph, 0
+    while name not in p.external_inputs:
+        part = _contiguous_part(g[name], g)
+        if part is None:
+            return None
+        off += part
+        name = g[name].operands[0]
+    return name, off
+
+
+def alias_refusal(g: Graph, name: str) -> str | None:
+    """Why ``name`` must not be a view of the bytes it views, or None.  A
     view aliases its input, so a graph output must not be one whose bytes
     a caller also holds: not a view of a graph input (the engine writes its
     KV cache and its inputs in place between calls), and not one whose
     bytes another graph output views too.  Within a call nothing writes in
     place."""
-    g = p.graph
     outs = set(g.outputs)
-    for n in p.external_outputs:
-        if n not in outs:
-            continue
-        base = _view_base(g, n)
-        if g[base].is_source():
-            return f"graph output {n} would view graph input {base}"
-        if base in outs or any(o != n and _view_base(g, o) == base
-                               for o in outs):
-            return f"graph output {n} would share {base} with another output"
+    if name not in outs:
+        return None
+    base = _view_base(g, name)
+    if g[base].is_source():
+        return f"graph output {name} would view graph input {base}"
+    if base in outs or any(o != name and _view_base(g, o) == base
+                           for o in outs):
+        return f"graph output {name} would share {base} with another output"
     return None
+
+
+def view_outputs(p: FusionPattern) -> dict[str, tuple[str, int]]:
+    """The outputs of ``p`` returned as views of an input: each that is a
+    run of its elements (:func:`input_run`) and that :func:`alias_refusal`
+    allows, with its (input, element offset)."""
+    views = {}
+    for o in p.external_outputs:
+        run = input_run(p, o)
+        if run is not None and alias_refusal(p.graph, o) is None:
+            views[o] = run
+    return views
 
 
 # ---------------------------------------------------------------------------
@@ -616,6 +737,30 @@ def _fold_node(node: OpNode, g, rows: int, pre: dict) -> OpNode:
                     or _prefix_extents(src.shape, ks) != _prefix_extents(node.shape, k)):
                 raise fold_err
             attrs["perm"] = new
+    elif kind is OpKind.SLICE:
+        if bool(k) != bool(ks):
+            raise fold_err
+        if ks:
+            starts = tuple(attrs["starts"])
+            limits = tuple(attrs["limits"])
+            strides = tuple(attrs.get("strides") or (1,) * len(starts))
+            # the folded axes must be kept whole, and the slice must keep
+            # the folded rank (a trailing axis cut to extent 1 would move
+            # the fold's prefix)
+            if (any(starts[a] != 0 or limits[a] != src.shape[a]
+                    or strides[a] != 1 for a in range(ks))
+                    or len(shape) != 1 + len(src.shape) - ks):
+                raise fold_err
+            attrs["starts"] = (0,) + starts[ks:]
+            attrs["limits"] = (rows,) + limits[ks:]
+            attrs["strides"] = (1,) + strides[ks:]
+    elif kind is OpKind.GATHER:
+        ki = pre[node.operands[1]]
+        # a row-varying table would cross the rows; the indices carry them
+        if ks or bool(k) != bool(ki) or (k and tuple(shape) != (
+                (rows,) + tuple(g[node.operands[1]].shape[ki:])
+                + tuple(src.shape[1:]))):
+            raise fold_err
     else:
         raise StitchInfeasible(f"{node.name}: {kind.value} is not folded")
     return OpNode(node.name, kind, shape, node.dtype, node.operands, attrs)
@@ -632,8 +777,26 @@ def fold_rows(p: FusionPattern) -> tuple[FusionPattern, StitchAnalysis]:
     for emission; the data layout is unchanged (contiguous leading dims),
     so the kernel runs on the original tensors viewed as folded.  A pack
     folds when all its subgraphs share the folded row space."""
+    return _fold(p)[:2]
+
+
+def _fold(p: FusionPattern, aliases=None):
+    """:func:`fold_rows`, with the emitter and kernel of the check."""
+    last: StitchInfeasible | None = None
+    for rows in _fold_rows_candidates(p):
+        try:
+            fp = _folded_pattern(p, rows)
+            ana = _analyze_with_rows(fp, rows)
+            return (fp, ana) + _checked(fp, ana, aliases)
+        except StitchInfeasible as err:
+            last = err
+    raise last if last is not None else StitchInfeasible("no rows to fold")
+
+
+def _fold_rows_candidates(p: FusionPattern) -> list[int]:
+    """Row counts to fold to: the products of each boundary value's leading
+    dims, in order of first appearance."""
     g = p.graph
-    names = list(p.external_inputs) + [n.name for n in p.nodes]
     cands: list[int] = []
     for n in list(p.external_outputs) + list(p.external_inputs):
         shp = g[n].shape
@@ -642,29 +805,62 @@ def fold_rows(p: FusionPattern) -> tuple[FusionPattern, StitchAnalysis]:
             prod *= d
             if d != 1 and prod not in cands:
                 cands.append(prod)
-    last: StitchInfeasible | None = None
-    for rows in cands:
-        try:
-            pre = {n: _fold_prefix(g[n].shape, rows) for n in names}
-            fg = Graph(f"{g.name}/rows{rows}")
-            for n in p.external_inputs:
-                node = g[n]
-                fg.add(OpNode(n, node.kind if node.is_source() else OpKind.PARAMETER,
-                              _folded_shape(node.shape, rows, pre[n]),
-                              node.dtype, (), dict(node.attrs)))
-            for node in p.nodes:
-                if node.name not in fg:
-                    fg.add(_fold_node(node, g, rows, pre))
-            fg.mark_output(*p.external_outputs)
-            groups = getattr(p, "member_groups", None)
-            fp = (PackPattern(fg, p.members, p.origin, member_groups=groups)
-                  if groups else FusionPattern(fg, p.members, p.origin))
-            ana = _analyze_with_rows(fp, rows)
-            check_emittable(fp, ana)
-            return fp, ana
-        except StitchInfeasible as err:
-            last = err
-    raise last if last is not None else StitchInfeasible("no rows to fold")
+    return cands
+
+
+def _folded_pattern(p: FusionPattern, rows: int) -> FusionPattern:
+    """``p`` with every value's leading dims that multiply to ``rows``
+    folded into one row axis; raises StitchInfeasible when a member
+    crosses the folded rows."""
+    g = p.graph
+    names = list(p.external_inputs) + [n.name for n in p.nodes]
+    pre = {n: _fold_prefix(g[n].shape, rows) for n in names}
+    fg = Graph(f"{g.name}/rows{rows}")
+    for n in p.external_inputs:
+        node = g[n]
+        fg.add(OpNode(n, node.kind if node.is_source() else OpKind.PARAMETER,
+                      _folded_shape(node.shape, rows, pre[n]),
+                      node.dtype, (), dict(node.attrs)))
+    for node in p.nodes:
+        if node.name not in fg:
+            fg.add(_fold_node(node, g, rows, pre))
+    fg.mark_output(*p.external_outputs)
+    groups = getattr(p, "member_groups", None)
+    return (PackPattern(fg, p.members, p.origin, member_groups=groups)
+            if groups else FusionPattern(fg, p.members, p.origin))
+
+
+def refusal_causes(p: FusionPattern) -> list[str]:
+    """Every cause that keeps the emitter from rendering ``p`` (empty when
+    :func:`emission_plan` admits it): of ``p`` itself and of each of its
+    row folds, a form the analysis admits before one it refuses (the
+    refusal is then its one cause), then the form with the fewest causes
+    that no stage-1 work would remove, then the fewest causes."""
+    p = explicit_broadcasts(p)
+    forms: list[tuple[int, list[str]]] = []     # (analysis refused, causes)
+    try:
+        forms.append((0, emittable_causes(p, analyze_pattern(p))))
+    except StitchInfeasible as err:
+        forms.append((1, [str(err)]))
+    if forms[0][1]:
+        for rows in _fold_rows_candidates(p):
+            try:
+                fp = _folded_pattern(p, rows)
+                forms.append((0, emittable_causes(
+                    fp, _analyze_with_rows(fp, rows))))
+            except StitchInfeasible as err:
+                forms.append((1, [f"folded rows: {err}"]))
+    return min(forms, key=lambda f: (
+        f[0], sum(cause_stage(x) != 1 for x in f[1]), len(f[1])))[1]
+
+
+def cause_stage(cause: str) -> int | None:
+    """The ROADMAP Queue 2 stage a cause names, or None (a refusal of the
+    reference's own analysis, an op or dtype outside the vocabulary)."""
+    for s in (1, 2, 3, 5):
+        if f"stage {s}" in cause:
+            return s
+    return None
 
 
 def _implicit_dims(shape, out) -> bool:
@@ -725,18 +921,38 @@ def explicit_broadcasts(p: FusionPattern) -> FusionPattern:
 def emission_plan(p: FusionPattern) -> tuple[FusionPattern, StitchAnalysis]:
     """The pattern the emitter renders and its analysis: ``p`` itself (its
     implicit size-1 broadcasts spelled out, :func:`explicit_broadcasts`)
-    when the reference's analysis admits it, else its row-folded form.
-    When neither is emitted, the StitchInfeasible names both reasons."""
+    when the reference's analysis admits it and its rows fit a tile, else
+    its row-folded form (when that too is refused, ``p`` with its wide rows
+    swept chunk by chunk).  When neither is emitted, the StitchInfeasible
+    names both reasons."""
+    return _emission(p)[:2]
+
+
+def _emission(p: FusionPattern, aliases=None):
+    """:func:`emission_plan`, with the kernel its check rendered at the
+    chosen form's first row block (``aliases`` returned as views)."""
     p = explicit_broadcasts(p)
     try:
         ana = analyze_pattern(p)
-        check_emittable(p, ana)
-        return p, ana
+        em, emitted = _checked(p, ana, aliases)
     except StitchInfeasible as err:
         try:
-            return fold_rows(p)
+            fp, fana, _, emitted = _fold(p, aliases)
         except StitchInfeasible as fold_err:
             raise StitchInfeasible(f"{err}; folded rows: {fold_err}") from None
+        return fp, fana, emitted
+    if any(pl.chunk or any(em.role(o) == ROW
+                           and em.row_elems(o, pl) > MAX_BLOCK_ELEMS
+                           for o in pl.copies) for pl in em.plans):
+        # rows too wide for one tile: one row per token where the fold
+        # admits it, before sweeping each wide row chunk by chunk (or
+        # copying it with one program a few rows)
+        try:
+            fp, fana, _, emitted = _fold(p, aliases)
+            return fp, fana, emitted
+        except StitchInfeasible:
+            pass
+    return p, ana, emitted
 
 
 @dataclass
@@ -751,6 +967,16 @@ class _Emitted:
     out_dtypes: list[str]
     layout: str = "rows"       # "rows" | "flat"
     block: int = 0             # elements a program ("flat" layout)
+    # scratch j: (elements, dtype) of the workspace the wrapper allocates
+    # for a value the kernel stores and reloads at other offsets
+    scratch: tuple = ()
+    # external inputs a wide row's sweeps read again (one name per extra
+    # read), and the sweeps over a row (0: the row fits one tile)
+    rereads: tuple = ()
+    sweeps: int = 0
+    # outputs returned as views of an input, not stored: (output, input,
+    # element offset)
+    view_outs: tuple = ()
 
 
 # the flat layout's programs: a warp's 32 threads load 16 bytes each of the
@@ -782,35 +1008,90 @@ def flat_elements(p: FusionPattern, ana: StitchAnalysis) -> int:
         if m.kind is OpKind.BROADCAST and g[m.operands[0]].size != 1 \
                 and not layout_member(m, g):
             return 0
+        if m.kind in (OpKind.SLICE, OpKind.GATHER) or (
+                m.kind is OpKind.TRANSPOSE and not layout_member(m, g)):
+            return 0                # moves elements: not the same order
     return n
+
+
+# elements of a wide row a sweep step holds at most, and the elements a
+# copy loop moves a step
+COPY_BLOCK = 4096
+
+_MOVES = (OpKind.RESHAPE, OpKind.TRANSPOSE, OpKind.SLICE, OpKind.GATHER)
+
+
+class _Plan:
+    """How one subgraph is rendered (:meth:`_Emitter.plan`): each member's
+    route to its tile, the values stored to scratch, the tiles the kernel
+    holds, the outputs copied through their views, and for a wide row the
+    chunked axis of each tile and the sweep (level) that completes each
+    value."""
+
+    def __init__(self):
+        self.route: dict[str, str] = {}
+        self.spills: list[str] = []
+        self.need: set[str] = set()
+        self.copies: list[str] = []
+        self.chunk: dict[str, int] = {}     # tile -> chunked logical axis
+        self.group: dict[str, int] = {}     # tile -> its chunk group
+        # chunk group -> (the chunked axis's extent, its elements a step)
+        self.loops: list[tuple[int, int]] = []
+        self.level: dict[str, int] = {}
+        self.sweeps = 0
 
 
 class _Emitter:
     """Renders a pattern in one of two layouts.  ``"rows"``: each program
     owns ``block_r`` rows of R, a value a register tile of its padded
-    trailing dims.  ``"flat"`` (:func:`flat_elements`, chosen here unless
-    ``layout="rows"`` is asked): each program owns ``block`` consecutive
-    elements, 16-byte accesses, enough programs to spread a decode step's
-    few rows over the SMs; every element's arithmetic is the rows layout's
-    expression for expression, so the outputs are the same bits."""
+    trailing dims.  ``"flat"`` (:func:`flat_elements`): each program owns
+    ``block`` consecutive elements, 16-byte accesses, enough programs to
+    spread a decode step's few rows over the SMs; every element's
+    arithmetic is the rows layout's expression for expression.
+
+    Data movement (the rows layout).  A slice, a transpose, a reshape, a
+    broadcast or a gather of a value in memory (an external input, or a
+    value stored to scratch) is a :class:`_View`: its index map is composed
+    into the consumer's load, and nothing moves before.  A reshape of a
+    register tile stays in registers where the padded tile allows it (the
+    same kernel dims, or every kernel axis but the first a power of two on
+    both sides and the padded totals equal: then the padded offset of each
+    real element is its logical offset), and a transpose is ``tl.permute``
+    of the padded tile.  Everything else of a computed value goes through
+    a program-private scratch: the tile is stored, the program's threads
+    meet at ``tl.debug_barrier()``, and the consumer loads at its own
+    offsets (the TPU kernel's block composition through VMEM scratch; the
+    workspace is the wrapper's, a few KB a program, and stays in L2).  An
+    output whose every member is data movement of the inputs is copied
+    through its view, a flat loop over its elements (an invariant output
+    split across the programs).
+
+    An output in ``aliases`` (:func:`view_outputs`) is a view of an input,
+    made by the wrapper: the kernel stores nothing for it.
+
+    Wide rows.  A tile of more than ``MAX_BLOCK_ELEMS`` padded elements a
+    row is held a chunk of its outermost kernel axis at a time, with every
+    tile that axis flows into element by element (a chunk group): the
+    kernel loops over the chunks.  A row reduction over that axis (or a
+    chunked value stored to scratch) completes only after the whole row:
+    it takes one sweep of the loop, and what depends on it a later sweep
+    that loads the inputs again and recomputes the chunk.  A group of
+    invariant tiles alone, the same in every program, deals its chunks out
+    to the programs."""
 
     def __init__(self, p: FusionPattern, ana: StitchAnalysis, rb: int,
-                 layout: str | None = None):
+                 aliases: dict | None = None):
         self.p = p
         self.g = p.graph
+        # output -> (input, element offset): the outputs returned as views
+        self.aliases = aliases or {}
         self.ana = ana
         self.rows = ana.rows
         self.lines: list[str] = []
         self.vals: dict[str, _Val] = {}
+        self.views: dict[str, _View] = {}
         self.nvar = 0
         self.indent = 1
-        widest = 1
-        for name in set(p.external_inputs) | {n.name for n in p.compute_members}:
-            if ana.roles[name] == ROW:
-                widest = max(widest, math.prod(
-                    _pow2(d) for d in _kernel_dims(self.g[name].shape, True)))
-        cap = max(1, MAX_BLOCK_ELEMS // widest)
-        self.block_r = min(_pow2(min(rb, self.rows)), 1 << (cap.bit_length() - 1))
         # a horizontal pack's independent subgraphs take consecutive ranges
         # of programs, so a program holds one subgraph's block, never the
         # whole pack's (the cost model's register gate assumes exactly this)
@@ -822,12 +1103,22 @@ class _Emitter:
             self.subgraphs.sort(key=lambda sub: members.index(sub[0]))
         else:
             self.subgraphs = [members]
+        self.plans = [self.plan(sub) for sub in self.subgraphs]
+        widest = 1
+        for pl in self.plans:
+            for name in pl.need:
+                if self.role(name) == ROW:
+                    widest = max(widest, self.row_elems(name, pl))
+        cap = max(1, MAX_BLOCK_ELEMS // widest)
+        self.block_r = min(_pow2(min(rb, self.rows)), 1 << (cap.bit_length() - 1))
         self.blocks = -(-self.rows // self.block_r)
         self.grid = self.blocks * len(self.subgraphs)
         tile = self.block_r * widest
+        if any(pl.copies for pl in self.plans):
+            tile = max(tile, COPY_BLOCK)   # a copy loop's step
         self.num_warps = (1 if tile <= 256 else 2 if tile <= 1024
                           else 4 if tile <= 4096 else 8)
-        self.flat = flat_elements(p, ana) if layout != "rows" else 0
+        self.flat = flat_elements(p, ana)
         if self.flat:
             names = list(p.external_inputs) + [n.name for n in p.compute_members]
             item = max(1 if str(self.g[n].dtype) == "bool"
@@ -848,6 +1139,11 @@ class _Emitter:
             else:
                 self.num_warps, self.block, self.grid = num_warps, block, grid
                 self.block_r = block       # a flat value's tile: (block,)
+        self.pl = self.plans[0]
+        self.scratch: list[tuple[int, str]] = []
+        self.sweep = 0                     # the sweep being rendered (1-based)
+        self.spread = False                # its chunks dealt out to programs
+        self.sweep_reads: set[tuple[int, str]] = set()
 
     # -- small helpers ---------------------------------------------------------
     def var(self) -> str:
@@ -857,29 +1153,95 @@ class _Emitter:
     def emit(self, line: str) -> None:
         self.lines.append("    " * self.indent + line)
 
+    def role(self, name: str) -> str:
+        return self.ana.roles[name]
+
     def arange(self, n_axes: int, axis: int, size: int) -> str:
         idx = ", ".join(":" if i == axis else "None" for i in range(n_axes))
         return f"tl.arange(0, {size})" + (f"[{idx}]" if n_axes > 1 else "")
 
-    def index_and_mask(self, shape: tuple[int, ...], row: bool):
-        """Offsets and mask of a contiguous tensor of logical ``shape``
-        laid over this value's kernel axes."""
-        strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]
-        start = 1 if row else 0
-        axes = [(i, d) for i, d in enumerate(shape) if i >= start and d != 1]
-        n = start + len(axes)
-        terms, masks = [], []
-        if row:
-            r = "rows" + ("" if n == 1 else
-                          "[" + ", ".join([":"] + ["None"] * (n - 1)) + "]")
-            terms.append(f"{r} * {strides[0]}")
-            masks.append(f"({r} < {self.rows})")
-        for k, (i, d) in enumerate(axes):
-            a = self.arange(n, k + start, _pow2(d))
-            terms.append(f"{a} * {strides[i]}" if strides[i] != 1 else a)
-            if _pow2(d) != d:
-                masks.append(f"({a} < {d})")
-        return " + ".join(terms) or "0", " & ".join(masks) or None
+    def kaxes(self, name: str) -> list[int]:
+        """The logical axes of ``name`` that are kernel axes, in order: the
+        row axis of a ROW value, then every other axis of extent > 1."""
+        row = self.role(name) == ROW
+        return ([0] if row else []) + [
+            i for i, d in enumerate(self.g[name].shape)
+            if d != 1 and not (row and i == 0)]
+
+    def row_elems(self, name: str, pl: _Plan) -> int:
+        """Padded elements a row of ``name``'s tile holds (a chunk of its
+        chunked axis, where it has one)."""
+        node = self.g[name]
+        row = self.role(name) == ROW
+        n = 1
+        for i, d in enumerate(node.shape):
+            if d == 1 or (row and i == 0):
+                continue
+            n *= (pl.loops[pl.group[name]][1] if pl.chunk.get(name) == i
+                  else _pow2(d))
+        return n
+
+    def new_val(self, name: str) -> _Val:
+        node = self.g[name]
+        if self.flat:               # a flat value is N elements or a scalar
+            return _Val(self.var(), node.size == self.flat, (),
+                        str(node.dtype))
+        row = self.role(name) == ROW
+        v = _Val(self.var(), row, _kernel_dims(node.shape, row),
+                 str(node.dtype))
+        axis = self.pl.chunk.get(name)
+        if axis is not None:
+            v.chunk = self.kaxes(name).index(axis)
+            v.ch = self.pl.loops[self.pl.group[name]][1]
+        return v
+
+    def ctx(self, name: str):
+        """The index expression of each logical axis of ``name`` over its
+        tile in the current scope, and the mask of the tile's real lanes."""
+        node = self.g[name]
+        row = self.role(name) == ROW
+        kax = self.kaxes(name)
+        n = len(kax)
+        chunk = self.pl.chunk.get(name)
+        ch = self.pl.loops[self.pl.group[name]][1] if chunk is not None else 0
+        exprs, masks = [], []
+        for i, d in enumerate(node.shape):
+            if row and i == 0:
+                r = "rows" + ("" if n == 1 else
+                              "[" + ", ".join([":"] + ["None"] * (n - 1)) + "]")
+                exprs.append(r)
+                masks.append(f"({r} < {self.rows})")
+            elif d == 1:
+                exprs.append("0")
+            elif chunk == i:
+                k = kax.index(i)
+                idx = ", ".join(":" if j == k else "None" for j in range(n))
+                a = "ck" + (f"[{idx}]" if n > 1 else "")
+                exprs.append(a)
+                if d % ch:
+                    masks.append(f"({a} < {d})")
+            else:
+                a = self.arange(n, kax.index(i), _pow2(d))
+                exprs.append(a)
+                if _pow2(d) != d:
+                    masks.append(f"({a} < {d})")
+        return exprs, " & ".join(masks) or None
+
+    def offsets(self, name: str):
+        """Offsets and mask of ``name``'s tile in a contiguous tensor of its
+        logical shape (global rows for a ROW value)."""
+        node = self.g[name]
+        exprs, mask = self.ctx(name)
+        strides = _strides(node.shape)
+        terms = []
+        for i, (e, s) in enumerate(zip(exprs, strides)):
+            if e == "0":
+                continue
+            if i == 0 and self.role(name) == ROW:
+                terms.append(f"{e} * {s}")
+            else:
+                terms.append(f"{e} * {s}" if s != 1 else e)
+        return " + ".join(terms) or "0", mask
 
     def axis_masks(self, v: _Val, axes: list[int]) -> str | None:
         """Mask of the padded lanes on the given kernel axes of ``v``."""
@@ -888,18 +1250,389 @@ class _Emitter:
         masks = []
         for ax in axes:
             d = v.dims[ax - off]
-            if _pow2(d) != d:
+            if ax == v.chunk:
+                if d % v.ch:
+                    idx = ", ".join(":" if j == ax else "None" for j in range(n))
+                    masks.append("(ck" + (f"[{idx}]" if n > 1 else "")
+                                 + f" < {d})")
+            elif _pow2(d) != d:
                 masks.append(f"({self.arange(n, ax, _pow2(d))} < {d})")
         return " & ".join(masks) or None
 
-    def new_val(self, name: str) -> _Val:
+    # -- planning --------------------------------------------------------------
+    def reg_route(self, node: OpNode) -> str | None:
+        """How a reshape or transpose of a register tile stays in registers
+        ("alias", "reshape", "permute"), or None."""
+        src = self.g[node.operands[0]]
+        row = self.role(node.name) == ROW
+        if node.kind is OpKind.RESHAPE:
+            a = _kernel_dims(src.shape, row)
+            b = _kernel_dims(node.shape, row)
+            if a == b:
+                return "alias"
+            if (all(_pow2(d) == d for d in a[1:] + b[1:])
+                    and math.prod(map(_pow2, a)) == math.prod(map(_pow2, b))):
+                return "reshape"
+            return None
+        if node.kind is OpKind.TRANSPOSE:
+            kept = [a for a in node.attrs["perm"] if src.shape[a] != 1]
+            return "alias" if kept == sorted(kept) else "permute"
+        return None
+
+    def plan(self, sub: list[OpNode]) -> _Plan:
+        no_reg: set[str] = set()
+        while True:
+            pl = self._plan(sub, no_reg)
+            if isinstance(pl, _Plan):
+                return pl
+            no_reg |= pl
+
+    def _plan(self, sub, no_reg):
+        g = self.g
+        ins = set(self.p.external_inputs)
+        outs = [n.name for n in sub if n.name in self.p.external_outputs]
+        pl = _Plan()
+        has_view = {n: True for n in ins}
+        for m in sub:
+            k, ops, name = m.kind, m.operands, m.name
+            if k is OpKind.GATHER:
+                for o in ops:
+                    if not has_view.get(o):
+                        pl.spills.append(o)
+                        has_view[o] = True
+                pl.route[name], has_view[name] = "load", True
+            elif k in _MOVES:
+                u = ops[0]
+                reg = None if name in no_reg else self.reg_route(m)
+                if has_view.get(u):
+                    # a tile from the operand's tile where that is only a
+                    # rename or a reshape in registers, else a load
+                    pl.route[name] = reg if reg in ("alias", "reshape") else "load"
+                    has_view[name] = True
+                elif reg:
+                    pl.route[name], has_view[name] = reg, False
+                else:
+                    pl.spills.append(u)
+                    has_view[u] = True
+                    pl.route[name], has_view[name] = "load", True
+            elif k is OpKind.BROADCAST:
+                pl.route[name] = "compute"
+                has_view[name] = bool(has_view.get(ops[0]))
+            else:
+                pl.route[name], has_view[name] = "compute", False
+        need = set(pl.spills) | {o for o in outs if not has_view[o]}
+        for m in reversed(sub):
+            if m.name in need and pl.route[m.name] != "load":
+                need.update(m.operands)
+        pl.need = need
+        pl.copies = [o for o in outs if o not in need]
+        # wide rows: chunk the outermost kernel axis of a tile too wide for
+        # one block, and that axis of every tile it flows through element
+        # by element (a chunk group); then the next wide tile not reached
+        wide = [n for n in sorted(need)
+                if self.row_elems(n, pl) > MAX_BLOCK_ELEMS]
+        if not wide:
+            return pl
+        chunk: dict[str, int] = {}
+        group: dict[str, int] = {}
+        parent: list[int] = []
+        boundary: set[str] = set()
+
+        def root(c: int) -> int:
+            while parent[c] != c:
+                c = parent[c]
+            return c
+
+        def label(n, a, c) -> bool:
+            if n not in need:
+                return False
+            if n in chunk:
+                if chunk[n] != a:
+                    raise StitchInfeasible(
+                        f"{n}: a wide row chunked along two axes "
+                        f"(ROADMAP Queue 2 stage 1, wide rows)")
+                r1, r2 = root(group[n]), root(c)
+                if r1 == r2:
+                    return False
+                parent[r1] = r2
+                return True
+            chunk[n], group[n] = a, c
+            return True
+
+        for seed in wide:
+            if seed in chunk:
+                continue
+            parent.append(len(parent))
+            kax = [a for a in self.kaxes(seed)
+                   if not (self.role(seed) == ROW and a == 0)]
+            label(seed, kax[0], parent[-1])
+            changed = True
+            while changed:
+                changed = False
+                for m in sub:
+                    if m.name not in need:
+                        continue
+                    r = pl.route[m.name]
+                    if r in ("alias", "reshape", "permute"):
+                        if m.name in chunk or m.operands[0] in chunk:
+                            return {m.name}         # retry: no register route
+                        continue
+                    if r != "compute":
+                        continue
+                    changed |= self.propagate(m, chunk, group, label, boundary)
+        roots = sorted({root(c) for c in group.values()})
+        loops = []
+        for r in roots:
+            tiles = [n for n in chunk if root(group[n]) == r]
+            extents = {g[n].shape[chunk[n]] for n in tiles}
+            if len(extents) != 1:
+                raise StitchInfeasible(
+                    f"wide rows chunked along axes of extents "
+                    f"{sorted(extents)} (ROADMAP Queue 2 stage 1, wide rows)")
+            wc = extents.pop()
+            rest = max(math.prod(_pow2(d) for i, d in enumerate(g[n].shape)
+                                 if d != 1 and i != chunk[n]
+                                 and not (self.role(n) == ROW and i == 0))
+                       for n in tiles)
+            if rest > MAX_BLOCK_ELEMS:
+                raise StitchInfeasible(
+                    f"{tiles[0]}: a row whose axes off the chunked one "
+                    f"alone exceed one block ({rest} padded elements; "
+                    f"ROADMAP Queue 2 stage 1, wide rows)")
+            ch = min(_pow2(wc), MAX_BLOCK_ELEMS // rest)
+            loops.append((wc, 1 << (ch.bit_length() - 1)))
+        pl.chunk = chunk
+        pl.group = {n: roots.index(root(c)) for n, c in group.items()}
+        pl.loops = loops
+        for n in need:
+            if n not in chunk and self.row_elems(n, pl) > MAX_BLOCK_ELEMS:
+                raise StitchInfeasible(
+                    f"{n}: a row of {self.row_elems(n, pl)} padded elements "
+                    f"off the chunked axis (ROADMAP Queue 2 stage 1, wide rows)")
+        # levels: a boundary (a reduction over the chunked axis, a chunked
+        # value stored to scratch) completes one sweep after its operand
+        lvl = {n: 0 for n in ins}
+
+        def view_level(o):
+            return lvl[o] + (1 if o in pl.spills and o in chunk else 0)
+
+        for m in sub:
+            if pl.route[m.name] == "load":
+                lv = max(view_level(o) for o in m.operands)
+            else:
+                lv = max((lvl[o] for o in m.operands), default=0)
+            lvl[m.name] = lv + (1 if m.name in boundary else 0)
+        pl.level = lvl
+        pl.sweeps = max([lvl[m] for m in boundary]
+                        + [lvl[o] + 1 for o in pl.spills if o in chunk] + [0])
+        if pl.sweeps and len(loops) > 1:
+            raise StitchInfeasible(
+                "sweeps over wide rows of two chunk groups "
+                "(ROADMAP Queue 2 stage 1, wide rows)")
+        return pl
+
+    def propagate(self, m: OpNode, chunk, group, label, boundary) -> bool:
+        """Carry a chunked axis across one computed member (either way)."""
+        g = self.g
+        ops = [o for o in m.operands if g[o].shape]
+        changed = False
+        if m.kind is OpKind.ELEMENTWISE:
+            for n in [m.name] + ops:
+                if n in chunk:
+                    for x in [m.name] + ops:
+                        changed |= label(x, chunk[n], group[n])
+                    break
+        elif m.kind is OpKind.BROADCAST:
+            dims = tuple(m.attrs["bcast_dims"])
+            src = m.operands[0]
+            if src in chunk:
+                changed |= label(m.name, dims[chunk[src]], group[src])
+            elif m.name in chunk:
+                for j, d in enumerate(g[src].shape):
+                    if dims[j] == chunk[m.name] and d != 1:
+                        changed |= label(src, j, group[m.name])
+        elif m.kind is OpKind.REDUCTION:
+            axes = set(m.attrs["axes"])
+            src = m.operands[0]
+            keep = bool(m.attrs.get("keepdims", False))
+            if src in chunk and chunk[src] in axes:
+                boundary.add(m.name)
+                if m.name in chunk:
+                    raise StitchInfeasible(
+                        f"{m.name}: a wide row chunked along two axes "
+                        f"(ROADMAP Queue 2 stage 1, wide rows)")
+            elif src in chunk:
+                a = chunk[src]
+                changed |= label(m.name, a if keep else a - sum(
+                    x < a for x in axes), group[src])
+            elif m.name in chunk:
+                a = chunk[m.name]
+                if not keep:
+                    for x in sorted(axes):
+                        if x <= a:
+                            a += 1
+                changed |= label(src, a, group[m.name])
+        return changed
+
+    # -- views -----------------------------------------------------------------
+    def input_view(self, name: str, ptr: str) -> None:
         node = self.g[name]
-        if self.flat:               # a flat value is N elements or a scalar
-            return _Val(self.var(), node.size == self.flat, (),
-                        str(node.dtype))
-        row = self.ana.roles[name] == ROW
-        return _Val(self.var(), row, _kernel_dims(node.shape, row),
-                    str(node.dtype))
+        self.views[name] = _View(ptr, tuple(node.shape), str(node.dtype),
+                                 _same, name, True)
+
+    def ensure_view(self, name: str) -> _View:
+        v = self.views.get(name)
+        if v is not None:
+            return v
+        node = self.g[name]
+        if name in self.pl.spills:
+            if name in self.pl.chunk:          # stored by its sweep
+                raise StitchInfeasible(f"{name}: read before its sweep")
+            self.tile(name)                    # computes and stores it
+            return self.views[name]
+        srcs = [self.ensure_view(o) for o in node.operands]
+        if node.kind is OpKind.GATHER:
+            table, idx = srcs
+            m = len(self.g[node.operands[1]].shape)
+            n0 = self.g[node.operands[0]].shape[0]
+
+            def index(ctx, mask, table=table, idx=idx, m=m, n0=n0):
+                i = self.load_view(idx, ctx[:m], mask)
+                t = self.var()
+                self.emit(f"{t} = tl.where({i} < 0, {i} + {n0}, {i})")
+                return table.index([t] + list(ctx[m:]), mask)
+
+            v = _View(table.ptr, table.shape, table.dtype, index, table.base)
+        else:
+            src = srcs[0]
+            off = (_contiguous_part(node, self.g)
+                   if src.identity and node.kind in _MOVES else None)
+            if off is not None:
+                # the same bytes (from an offset) under the value's shape
+                ptr = f"({src.ptr} + {off})" if off else src.ptr
+                v = _View(ptr, tuple(node.shape), src.dtype, _same, src.base,
+                          True)
+            else:
+                def index(ctx, mask, node=node, src=src):
+                    return src.index(self.compose(node, list(ctx)), mask)
+
+                v = _View(src.ptr, src.shape, src.dtype, index, src.base)
+        self.views[name] = v
+        return v
+
+    def compose(self, node: OpNode, ctx: list[str]) -> list[str]:
+        """Index expressions over the operand's axes from those over
+        ``node``'s: the inverse map of one data-movement member."""
+        src = self.g[node.operands[0]].shape
+        k = node.kind
+        if k is OpKind.SLICE:
+            starts = node.attrs["starts"]
+            steps = node.attrs.get("strides") or (1,) * len(src)
+            out = []
+            for e, s, st in zip(ctx, starts, steps):
+                e = _times(e, st)
+                out.append(e if not s else str(s) if e == "0" else f"{e} + {s}")
+            return out
+        if k is OpKind.TRANSPOSE:
+            out = [None] * len(src)
+            for j, a in enumerate(node.attrs["perm"]):
+                out[a] = ctx[j]
+            return out
+        if k is OpKind.BROADCAST:
+            dims = tuple(node.attrs["bcast_dims"])
+            return [ctx[dims[j]] if d != 1 else "0" for j, d in enumerate(src)]
+        # RESHAPE: through the linear offset (the row axis of a ROW value
+        # stays; only its trailing dims are reshaped)
+        dst = node.shape
+        start = 1 if (self.role(node.name) == ROW and src and dst
+                      and src[0] == dst[0] == self.rows) else 0
+        dstr = _strides(dst)
+        lin = _sum(_times(ctx[i], dstr[i]) for i in range(start, len(dst)))
+        t = self.var()
+        self.emit(f"{t} = {lin}")
+        out = list(ctx[:start])
+        sstr = _strides(src)
+        first = True
+        for j in range(start, len(src)):
+            if src[j] == 1:
+                out.append("0")
+                continue
+            q = t if sstr[j] == 1 else f"{t} // {sstr[j]}"
+            out.append(q if first else f"({q}) % {src[j]}")
+            first = False
+        return out
+
+    def load_view(self, v: _View, ctx, mask, kshape=None,
+                  into: str | None = None) -> str:
+        """Load a view at the index expressions ``ctx`` of its value's axes
+        (into the variable ``into``, else a new one); ``kshape`` is the
+        tile's shape (the offsets are spread to it)."""
+        bctx = v.index(list(ctx), mask)
+        offs = _sum(_times(e, s) for e, s in zip(bctx, _strides(v.shape)))
+        if kshape:
+            offs = f"tl.zeros({_shape_s(kshape)}, tl.int32) + {_par(offs)}"
+        t = self.var()
+        self.emit(f"{t} = {offs}")
+        val = f"tl.load({v.ptr} + {t}" + (f", mask={mask}, other=0)"
+                                           if mask else ")")
+        if v.dtype == "bool":
+            val = f"({val} != 0)"
+        x = into or self.var()
+        self.emit(f"{x} = {val}")
+        if self.sweep and v.base is not None:
+            self.sweep_reads.add((self.sweep, v.base))
+        return x
+
+    # -- tiles -----------------------------------------------------------------
+    def tile(self, name: str) -> _Val:
+        """``name``'s register tile in the current scope, rendered (with
+        what it needs) when it is not there yet."""
+        v = self.vals.get(name)
+        if v is not None:
+            return v
+        node = self.g[name]
+        if name in self.in_arg:
+            self.load(name, self.in_arg[name])
+        elif self.pl.route[name] == "load":
+            view = self.ensure_view(name)
+            v = self.new_val(name)
+            exprs, mask = self.ctx(name)
+            self.load_view(view, exprs, mask, v.kshape(self.block_r), v.var)
+            self.vals[name] = v
+        else:
+            for o in node.operands:
+                self.tile(o)
+            self.member(node)
+        if name in self.pl.spills and name not in self.pl.chunk:
+            self.spill(name)
+        return self.vals[name]
+
+    def spill(self, name: str, barrier: bool = True) -> None:
+        """Store ``name``'s tile to a scratch of its logical shape (global
+        rows of a ROW value; a region a program of an invariant one) and
+        make that the value's view."""
+        node = self.g[name]
+        v = self.vals[name]
+        j = self.scratch_of.get(name)
+        if j is None:
+            j = len(self.scratch)
+            size = node.size
+            numel = size if v.row else self.grid * size
+            self.scratch.append((numel, str(node.dtype)))
+            self.scratch_of[name] = j
+        ptr = f"ws{j}" if v.row else f"(ws{j} + prog * {node.size})"
+        if v.row or v.dims:
+            offs, mask = self.offsets(name)
+            val = f"{v.var}.to(tl.int8)" if v.dtype == "bool" else v.var
+            m = f", mask={mask}" if mask else ""
+            self.emit(f"tl.store({ptr} + ({offs}), {val}{m})")
+        else:
+            val = f"{v.var}.to(tl.int8)" if v.dtype == "bool" else v.var
+            self.emit(f"tl.store({ptr}, {val})")
+        if barrier:
+            self.emit("tl.debug_barrier()")
+        self.views[name] = _View(ptr, tuple(node.shape), str(node.dtype),
+                                 _same, None, True)
 
     # -- body ------------------------------------------------------------------
     def run(self) -> _Emitted:
@@ -915,16 +1648,27 @@ class _Emitter:
                     order.append(o)
         ext_out = list(p.external_outputs)
         outs = [n.name for n in members if n.name in ext_out]
+        view_outs = tuple((n,) + self.aliases[n] for n in outs
+                          if n in self.aliases)
+        outs = [n for n in outs if n not in self.aliases]
+        # what the wrapper does besides the source: the arguments' shapes
+        # and the views it makes, by position, so that one digest is one
+        # callable (a view-only input is an argument the body never reads)
+        sig = repr(([(g[n].shape, str(g[n].dtype)) for n in order],
+                    [(ext_out.index(o), order.index(i), off)
+                     for o, i, off in view_outs]))
+        self.in_arg = {name: f"in{i}" for i, name in enumerate(order)}
+        out_arg = {name: f"out{j}" for j, name in enumerate(outs)}
         params = ([f"in{i}" for i in range(len(order))]
                   + [f"out{j}" for j in range(len(outs))])
-        in_arg = {name: f"in{i}" for i, name in enumerate(order)}
-        out_arg = {name: f"out{j}" for j, name in enumerate(outs)}
         self.lines = []
         if self.flat:
-            return self._run_flat(order, outs, in_arg, out_arg, params)
+            return self._run_flat(order, outs, self.in_arg, out_arg, params,
+                                  sig, view_outs)
+        self.scratch_of: dict[str, int] = {}
         self.emit("prog = tl.program_id(0)")
-        for s, sub in enumerate(self.subgraphs):
-            self.vals = {}
+        for s, (sub, pl) in enumerate(zip(self.subgraphs, self.plans)):
+            self.vals, self.views, self.pl = {}, {}, pl
             if len(self.subgraphs) > 1:
                 self.emit(f"if prog // {self.blocks} == {s}:")
                 self.indent = 2
@@ -936,31 +1680,265 @@ class _Emitter:
             loaded = []
             for node in sub:
                 for o in node.operands:
-                    if o in in_arg and o not in loaded:
+                    if o in self.in_arg and o not in loaded:
                         loaded.append(o)
             for name in loaded:
-                self.load(name, in_arg[name])
-            for node in sub:
-                self.member(node)
-            for name in outs:
-                if name in names:
+                self.input_view(name, self.in_arg[name])
+            for name in loaded:
+                if name in pl.need and name not in pl.chunk:
+                    self.load(name, self.in_arg[name])
+            self.phase(sub, 0)
+            for lv in range(1, pl.sweeps + 1):
+                self.sweep_loop(sub, lv)
+                self.phase(sub, lv)
+            mine = [o for o in outs if o in names]
+            for j in range(len(pl.loops)):
+                wide = [o for o in mine if o in pl.need and o in pl.chunk
+                        and pl.group[o] == j]
+                if not wide:
+                    continue
+                # a group of invariant tiles alone is the same in every
+                # program: each program takes its share of the chunks
+                spread = not pl.sweeps and all(
+                    self.role(n) != ROW for n, k in pl.group.items() if k == j)
+                saved = self.loop(pl.sweeps + 1, j, spread)
+                for name in wide:
+                    self.store(name, out_arg[name])
+                self.end_loop(saved)
+            for name in mine:
+                if name in pl.copies and name in out_arg:
+                    self.copy(name, out_arg[name])
+            for name in mine:
+                if name in pl.need and name not in pl.chunk:
                     self.store(name, out_arg[name])
             self.indent = 1
+        params += [f"ws{j}" for j in range(len(self.scratch))]
         body = "\n".join(self.lines)
         src = (f"@triton.jit\ndef stitched_kernel({', '.join(params)}):\n"
                f"{body}\n")
-        digest = hashlib.sha1(src.encode()).hexdigest()[:16]
+        digest = hashlib.sha1(f"{sig}\n{src}".encode()).hexdigest()[:16]
+        sweeps = max(pl.sweeps + bool(pl.chunk) for pl in self.plans)
         header = (f"# generated stitched kernel {digest}: "
                   f"{len(p.compute_members)} ops, rows={self.rows}, "
                   f"block_r={self.block_r}, grid={self.grid}, "
-                  f"subgraphs={len(self.subgraphs)}\n")
+                  f"subgraphs={len(self.subgraphs)}"
+                  + (f", scratch={len(self.scratch)}" if self.scratch else "")
+                  + (f", sweeps={sweeps}" if sweeps else "") + "\n")
+        reads = Counter(name for _, name in self.sweep_reads)
         return _Emitted(
             source=_HEADER + header + src, digest=digest,
             block_r=self.block_r, grid=self.grid, num_warps=self.num_warps,
             in_names=order, out_names=outs,
-            out_dtypes=[str(g[n].dtype) for n in outs])
+            out_dtypes=[str(g[n].dtype) for n in outs],
+            scratch=tuple(self.scratch),
+            rereads=tuple(sorted(n for n, c in reads.items()
+                                 for _ in range(c - 1))),
+            sweeps=sweeps, view_outs=view_outs)
 
-    def _run_flat(self, order, outs, in_arg, out_arg, params) -> _Emitted:
+    def phase(self, sub, level: int) -> None:
+        """Every tile off the chunked axis that completes at ``level``, in
+        member order."""
+        pl = self.pl
+        for m in sub:
+            if (m.name in pl.need and m.name not in pl.chunk
+                    and pl.level.get(m.name, 0) == level):
+                self.tile(m.name)
+
+    def loop(self, sweep: int, group: int = 0, spread: bool = False) -> dict:
+        """Enter a loop over the chunks of a chunk group's axis (``spread``:
+        the chunks dealt out to the subgraph's programs in turn, for tiles
+        every program holds alike)."""
+        wc, ch = self.pl.loops[group]
+        start, step = ((f"pid * {ch}", self.blocks * ch) if spread
+                       else ("0", ch))
+        self.emit(f"for c0 in range({start}, {wc}, {step}):")
+        self.indent += 1
+        self.emit(f"ck = c0 + tl.arange(0, {ch})")
+        self.sweep, self.spread = sweep, spread
+        return dict(self.vals)
+
+    def end_loop(self, saved: dict) -> None:
+        """Leave a sweep's loop: its chunk tiles go out of scope."""
+        self.indent -= 1
+        self.sweep, self.spread = 0, False
+        self.vals = saved
+
+    def sweep_loop(self, sub, level: int) -> None:
+        """Sweep ``level`` over the wide rows: folds the reductions over the
+        chunked axis that complete at it, chunk by chunk, and stores the
+        chunked values its later sweeps load at other offsets."""
+        pl, g = self.pl, self.g
+        reds = [m for m in sub if m.kind is OpKind.REDUCTION
+                and m.operands[0] in pl.chunk and m.name not in pl.chunk
+                and pl.level.get(m.name) == level]
+        stores = [o for o in pl.spills if o in pl.chunk
+                  and pl.level[o] + 1 == level]
+        accs = {}
+        for r in reds:
+            out = self.new_val(r.name)
+            shape = out.kshape(self.block_r) or (1,)
+            op = r.attrs.get("op", "sum")
+            src_dt = str(g[r.operands[0]].dtype)
+            if _is_float(src_dt):
+                dt = "tl.float64" if src_dt == "float64" else "tl.float32"
+                init = _NEUTRAL[op]
+            else:
+                dt = "tl.int64" if op in ("sum", "mean") else _TL_DTYPES[src_dt]
+                init = {"max": str(_int_min(src_dt)),
+                        "min": str(_int_max(src_dt))}.get(op, "0")
+            acc = self.var()
+            self.emit(f"{acc} = tl.full({_shape_s(shape)}, {init}, {dt})")
+            accs[r.name] = (acc, out)
+        saved = self.loop(level)
+        for r in reds:
+            acc, out = accs[r.name]
+            part = self.reduce_expr(r, self.tile(r.operands[0]))
+            op = r.attrs.get("op", "sum")
+            fn = {"max": "tl.maximum", "min": "tl.minimum"}.get(op)
+            self.emit(f"{acc} = {fn}({acc}, {part})" if fn
+                      else f"{acc} = {acc} + {part}")
+        for o in stores:
+            self.tile(o)
+            self.spill(o, barrier=False)
+        self.end_loop(saved)
+        if stores:
+            self.emit("tl.debug_barrier()")
+        for r in reds:
+            acc, out = accs[r.name]
+            op = r.attrs.get("op", "sum")
+            expr = acc
+            if not out.kshape(self.block_r):      # a scalar held as (1,)
+                expr = f"{'tl.sum' if op in ('sum', 'mean') else 'tl.' + op}({acc}, axis=0)"
+            expr = self.finish_reduction(r, g[r.operands[0]], expr)
+            self.emit(f"{out.var} = {expr}")
+            self.vals[r.name] = out
+
+    def copy(self, name: str, ptr: str) -> None:
+        """Store an output that is data movement of the inputs straight from
+        its view: a loop over its elements, ``COPY_BLOCK`` a step (a ROW
+        output's rows of this program; an invariant output split across
+        the programs)."""
+        node = self.g[name]
+        view = self.ensure_view(name)
+        if self.role(name) == ROW:
+            tshape = tuple(node.shape[1:])
+            e_n = math.prod(tshape)
+            total = self.block_r * e_n
+            n = min(_pow2(total), COPY_BLOCK)
+            self.emit(f"for f0 in range(0, {total}, {n}):")
+            self.indent += 1
+            f = self.var()
+            self.emit(f"{f} = f0 + tl.arange(0, {n})")
+            r = self.var()
+            self.emit(f"{r} = pid * {self.block_r} + "
+                      + (f"{f} // {e_n}" if e_n != 1 else f))
+            if e_n != 1:
+                e = self.var()
+                self.emit(f"{e} = {f} % {e_n}")
+                offs = f"{r} * {e_n} + {e}"
+            else:
+                e, offs = "0", r
+            ctx = [r] + self.unflatten(e, tshape)
+            masks = [f"({r} < {self.rows})"] + (
+                [f"({f} < {total})"] if total % n else [])
+        else:
+            size = node.size
+            share = -(-size // self.blocks)
+            n = min(_pow2(share), COPY_BLOCK)
+            share = -(-share // n) * n
+            self.emit(f"for f0 in range(0, {share}, {n}):")
+            self.indent += 1
+            f = self.var()
+            self.emit(f"{f} = pid * {share} + f0 + tl.arange(0, {n})")
+            ctx = self.unflatten(f, tuple(node.shape))
+            offs, masks = f, [f"({f} < {size})"]
+        mask = " & ".join(masks)
+        if view.identity:           # the same order: a copy of a run
+            x = self.var()
+            val = f"tl.load({view.ptr} + {offs}, mask={mask}, other=0)"
+            self.emit(f"{x} = ({val} != 0)" if view.dtype == "bool"
+                      else f"{x} = {val}")
+        else:
+            x = self.load_view(view, ctx, mask, (n,))
+        val = f"{x}.to(tl.int8)" if str(node.dtype) == "bool" else x
+        self.emit(f"tl.store({ptr} + {offs}, {val}, mask={mask})")
+        self.indent -= 1
+
+    @staticmethod
+    def unflatten(e: str, shape) -> list[str]:
+        out, first = [], True
+        for d, s in zip(shape, _strides(shape)):
+            if d == 1:
+                out.append("0")
+                continue
+            q = e if s == 1 else f"{e} // {s}"
+            out.append(q if first else f"({q}) % {d}")
+            first = False
+        return out
+
+    def load(self, name: str, ptr: str) -> None:
+        v = self.new_val(name)
+        self.vals[name] = v
+        if not v.row and not v.dims:
+            val = f"tl.load({ptr})"
+        else:
+            offs, mask = self.offsets(name)
+            m = f", mask={mask}, other=0" if mask else ""
+            val = f"tl.load({ptr} + ({offs}){m})"
+        if v.dtype == "bool":
+            val = f"({val} != 0)"
+        self.emit(f"{v.var} = {val}")
+        if self.sweep:
+            self.sweep_reads.add((self.sweep, name))
+
+    def store(self, name: str, ptr: str) -> None:
+        v = self.tile(name)
+        val = v.var
+        if v.dtype == "bool":
+            val = f"{val}.to(tl.int8)"
+        if not v.row and not v.dims:
+            self.emit(f"tl.store({ptr}, {val}, mask=pid == 0)")
+            return
+        offs, mask = self.offsets(name)
+        if not v.row and not self.spread:
+            # every program holds the invariant value; program 0 writes it
+            mask = f"({mask}) & (pid == 0)" if mask else "pid == 0"
+        m = f", mask={mask}" if mask else ""
+        self.emit(f"tl.store({ptr} + ({offs}), {val}{m})")
+
+    def member(self, node: OpNode) -> None:
+        k = node.kind
+        ops = [self.vals[o] for o in node.operands]
+        v = self.new_val(node.name)
+        route = self.pl.route.get(node.name)
+        if k is OpKind.ELEMENTWISE:
+            expr = self.elementwise(node, ops)
+        elif k is OpKind.BROADCAST:
+            expr = self.broadcast(node, ops[0], v)
+        elif route == "alias":
+            expr = ops[0].var
+        elif route == "reshape":
+            shape = v.kshape(self.block_r)
+            expr = f"tl.reshape({ops[0].var}, ({', '.join(str(s) for s in shape)},))"
+        elif route == "permute":
+            expr = self.permute(node, ops[0])
+        elif k is OpKind.REDUCTION:
+            expr = self.reduction(node, ops[0], v)
+        else:  # pragma: no cover - the plan loads the other members
+            raise StitchInfeasible(f"cannot emit {k}")
+        self.emit(f"{v.var} = {expr}")
+        self.vals[node.name] = v
+
+    def permute(self, node: OpNode, src: _Val) -> str:
+        perm = tuple(node.attrs["perm"])
+        ka_src = self.kaxes(node.operands[0])
+        kperm = [ka_src.index(perm[j]) for j in self.kaxes(node.name)]
+        if kperm == sorted(kperm):
+            return src.var
+        return f"tl.permute({src.var}, ({', '.join(map(str, kperm))},))"
+
+    def _run_flat(self, order, outs, in_arg, out_arg, params, sig,
+                  view_outs) -> _Emitted:
         p, g, n = self.p, self.g, self.flat
         start = "tl.program_id(0)" + (".to(tl.int64)" if n >= 2 ** 31 else "")
         self.emit(f"offs = {start} * {self.block} + tl.arange(0, {self.block})")
@@ -999,7 +1977,7 @@ class _Emitter:
                f"{body}\n")
         # the source leaves out N where no mask needs it: the digest keeps
         # each N's kernel (its launches, its check on the card) apart
-        digest = hashlib.sha1(f"{n}\n{src}".encode()).hexdigest()[:16]
+        digest = hashlib.sha1(f"{n}\n{sig}\n{src}".encode()).hexdigest()[:16]
         header = (f"# generated stitched kernel {digest}: "
                   f"{len(p.compute_members)} ops, flat over {n} elements, "
                   f"block={self.block}, grid={self.grid}\n")
@@ -1007,56 +1985,7 @@ class _Emitter:
             source=_HEADER + header + src, digest=digest, block_r=0,
             grid=self.grid, num_warps=self.num_warps, in_names=order,
             out_names=outs, out_dtypes=[str(g[n].dtype) for n in outs],
-            layout="flat", block=self.block)
-
-    def load(self, name: str, ptr: str) -> None:
-        node = self.g[name]
-        v = self.new_val(name)
-        self.vals[name] = v
-        if not v.row and not v.dims:
-            val = f"tl.load({ptr})"
-        else:
-            offs, mask = self.index_and_mask(node.shape, v.row)
-            m = f", mask={mask}, other=0" if mask else ""
-            val = f"tl.load({ptr} + ({offs}){m})"
-        if v.dtype == "bool":
-            val = f"({val} != 0)"
-        self.emit(f"{v.var} = {val}")
-
-    def store(self, name: str, ptr: str) -> None:
-        node = self.g[name]
-        v = self.vals[name]
-        val = v.var
-        if v.dtype == "bool":
-            val = f"{val}.to(tl.int8)"
-        if not v.row and not v.dims:
-            self.emit(f"tl.store({ptr}, {val}, mask=pid == 0)")
-            return
-        offs, mask = self.index_and_mask(node.shape, v.row)
-        if not v.row:
-            # every program holds the invariant value; program 0 writes it
-            mask = f"({mask}) & (pid == 0)" if mask else "pid == 0"
-        m = f", mask={mask}" if mask else ""
-        self.emit(f"tl.store({ptr} + ({offs}), {val}{m})")
-
-    def member(self, node: OpNode) -> None:
-        k = node.kind
-        ops = [self.vals[o] for o in node.operands]
-        v = self.new_val(node.name)
-        if k is OpKind.ELEMENTWISE:
-            expr = self.elementwise(node, ops)
-        elif k is OpKind.BROADCAST:
-            expr = self.broadcast(node, ops[0], v)
-        elif k is OpKind.RESHAPE:
-            expr = self.reshape(ops[0], v)
-        elif k is OpKind.TRANSPOSE:
-            expr = ops[0].var            # only size-1 axes move (checked)
-        elif k is OpKind.REDUCTION:
-            expr = self.reduction(node, ops[0], v)
-        else:  # pragma: no cover - check_emittable rejects the rest
-            raise StitchInfeasible(f"cannot emit {k}")
-        self.emit(f"{v.var} = {expr}")
-        self.vals[node.name] = v
+            layout="flat", block=self.block, view_outs=view_outs)
 
     def elementwise(self, node: OpNode, ops: list[_Val]) -> str:
         op = node.attrs["op"]
@@ -1127,13 +2056,10 @@ class _Emitter:
             return src.var
         return f"tl.broadcast_to({src.var}[{idx}], {shape_s})"
 
-    def reshape(self, src: _Val, out: _Val) -> str:
-        if src.dims == out.dims:
-            return src.var
-        shape = out.kshape(self.block_r)
-        return f"tl.reshape({src.var}, ({', '.join(str(s) for s in shape)},))"
-
-    def reduction(self, node: OpNode, src: _Val, out: _Val) -> str:
+    def reduce_expr(self, node: OpNode, src: _Val) -> str:
+        """The reduction over ``src``'s tile (its padded lanes neutral), in
+        f32 for a float below f32, before the mean's division and the
+        rounding to the node's dtype."""
         op = node.attrs.get("op", "sum")
         src_shape = self.g[node.operands[0]].shape
         row_off = 1 if src.row else 0
@@ -1151,29 +2077,38 @@ class _Emitter:
         if fl and src.dtype not in ("float32", "float64"):
             x = f"{x}.to(tl.float32)"
         if not axes:
-            expr = x
-        else:
-            mask = self.axis_masks(src, axes)
-            if mask:
-                neutral = _NEUTRAL[op]
-                if not fl:
-                    neutral = {"max": f"{_int_min(src.dtype)}",
-                               "min": f"{_int_max(src.dtype)}"}.get(op, "0")
-                t = self.var()
-                self.emit(f"{t} = tl.where({mask}, {x}, {neutral})")
-                x = t
-            fn = {"sum": "tl.sum", "mean": "tl.sum", "max": "tl.max",
-                  "min": "tl.min"}[op]
-            expr = x
-            for ax in reversed(axes):
-                expr = f"{fn}({expr}, axis={ax})"
-            if op == "mean":
-                count = math.prod(src_shape[a] for a in node.attrs["axes"])
-                expr = f"({expr} / {float(count)})"
+            return x
+        mask = self.axis_masks(src, axes)
+        if mask:
+            neutral = _NEUTRAL[op]
+            if not fl:
+                neutral = {"max": f"{_int_min(src.dtype)}",
+                           "min": f"{_int_max(src.dtype)}"}.get(op, "0")
+            t = self.var()
+            self.emit(f"{t} = tl.where({mask}, {x}, {neutral})")
+            x = t
+        fn = {"sum": "tl.sum", "mean": "tl.sum", "max": "tl.max",
+              "min": "tl.min"}[op]
+        expr = x
+        for ax in reversed(axes):
+            expr = f"{fn}({expr}, axis={ax})"
+        return expr
+
+    def finish_reduction(self, node: OpNode, src: OpNode, expr: str) -> str:
+        """A reduction's value from its folded sum, max or min: the mean's
+        division, then the rounding to the node's dtype."""
+        op = node.attrs.get("op", "sum")
+        count = math.prod(src.shape[a] for a in node.attrs["axes"])
+        if op == "mean" and count != 1:
+            expr = f"({expr} / {float(count)})"
         dt = str(node.dtype)
-        if dt not in ("float32", "float64") or not fl:
+        if dt not in ("float32", "float64") or not _is_float(str(src.dtype)):
             expr = f"({expr}).to({_TL_DTYPES[dt]})"
         return expr
+
+    def reduction(self, node: OpNode, src: _Val, out: _Val) -> str:
+        return self.finish_reduction(node, self.g[node.operands[0]],
+                                     self.reduce_expr(node, src))
 
 
 def _int_min(dtype: str) -> int:
@@ -1283,6 +2218,10 @@ class StitchedKernel:
         # contiguous tensors under its own shapes)
         self._in_idx = [p.external_inputs.index(n) for n in em.in_names]
         self._out_idx = [p.external_outputs.index(n) for n in em.out_names]
+        # outputs that are runs of an input's elements: views of it
+        self._view_idx = [(p.external_outputs.index(o),
+                           p.external_inputs.index(i), off)
+                          for o, i, off in em.view_outs]
         _LAUNCHES.setdefault(em.digest, 0)
 
     @property
@@ -1338,46 +2277,53 @@ class StitchedKernel:
         for k, dt in zip(self._out_idx, em.out_dtypes):
             tdt = torch.int8 if dt == "bool" else canonical_dtype(dt)
             outs.append(torch.empty(self.out_shapes[k], dtype=tdt, device=device))
+        # the program-private scratch of values stored and reloaded at other
+        # offsets: a kernel's own workspace, never read outside it
+        scratch = [torch.empty(n, dtype=torch.int8 if dt == "bool"
+                               else canonical_dtype(dt), device=device)
+                   for n, dt in em.scratch]
         t0 = time.perf_counter() if self.build_seconds is None else None
         mod = _load_module(em)
-        args = [prepared[i] for i in self._in_idx] + outs
+        args = [prepared[i] for i in self._in_idx] + outs + scratch
         mod.stitched_kernel[(em.grid,)](*args, num_warps=em.num_warps)
         if t0 is not None:
             self.build_seconds = time.perf_counter() - t0
         if count:
             self.launches += 1
             _LAUNCHES[em.digest] = _LAUNCHES.get(em.digest, 0) + 1
-        result: list = [None] * len(outs)
+        result: list = [None] * len(self.out_shapes)
         for o, k, dt in zip(outs, self._out_idx, em.out_dtypes):
             result[k] = o.view(torch.bool) if dt == "bool" else o
+        for k, i, off in self._view_idx:
+            shape = self.out_shapes[k]
+            x = prepared[i].reshape(-1)[off:off + math.prod(shape)].view(shape)
+            result[k] = x.view(torch.bool) if self.out_dtypes[k] == "bool" else x
         return tuple(result)
 
 
 class StitchedView:
-    """A layout-only pattern (:func:`layout_only`) served with no kernel:
-    each output is its input's elements, in their order, under the output's
+    """A pattern whose every output is a view of an input
+    (:func:`view_outputs`) served with no kernel: each output is a run of
+    its input's elements, in their order, at its offset, under the output's
     shape, so ``f(*external_inputs) -> tuple(outputs)`` gives it as a view
-    of the input (``reshape``; a transpose of size-1 axes and a broadcast
-    adding size-1 dims are reshapes too) on any device, and nothing is
-    built or launched.  Where an input's strides admit no view, ``reshape``
-    copies, as the launch path's ``.contiguous()`` does; an output is made
-    contiguous, as a kernel's is; each copied output is counted
-    (:func:`view_copy_counts`), each call too (:func:`view_counts`)."""
+    of the input on any device, and nothing is built or launched.  Where an
+    input's strides admit no view it is copied first, as the launch path's
+    ``.contiguous()`` does; an output is contiguous, as a kernel's is; each
+    copied output is counted (:func:`view_copy_counts`), each call too
+    (:func:`view_counts`)."""
 
-    def __init__(self, p: FusionPattern):
+    def __init__(self, p: FusionPattern, views: dict[str, tuple[str, int]]):
         g = p.graph
         self.pattern = p
         self.out_shapes = [tuple(g[n].shape) for n in p.external_outputs]
         self.out_dtypes = [str(g[n].dtype) for n in p.external_outputs]
         self._dtypes = [canonical_dtype(d) for d in self.out_dtypes]
         ins = p.external_inputs
-        self._roots = []
-        for name in p.external_outputs:
-            while name not in ins:
-                name = g[name].operands[0]
-            self._roots.append(ins.index(name))
-        spec = ";".join(f"{g[ins[r]].shape}->{s}:{d}" for r, s, d in zip(
-            self._roots, self.out_shapes, self.out_dtypes))
+        # output j <- (external input index, element offset)
+        self.runs = [views[o] for o in p.external_outputs]
+        self._roots = [(ins.index(i), off) for i, off in self.runs]
+        spec = ";".join(f"{g[ins[r]].shape}+{off}->{s}:{d}" for (r, off), s, d
+                        in zip(self._roots, self.out_shapes, self.out_dtypes))
         self.digest = "view_" + hashlib.sha1(spec.encode()).hexdigest()[:11]
         _VIEWS.setdefault(self.digest, 0)
         _VIEW_COPIES.setdefault(self.digest, 0)
@@ -1388,36 +2334,34 @@ class StitchedView:
 
     def __call__(self, *inputs, count: bool = True) -> tuple:
         outs, copies = [], 0
-        for r, shape, dt in zip(self._roots, self.out_shapes, self._dtypes):
+        for (r, off), shape, dt in zip(self._roots, self.out_shapes,
+                                       self._dtypes):
             x = inputs[r]
-            if x.dtype == dt and x.is_contiguous():
-                outs.append(x.view(shape))
-                continue
-            y = x.to(dt).reshape(shape).contiguous()
-            copies += y.data_ptr() != x.data_ptr()
-            outs.append(y)
+            base = x.to(dt).contiguous()
+            copies += base.data_ptr() != x.data_ptr()
+            outs.append(base.reshape(-1)[off:off + math.prod(shape)].view(shape))
         if count:
             _VIEWS[self.digest] += 1
             _VIEW_COPIES[self.digest] += copies
         return tuple(outs)
 
 
-def build_stitched_callable(p: FusionPattern, *, row_block: int | None = None,
-                            layout: str | None = None):
+def build_stitched_callable(p: FusionPattern, *, row_block: int | None = None):
     """Emit the fused kernel.  Returns ``f(*external_inputs) -> tuple(outputs)``
     (input/output order = ``p.external_inputs`` / ``p.external_outputs``):
-    a :class:`StitchedView` for a layout-only pattern that :func:`view_refusal`
-    admits, else a :class:`StitchedKernel`, in the flat layout where the
-    pattern computes element by element.  ``layout="rows"`` asks for the
-    kernel in the rows layout whatever the pattern (the card check holds
-    the others against it); the static check and the analysis are the same
-    either way, so plans do not depend on it.
+    a :class:`StitchedView` when every output is a view of an input
+    (:func:`view_outputs`), else a :class:`StitchedKernel` that stores the
+    other outputs, in the flat layout where the pattern computes element by
+    element.  A pattern :func:`emission_plan` refuses raises, views or not.
 
     A template's scratch-marked intermediates need no code of their own:
-    every intermediate already stays in registers."""
-    emit_p, ana = emission_plan(p)
-    if layout is None and layout_only(p) and view_refusal(p) is None:
-        return StitchedView(p)
+    every intermediate stays in registers, except what the emitter itself
+    stores to scratch to load it at other offsets (:class:`_Emitter`)."""
+    views = view_outputs(p)
+    emit_p, ana, emitted = _emission(p, views)
+    if len(views) == len(p.external_outputs):
+        return StitchedView(p, views)
     rb = row_block or ana.feasible_blocks[0]
-    em = _Emitter(emit_p, ana, rb, layout).run()
-    return StitchedKernel(p, ana, em)
+    if rb != ana.feasible_blocks[0]:
+        emitted = _Emitter(emit_p, ana, rb, views).run()
+    return StitchedKernel(p, ana, emitted)

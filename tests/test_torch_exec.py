@@ -234,10 +234,55 @@ def test_stitch_and_shadow_create_a_service():
     for mode in ("stitch", "shadow"):
         sf = stitch(torch.tanh, mode=mode, device="cpu")
         assert isinstance(sf.service, CompilationService)
-    assert stitch(torch.tanh, device="cpu").service is None      # offline
+    sf = stitch(torch.tanh, device="cpu")        # the default: stitch mode
+    assert sf.mode == "stitch" and isinstance(sf.service, CompilationService)
+    assert stitch(torch.tanh, mode="offline", device="cpu").service is None
     with pytest.raises(ValueError, match="service="):
         stitch(torch.tanh, mode="stitch", device="cpu",
                compiler=CompilationService().compiler("stitch"))
+
+
+@pytest.mark.parametrize("call", ["no_mode", "service", "offline_service"])
+def test_stitch_takes_the_references_calls(call):
+    """The reference's ``tests/test_exec.py`` calls, unchanged but for
+    ``device="cpu"``: ``stitch(fn)``, ``stitch(fn, service=svc)`` and
+    ``stitch(fn, mode="offline", service=svc)`` run on both packages with
+    equal results, and equal statuses and stitched and jit call counts
+    after ``wait()``."""
+    def fn(d):
+        h = torch.exp(d["x"] - torch.amax(d["x"], -1, keepdim=True))
+        return h / torch.sum(h, -1, keepdim=True)
+
+    def rfn(d):
+        h = jnp.exp(d["x"] - jnp.max(d["x"], -1, keepdims=True))
+        return h / jnp.sum(h, -1, keepdims=True)
+
+    _, (x,), (rx,) = pair((16, 64), seed=7)
+    kwargs = {"no_mode": {}, "service": {}, "offline_service": {
+        "mode": "offline"}}[call]
+    if call == "no_mode":
+        sf, rsf = stitch(fn, device="cpu"), ref_stitch(rfn)
+    else:
+        sf = stitch(fn, service=CompilationService(), device="cpu", **kwargs)
+        rsf = ref_stitch(rfn, service=RefService(), **kwargs)
+    assert sf.mode == rsf.mode
+    outs = [(sf({"x": x}), rsf({"x": rx}))]
+    # a background compile may land before the first call's poll
+    first = ({"compiled"} if call == "offline_service"
+             else {"miss", "pending", "hit"})
+    assert {sf.status, rsf.status} <= first
+    sf.wait(120)
+    rsf.wait(120)
+    outs.append((sf({"x": x}), rsf({"x": rx})))
+    assert sf.status == rsf.status == ("compiled" if call == "offline_service"
+                                       else "hit")
+    assert sf.compiled.stats.mode == rsf.compiled.stats.mode == "stitch"
+    for got, want in outs:
+        ck([got], [fn({"x": x})])
+        ck([got], [want], CROSS)
+    assert (sf.stitched_calls, sf.jit_calls, sf.fallback_calls) == (
+        rsf.stitched_calls, rsf.jit_calls, rsf.fallback_calls) == (2, 0, 0)
+    assert sf.report()["service_error"] is rsf.report()["service_error"] is None
 
 
 def test_background_failure_warns_once_and_reports(monkeypatch):

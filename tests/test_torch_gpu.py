@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch.core import FusionPattern, GraphBuilder, PackPattern
+from repro_torch.kernels import stitched
 from repro_torch.kernels.stitched import build_stitched_callable
 
 
@@ -88,6 +89,150 @@ def prefill_norm_graph(builder=GraphBuilder, B=4, S=64, D=2048,
     return b.build(outputs=[h, out])
 
 
+def _slice_row_input(b):
+    """A trailing-dim slice of a ROW input, then exp."""
+    x = b.param("x", (12, 8, 100))
+    return [b.ew("exp", b.slice_(x, (0, 2, 10), (12, 6, 90)))]
+
+
+def _slice_computed(b):
+    """RoPE's rotate-half after a row reduction: the halves of a computed
+    value's last axis, each a slice of an in-kernel value."""
+    x = b.param("x", (12, 4, 128))
+    c = b.param("cos", (12, 4, 64))
+    s = b.param("sin", (12, 4, 64))
+    ms = b.reduce("mean", b.ew("mul", x, x), axes=(2,), keepdims=True)
+    n = b.ew("mul", x, b.bcast(b.ew("rsqrt", ms), (12, 4, 128), (0, 1, 2)))
+    lo = b.slice_(n, (0, 0, 0), (12, 4, 64))
+    hi = b.slice_(n, (0, 0, 64), (12, 4, 128))
+    return [b.ew("sub", b.ew("mul", lo, c), b.ew("mul", hi, s)),
+            b.ew("add", b.ew("mul", hi, c), b.ew("mul", lo, s))]
+
+
+def _slice_invariant(b):
+    """A slice of an invariant (leading dim not the rows) input: broadcast
+    into a ROW sum, and an invariant output copied as it is."""
+    t = b.param("table", (2, 6, 16))
+    x = b.param("x", (12, 6, 16))
+    half = b.reshape(b.slice_(t, (1, 0, 0), (2, 6, 16)), (6, 16))
+    return [b.ew("add", x, b.bcast(half, (12, 6, 16), (1, 2))), half]
+
+
+def _transpose_moves(b):
+    """Transposes that move two trailing axes: of an input (composed into
+    the load) and of a computed value (permuted in registers)."""
+    x = b.param("x", (12, 6, 20))
+    t = b.transpose(x, (0, 2, 1))
+    u = b.transpose(b.ew("mul", x, x), (0, 2, 1))
+    return [b.ew("exp", t), u]
+
+
+def _reshape_leading(b):
+    """A reshape whose first kernel axis is not a power of two, (384,) ->
+    (3, 128), of a computed value: a reshape of the padded tile."""
+    x = b.param("x", (12, 384))
+    y = b.reshape(b.ew("exp", x), (12, 3, 128))
+    return [b.reduce("sum", y, axes=(2,)), y]
+
+
+def _reshape_inner(b):
+    """GQA's (48, 128) -> (8, 6, 128) at a small size: an inner axis that
+    is not a power of two, of a computed value (through scratch)."""
+    x = b.param("x", (4, 12, 32))
+    y = b.reshape(b.ew("exp", x), (4, 4, 3, 32))
+    return [b.reduce("max", y, axes=(2,))]
+
+
+def _gather_invariant(b):
+    """Gathers from an invariant table at ROW indices: loaded indices, and
+    indices computed in the kernel (through scratch)."""
+    table = b.param("table", (50, 24))
+    idx = b.param("idx", (12, 5), "int32")
+    x = b.param("x", (12, 5, 24))
+    y = b.ew("mul", b.gather(table, idx), x)
+    one = b.const("one", (), "int32")
+    j = b.ew("add", idx, b.bcast(one, (12, 5), ()))
+    return [y, b.ew("exp", b.gather(table, j))]
+
+
+def _wide_row(b):
+    """A softmax over rows of 151936 elements (a vocabulary): the max and
+    the sum feed an elementwise member, in sweeps over the row."""
+    x = b.param("x", (4, 151936))
+    m = b.bcast(b.reduce("max", x, axes=(1,)), (4, 151936), (0,))
+    e = b.ew("exp", b.ew("sub", x, m))
+    s = b.bcast(b.reduce("sum", e, axes=(1,)), (4, 151936), (0,))
+    return [b.ew("div", e, s)]
+
+
+def _wide_invariant(b):
+    """Weight casts beside a ROW pattern (a block's parameters cast at use):
+    invariant tiles of 24576 and 20000 elements, each chunked along its own
+    outermost axis and dealt out to the programs."""
+    x = b.param("x", (12, 8))
+    w1 = b.param("w1", (24, 1024))
+    w2 = b.param("w2", (5, 4000))
+    return [b.ew("convert", x, dtype="bfloat16"), b.ew("exp", x),
+            b.ew("convert", w1, dtype="bfloat16"), b.ew("exp", w2)]
+
+
+def _kv_cut(b):
+    """The stacked KV cache cut into k and v: slices along the leading axis
+    of an invariant input, reshaped; data movement only."""
+    kv = b.param("kv", (2, 4, 16, 2, 32))
+    k = b.reshape(b.slice_(kv, (0, 0, 0, 0, 0), (1, 4, 16, 2, 32)),
+                  (4, 16, 2, 32))
+    v = b.reshape(b.slice_(kv, (1, 0, 0, 0, 0), (2, 4, 16, 2, 32)),
+                  (4, 16, 2, 32))
+    return [k, v]
+
+
+def _gather_moves(b):
+    """A gather of an embedding table at ROW ids, its rows cut in halves and
+    swapped by a transpose: data movement only."""
+    table = b.param("table", (40, 2, 24))
+    ids = b.param("ids", (12,), "int32")
+    g = b.gather(table, ids)
+    return [b.transpose(g, (0, 2, 1)), b.slice_(g, (0, 1, 8), (12, 2, 20))]
+
+
+# the data-movement member classes the emitter renders, each a graph whose
+# compute nodes (all of them) form the pattern: (builder, data movement only)
+MOVEMENT_CASES = {
+    "slice_row_input": (_slice_row_input, False),
+    "slice_computed": (_slice_computed, False),
+    "slice_invariant": (_slice_invariant, False),
+    "transpose_moves": (_transpose_moves, False),
+    "reshape_leading": (_reshape_leading, False),
+    "reshape_inner": (_reshape_inner, False),
+    "gather_invariant": (_gather_invariant, False),
+    "wide_row": (_wide_row, False),
+    "wide_invariant": (_wide_invariant, False),
+    "kv_cut": (_kv_cut, True),
+    "gather_moves": (_gather_moves, True),
+}
+
+
+def movement_graph(case: str, builder=GraphBuilder):
+    b = builder(case)
+    return b.build(outputs=MOVEMENT_CASES[case][0](b))
+
+
+def movement_inputs(g, names, seed: int = 0) -> list:
+    """Seeded numpy inputs: indices in range of their table, floats from a
+    normal, scalars 1."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in names:
+        node = g[n]
+        if str(node.dtype).startswith("int"):
+            hi = 39 if node.shape else 1
+            out.append(rng.integers(0, hi, node.shape).astype(str(node.dtype)))
+        else:
+            out.append(rng.standard_normal(node.shape).astype(str(node.dtype)))
+    return out
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: Triton kernels have no CPU mode")
@@ -130,6 +275,58 @@ def test_implicit_broadcast_kernel_on_card(dtype, tol):
     assert k.launches == before + 1
     for o, r in zip(out, k.plain(*args)):
         torch.testing.assert_close(o.float(), r.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(MOVEMENT_CASES))
+def test_data_movement_kernel_on_card(case):
+    """Each data-movement member class launched on the card against its
+    plain version: f32 within 2e-5, a kernel of data movement only bit for
+    bit (it rounds nothing)."""
+    _need_card()
+    g = movement_graph(case)
+    p = FusionPattern(g, frozenset(n.name for n in g.compute_nodes()))
+    k = build_stitched_callable(p)
+    args = [torch.as_tensor(x).cuda()
+            for x in movement_inputs(g, p.external_inputs)]
+    before = k.launches
+    out = k(*args)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    for o, r in zip(out, k.plain(*args)):
+        assert o.shape == r.shape and o.dtype == r.dtype
+        if MOVEMENT_CASES[case][1]:
+            assert torch.equal(o, r)
+        else:
+            torch.testing.assert_close(o, r, rtol=2e-5, atol=2e-5)
+
+
+def kv_cut_pattern():
+    """The KV cut of ``MOVEMENT_CASES`` read by members outside the
+    pattern: k and v are not graph outputs."""
+    b = GraphBuilder("kv_cut_inner")
+    k, v = _kv_cut(b)
+    g = b.build(outputs=[b.ew("exp", k), b.ew("exp", v)])
+    return FusionPattern(g, frozenset(n for n in g.nodes
+                                      if g[n].kind.value in ("slice",
+                                                             "reshape")))
+
+
+@pytest.mark.gpu
+def test_input_runs_are_views_on_card():
+    """Outputs that are runs of an input's elements (k and v of the stacked
+    cache) come back as views of the input at their offsets, bit for bit
+    the plain version's, and nothing is launched."""
+    _need_card()
+    p = kv_cut_pattern()
+    k = build_stitched_callable(p)
+    kv = torch.randn(2, 4, 16, 2, 32, device="cuda")
+    stitched.reset_launch_counts()
+    out = k(kv)
+    assert not any(stitched.launch_counts().values())
+    for o, r in zip(out, k.plain(kv)):
+        assert torch.equal(o, r) and o.is_contiguous()
+        assert o.untyped_storage().data_ptr() == kv.untyped_storage().data_ptr()
 
 
 @pytest.mark.gpu
@@ -740,8 +937,8 @@ def test_reduced_falcon_mamba_kernel_mode_on_card():
     lp = model.layer_params(params, 0)
     ops.reset_launch_counts()
     with ops.kernel_mode("kernels"):
-        score = stitch(model.train_forward, device="cuda")
-        block = stitch(model.block_fn, device="cuda")
+        score = stitch(model.train_forward, mode="offline", device="cuda")
+        block = stitch(model.block_fn, mode="offline", device="cuda")
         loss, _ = score(params, batch)
         y = block(lp, x)
     torch.cuda.synchronize()
@@ -856,8 +1053,8 @@ def test_reduced_recurrentgemma_kernel_mode_on_card():
     lp = params["supers"][0]["l0"]
     ops.reset_launch_counts()
     with ops.kernel_mode("kernels"):
-        score = stitch(model.train_forward, device="cuda")
-        block = stitch(model.block_fn, device="cuda")
+        score = stitch(model.train_forward, mode="offline", device="cuda")
+        block = stitch(model.block_fn, mode="offline", device="cuda")
         loss, _ = score(params, batch)
         y = block(lp, x)
     torch.cuda.synchronize()
@@ -1256,7 +1453,7 @@ def test_kernel_api_paths_on_card():
     }
     for name, (fn, args, launched) in cases.items():
         with ops.kernel_mode("kernels"):
-            sf = stitch(fn, device="cuda")
+            sf = stitch(fn, mode="offline", device="cuda")
             sf(*args)
         ops.reset_launch_counts()
         got = sf(*args)
@@ -1372,7 +1569,6 @@ def test_two_background_compiles_share_kernels_on_card():
     _need_card()
     from repro_torch.cache import CompilationService, StitchCache
     from repro_torch.core.trace import trace_to_graph
-    from repro_torch.kernels import stitched
 
     def fn(x, w):
         h = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-6) * w
@@ -1412,7 +1608,6 @@ def test_execution_based_tuning_measures_every_triton_group_on_card():
     _need_card()
     from repro_torch.core import StitchCompiler
     from repro_torch.core.trace import trace_to_graph
-    from repro_torch.kernels import stitched
 
     def fn(x, w):
         h = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-6) * w

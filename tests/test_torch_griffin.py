@@ -300,7 +300,7 @@ def test_stitched_train_forward_kernel_mode_matches_eager():
     _, batch = _batch(model.cfg, S=128, seed=2)
     with ops.kernel_mode("kernels"):
         eager, _ = model.train_forward(params, batch)
-        sf = stitch(model.train_forward, device="cpu")
+        sf = stitch(model.train_forward, mode="offline", device="cpu")
         got, _ = sf(params, batch)
     assert sf.report()["calls"]["stitched"] == 1
     assert abs(float(got) - float(eager)) < LOSS_TOL

@@ -472,7 +472,7 @@ def stitched_run(path: str, modes: tuple):
     with ref_ops.kernel_mode(modes[0]):
         want = jax.jit(_ref_fns()[path])(*(jnp.asarray(a) for a in args))
     with ops.kernel_mode(modes[1]):
-        sf = stitch(PORT_FNS[path], device="cpu")
+        sf = stitch(PORT_FNS[path], mode="offline", device="cpu")
         got = sf(*(torch.as_tensor(a) for a in args))
     flat = (lambda o: o if isinstance(o, tuple) else (o,))
     return ([np.asarray(w) for w in flat(want)],

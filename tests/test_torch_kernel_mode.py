@@ -312,7 +312,9 @@ def test_stitched_engine_serves_layout_patterns_as_views():
              and isinstance(grp.tuned.callable, stitched.StitchedView)]
     assert views
     for grp in views:
-        assert stitched.view_refusal(grp.tuned.pattern) is None
+        p = grp.tuned.pattern
+        assert all(stitched.alias_refusal(p.graph, o) is None
+                   for o in p.external_outputs)
     np.testing.assert_array_equal(ref_toks, port[0])
     np.testing.assert_array_equal(ref_toks, ref[0])
 

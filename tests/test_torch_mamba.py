@@ -322,7 +322,7 @@ def test_stitched_train_forward_kernel_mode_matches_eager():
     L = model.cfg.n_layers
     with ops.kernel_mode("kernels"):
         eager, _ = model.train_forward(params, batch)
-        sf = stitch(model.train_forward, device="cpu")
+        sf = stitch(model.train_forward, mode="offline", device="cpu")
         got, _ = sf(params, batch)
     assert sf.report()["calls"]["stitched"] == 1
     assert abs(float(got) - float(eager)) < LOSS_TOL

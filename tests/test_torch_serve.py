@@ -25,6 +25,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.core import OpKind
 from repro_torch.core.trace import trace_to_graph
 from repro_torch.exec import stitch
+from repro_torch.kernels import stitched
 from repro_torch.models import build_model
 from repro_torch.models.convert import params_from_jax, params_to_numpy
 from repro_torch.serve import Engine, ServeConfig
@@ -120,9 +121,17 @@ def test_reduced_decode_plan_has_triton_groups():
     assert plan["triton_groups"] > 0
     assert plan["n_kernels"] < plan["n_ops"]
     compiled = eng._exec.compiled
+    kernels = 0
     for grp in compiled.groups:
         if grp.kind == "triton":
-            compile(grp.tuned.callable.source, "<stitched>", "exec")
+            k = grp.tuned.callable
+            # a pattern whose outputs are all views of its inputs has no
+            # kernel to compile
+            if isinstance(k, stitched.StitchedView):
+                continue
+            compile(k.source, "<stitched>", "exec")
+            kernels += 1
+    assert kernels > 0
 
 
 def test_generate_matches_staged_tokens():
@@ -168,7 +177,7 @@ def test_stitch_falls_back_on_drift():
     def fn(x, y):
         return {"s": torch.softmax(x, -1) * y}
 
-    sf = stitch(fn, device="cpu", name="fn")
+    sf = stitch(fn, mode="offline", device="cpu", name="fn")
     x, y = torch.randn(4, 8), torch.randn(4, 8)
     torch.testing.assert_close(sf(x, y)["s"], fn(x, y)["s"])
     sf(torch.randn(2, 8), torch.randn(2, 8))
